@@ -1,0 +1,156 @@
+"""The matmul kernel's dispatch and plain version against the JAX package's
+Pallas matmul (run in interpret mode), and the rules around the CUDA kernel
+that hold without a GPU: it builds lazily, counts its launches, and raises
+instead of falling back.
+
+The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py compares
+it with ``matmul_reference`` there."""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tinynn_autograd_tpu.ops.kernels import pallas_matmul
+from tinynn_autograd_tpu_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+# the shapes of the JAX package's Pallas matmul test
+SHAPES = [
+    (128, 128, 128),
+    (256, 512, 256),
+    (128, 784, 200),
+    (100, 30, 10),
+    (1, 784, 200),
+    (130, 129, 131),
+]
+
+def _operands(m, k, n, ta, tb, seed=0, dtype=np.float32):
+    """numpy operands and their torch counterparts; a transposed operand is
+    a transposed VIEW of a contiguous tensor, as the tape's VJPs pass it."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(*((k, m) if ta else (m, k))).astype(dtype)
+    b = rng.randn(*((n, k) if tb else (k, n))).astype(dtype)
+    ta_t, tb_t = torch.from_numpy(a), torch.from_numpy(b)
+    if ta:
+        a, ta_t = a.T, ta_t.T
+    if tb:
+        b, tb_t = b.T, tb_t.T
+    return a, b, ta_t, tb_t
+
+
+@pytest.mark.parametrize("transpose", [(False, False), (True, False),
+                                       (False, True), (True, True)],
+                         ids=["nn", "tn", "nt", "tt"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_cpu_matmul_matches_pallas_interpret(m, k, n, transpose):
+    a, b, ta, tb = _operands(m, k, n, *transpose)
+    expected = np.asarray(pallas_matmul(jnp.asarray(a), jnp.asarray(b),
+                                        interpret=True))
+    got = kernels.matmul(ta, tb)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-4)
+
+
+def test_cpu_matmul_bf16_inputs_match_pallas_interpret():
+    rng = np.random.RandomState(1)
+    a = rng.randn(128, 256).astype(np.float32)
+    b = rng.randn(256, 128).astype(np.float32)
+    expected = np.asarray(pallas_matmul(
+        jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+        interpret=True)).astype(np.float32)
+    got = kernels.matmul(torch.from_numpy(a).to(torch.bfloat16),
+                         torch.from_numpy(b).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16  # promote(a, b), as the kernel
+    np.testing.assert_allclose(got.float().numpy(), expected,
+                               rtol=2e-2, atol=2e-1)
+    np.testing.assert_allclose(got.float().numpy(), a @ b,
+                               rtol=2e-2, atol=2e-1)
+
+
+def test_bf16_precision_mode_returns_f32():
+    rng = np.random.RandomState(2)
+    a = rng.randn(64, 96).astype(np.float32)
+    b = rng.randn(96, 32).astype(np.float32)
+    expected = np.asarray(pallas_matmul(
+        jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+        interpret=True)).astype(np.float32)
+    kernels.set_matmul_precision("bf16")
+    try:
+        assert kernels.matmul_precision() == "bf16"
+        got = kernels.matmul(torch.from_numpy(a), torch.from_numpy(b))
+    finally:
+        kernels.set_matmul_precision("f32")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), expected, rtol=2e-2, atol=2e-1)
+    with pytest.raises(ValueError):
+        kernels.set_matmul_precision("tf32")
+
+
+def test_non_2d_products_stay_torch_matmul():
+    a = torch.randn(2, 5, 7)
+    b = torch.randn(7, 3)
+    before = kernels.cuda_matmul.launches
+    np.testing.assert_allclose(kernels.matmul(a, b).numpy(),
+                               torch.matmul(a, b).numpy(), rtol=1e-6)
+    assert kernels.cuda_matmul.launches == before
+
+
+def test_module_imports_without_nvcc_and_builds_nothing():
+    mod = importlib.reload(kernels)
+    assert mod._loaded == {}
+    assert "ctypes" not in vars(mod)
+    assert mod.cuda_matmul.launches == 0
+
+
+def test_launch_counter_stays_zero_on_cpu():
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+
+    before = kernels.cuda_matmul.launches
+    model = Model(build_mnist_mlp(hidden=(16, 8)), SoftmaxCrossEntropyLoss(),
+                  Adam(1e-3), device="cpu")
+    rng = np.random.RandomState(0)
+    x = rng.rand(32, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 32)]
+    model.train_step(x, y)
+    model.predict(x)
+    assert kernels.cuda_matmul.launches == before
+
+
+def test_nvcc_command_targets_sm_90a():
+    cmd = kernels.nvcc_command("nvcc", kernels.MATMUL_SOURCE, "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd
+    assert "--use_fast_math" not in cmd
+    assert cmd[-1].endswith("csrc/matmul.cu")
+
+
+def test_cuda_entry_without_a_cuda_device_raises():
+    before = kernels.cuda_matmul.launches
+    a = torch.randn(4, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.cuda_matmul(a, a.T)
+    meta = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.cuda_matmul(meta, meta.T)
+    assert kernels.cuda_matmul.launches == before
+
+
+def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    import shutil
+    import torch.utils.cpp_extension as cpp_extension
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_matmul()
+    assert list(tmp_path.iterdir()) == []

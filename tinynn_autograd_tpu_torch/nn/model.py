@@ -1,0 +1,285 @@
+"""Model: net + loss + optimizer facade on one explicit device.
+
+PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainer:
+
+1. The eager loop: ``zero_grad -> forward -> loss -> backward -> step``.
+2. ``train_step(x, y)``: forward + tape backward + optimizer update for one
+   batch, returning the loss as a device scalar (no host sync).
+3. ``train_epoch``/``train_epochs``: the data staged on the device once, an
+   on-device shuffle per epoch (``torch.randperm`` with the model's own
+   generator), then a loop of train steps over the batches. This is the
+   step tier; ``fused="auto"`` and ``False`` take it. The whole-epoch
+   megakernel (``fused=True``) and the weight-streaming tier
+   (``fused="stream"``) are not ported yet and raise.
+
+Parameters are updated IN PLACE (``param.add_(step)``), which saves a second
+copy of the weights on the device each step. Every parameter and every input
+lives on ``device``, which has no default: a model never lands on the CPU
+because no GPU was found.
+
+Checkpoints (``save``/``load``) use the JAX package's pickle format
+``tinynn_tpu_ckpt_v1``, so a checkpoint written by either package loads in
+the other.
+"""
+
+import pickle
+
+import numpy as np
+import torch
+
+from tinynn_autograd_tpu_torch.core.tensor import Tensor, to_torch
+from tinynn_autograd_tpu_torch.utils import seeder
+from tinynn_autograd_tpu_torch.utils.convert import (
+    params_from_jax, params_to_numpy,
+)
+
+
+class Model:
+
+    def __init__(self, net, loss, optimizer, device):
+        self.net = net
+        self.loss = loss
+        self.optimizer = optimizer
+        self.device = torch.device(device)
+
+        self._phase = "TRAIN"
+        self._shuffle_gen = None
+        if net.is_init:
+            net.to(self.device)
+
+    # ------------------------------------------------------------- staging
+
+    def _stage_one(self, x):
+        return to_torch(x).to(self.device)
+
+    def stage(self, x, y=None):
+        """Move data to the model's device once; returns device tensor(s).
+        Feed the result to ``train_epoch`` so epochs run with no
+        host-to-device traffic."""
+        if y is None:
+            return self._stage_one(x)
+        return self._stage_one(x), self._stage_one(y)
+
+    def _ensure_init(self, input_shape):
+        if not self.net.is_init:
+            self.net.init(input_shape)
+        self.net.to(self.device)
+
+    # ------------------------------------------------------------- forward
+
+    def forward(self, inputs):
+        """Taped forward; a Tensor already on the device keeps its tape."""
+        if not (isinstance(inputs, Tensor) and inputs.device == self.device):
+            inputs = Tensor(self._stage_one(inputs))
+        self._ensure_init(inputs.shape)
+        return self.net.forward(inputs)
+
+    def predict(self, inputs):
+        """Inference forward; returns a Tensor with no tape history."""
+        x = self._stage_one(inputs)
+        self._ensure_init(x.shape)
+        return Tensor(self.net.forward(Tensor(x)).data)
+
+    def evaluate_batch(self, x, y, evaluator):
+        """TEST-phase forward + argmax for classification eval; restores
+        the prior phase."""
+        prev = self._phase
+        if prev != "TEST":
+            self.set_phase("TEST")
+        preds = self.predict(x)
+        if prev != "TEST":
+            self.set_phase(prev)
+        pred_idx = np.argmax(preds.numpy(), axis=1)
+        targets = y.numpy() if isinstance(y, Tensor) else np.asarray(y)
+        return evaluator.evaluate(pred_idx, targets)
+
+    # ---------------------------------------------------------- train step
+
+    def _apply_grads(self, grads):
+        """One optimizer update, written into the parameters in place."""
+        params = self.net.get_parameters()
+        steps = self.optimizer.compute_step(grads, params)
+        for step, param in zip(steps, params):
+            for k, p in param.items():
+                p.data.add_(step[k])
+                p.grad = None
+
+    def _step(self, xb, yb):
+        for param in self.net.get_parameters():
+            for p in param.values():
+                p.grad = None
+        pred = self.net.forward(Tensor(xb))
+        loss_t = self.loss.loss(pred, Tensor(yb))
+        loss_t.backward()
+        self._apply_grads(self.net.collect_grads())
+        return loss_t.data
+
+    def train_step(self, x, y, accum_steps=1):
+        """One optimization step; returns the loss as a device scalar (no
+        host sync: wrap in float() to wait for it)."""
+        if accum_steps != 1:
+            raise NotImplementedError(
+                "accum_steps > 1 is not ported to the PyTorch package yet "
+                "(see ROADMAP.md, queue 1)")
+        x, y = self.stage(x, y)
+        self._ensure_init(x.shape)
+        if self._phase != "TRAIN":
+            self.set_phase("TRAIN")
+        return self._step(x, y)
+
+    def train_epoch(self, x_all, y_all, batch_size=128, shuffle=True,
+                    fused="auto"):
+        """One full epoch; returns the per-step loss trace [n_steps] on the
+        device. The ragged tail (n % batch_size) is dropped."""
+        return self.train_epochs(x_all, y_all, n_epochs=1,
+                                 batch_size=batch_size, shuffle=shuffle,
+                                 fused=fused)[0]
+
+    def _shuffle_generator(self):
+        if self._shuffle_gen is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=seeder.generator()))
+            self._shuffle_gen = torch.Generator(device=self.device)
+            self._shuffle_gen.manual_seed(seed)
+        return self._shuffle_gen
+
+    def train_epochs(self, x_all, y_all, n_epochs, batch_size=128,
+                     shuffle=True, fused="auto"):
+        """``n_epochs`` full epochs over data staged on the device; returns
+        the loss trace [n_epochs, n_steps] on the device."""
+        if fused is True or fused == "stream":
+            raise NotImplementedError(
+                "fused=%r is not ported to the PyTorch package yet: the "
+                "whole-epoch megakernel is ROADMAP K2 and the weight-"
+                "streaming kernels are K3. Use fused='auto' or False."
+                % (fused,))
+        if fused not in ("auto", False):
+            raise ValueError("fused must be 'auto', False, True or 'stream', "
+                             "got %r" % (fused,))
+        x_all, y_all = self.stage(x_all, y_all)
+        feat, label_feat = tuple(x_all.shape[1:]), tuple(y_all.shape[1:])
+        self._ensure_init((batch_size,) + feat)
+        if self._phase != "TRAIN":
+            self.set_phase("TRAIN")
+
+        n = x_all.shape[0]
+        n_steps = n // batch_size
+        if n_steps == 0:
+            raise ValueError(
+                "dataset of %d samples is smaller than batch_size=%d "
+                "(the ragged tail is dropped; nothing would train)"
+                % (n, batch_size))
+        used = n_steps * batch_size
+        losses = torch.empty((n_epochs, n_steps), device=self.device)
+        for epoch in range(n_epochs):
+            if shuffle:
+                perm = torch.randperm(n, generator=self._shuffle_generator(),
+                                      device=self.device)[:used]
+                xs, ys = x_all[perm], y_all[perm]
+            else:
+                xs, ys = x_all[:used], y_all[:used]
+            xs = xs.reshape((n_steps, batch_size) + feat)
+            ys = ys.reshape((n_steps, batch_size) + label_feat)
+            for s in range(n_steps):
+                losses[epoch, s] = self._step(xs[s], ys[s])
+        return losses
+
+    # ------------------------------------------------------------ eager step
+
+    def step(self):
+        """Collect grads, compute optimizer steps, apply them in place."""
+        self._apply_grads([
+            {k: v.grad for k, v in param.items()}
+            for param in self.net.get_parameters()
+        ])
+
+    def zero_grad(self):
+        for param in self.net.get_parameters():
+            for p in param.values():
+                if p is not None:
+                    p.zero_grad()
+
+    # ----------------------------------------------------------- checkpoint
+
+    def save(self, path):
+        if not self.net.is_init:
+            raise RuntimeError(
+                "Model.save before parameters exist: the net has lazy layers "
+                "that were never initialized (run a forward / train step, or "
+                "call net.init(input_shape) first).")
+        state = self.optimizer.state_dict()
+        opt_state = None
+        if state is not None:
+            opt_state = {
+                "t": np.asarray(state["t"], np.int32),
+                "slots": {n: params_to_numpy(tree)
+                          for n, tree in state["slots"].items()},
+            }
+        payload = {
+            "format": "tinynn_tpu_ckpt_v1",
+            "params": params_to_numpy(self.net.params_tree()),
+            "opt_state": opt_state,
+            "buffers": self.net.buffers_tree(),
+            "layer_names": [l.name for l in self.net.layers],
+        }
+        with open(path, "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+        print("Model saved in %s." % path)
+
+    def load(self, path):
+        """Load a ``tinynn_tpu_ckpt_v1`` checkpoint (only files this program
+        or the JAX package wrote: unpickling runs code)."""
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        params = payload["params"]
+        if len(params) != len(self.net.layers):
+            raise ValueError(
+                "Incompatible architecture: %d layers in checkpoint vs %d "
+                "defined." % (len(params), len(self.net.layers)))
+        for i, (saved, layer) in enumerate(zip(params, self.net.layers)):
+            if layer.is_init:
+                have = layer.param_shapes
+            else:
+                have = {k: v for k, v in getattr(layer, "shapes", {}).items()}
+            for k, arr in saved.items():
+                want = have.get(k)
+                want = tuple(want) if want is not None else None
+                if (want is not None and None not in want
+                        and want != tuple(np.shape(arr))):
+                    raise ValueError(
+                        "Incompatible architecture at layer %d (%s/%s): "
+                        "%s in checkpoint vs %s defined."
+                        % (i, layer.name, k, tuple(np.shape(arr)), want))
+        if any(payload.get("buffers") or []):
+            raise ValueError("checkpoint carries layer buffers, which no "
+                             "layer of this package holds")
+        tree = params_from_jax(params, self.device)
+        self.net.bind_params(tree)
+        for layer, saved in zip(self.net.layers, tree):
+            if hasattr(layer, "_is_init") and saved:
+                layer._is_init = True
+                if "w" in saved:
+                    layer.shapes["w"] = list(saved["w"].shape)
+        opt_state = payload.get("opt_state")
+        if opt_state is not None:
+            self.optimizer.load_state_dict({
+                "t": int(np.asarray(opt_state["t"])),
+                "slots": {n: params_from_jax(tree, self.device)
+                          for n, tree in opt_state["slots"].items()},
+            })
+        else:
+            # weights-only checkpoint: drop any live optimizer state so the
+            # restored params don't train against another run's moments
+            self.optimizer.load_state_dict(None)
+        print("Restored model from %s." % path)
+
+    # ---------------------------------------------------------------- phase
+
+    def get_phase(self):
+        return self._phase
+
+    def set_phase(self, phase):
+        if phase not in ("TRAIN", "TEST"):
+            raise ValueError(phase)
+        self.net.set_phase(phase)
+        self._phase = phase

@@ -1,0 +1,173 @@
+"""Optimizers as per-leaf updates over the parameter tree (a list of
+per-layer dicts), as in the JAX package's nn/optimizer.py: ``BaseOptimizer``
+with ``weight_decay`` and global-norm ``clip_norm``, ``SGD`` and ``Adam``.
+
+Two entry points:
+- ``update(grads, params, state) -> (steps, state)``, called once per train
+  step by the Model.
+- ``compute_step(grads, params)``, the stateful eager facade (list-of-dicts
+  in, list-of-dicts of steps out).
+
+``steps`` is what gets ADDED to the params (param += step).
+
+Unlike the JAX package's pure update, the optimizer slots (Adam's m and v)
+are updated IN PLACE: that saves a second copy of the optimizer state on the
+device each step. The step counter ``t`` is a host integer, so the bias
+corrections are host scalars and cost no device work.
+
+``slot_dtype``/``stochastic_rounding`` (bf16 optimizer state) are not ported
+yet and raise.
+"""
+
+import builtins
+
+import numpy as np
+import torch
+
+from tinynn_autograd_tpu_torch.core.tensor import to_torch
+
+
+def _leaf_keys(tree):
+    """(layer index, key) of every leaf of a list-of-dicts tree, in the JAX
+    package's flatten order: layers in order, keys sorted."""
+    return [(i, k) for i, d in enumerate(tree) for k in sorted(d)]
+
+
+def _tree_of(obj):
+    """Coerce list-of-dicts possibly holding Tensors into torch tensors."""
+    return [{k: to_torch(v) for k, v in d.items()} for d in obj]
+
+
+class BaseOptimizer:
+
+    # names of per-parameter state slots, e.g. ("m", "v") for Adam
+    slot_names = ()
+
+    def __init__(self, lr, weight_decay=0.0, slot_dtype=None,
+                 stochastic_rounding=False, clip_norm=None):
+        """``clip_norm``: global-norm gradient clipping (torch semantics:
+        grads scaled by min(1, clip_norm / (||g||_2 + 1e-6)) over ALL leaves
+        jointly), applied inside ``update`` before the rule."""
+        if slot_dtype is not None or stochastic_rounding:
+            raise NotImplementedError(
+                "slot_dtype/stochastic_rounding are not ported to the "
+                "PyTorch package yet (see ROADMAP.md, queue 1)")
+        self.lr = lr
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+        self._state = None
+
+    # ------------------------------------------------------ functional API
+
+    def init_state(self, params):
+        slots = {
+            name: [{k: torch.zeros_like(v) for k, v in d.items()}
+                   for d in params]
+            for name in self.slot_names
+        }
+        return {"t": 0, "slots": slots}
+
+    def step_leaf(self, g, lr, t, slots):
+        """Apply the rule to one leaf: the slots are updated in place, the
+        step is returned in the gradient's dtype. Returns (step, slots)."""
+        step = self._step_leaf(g, lr, t, slots)
+        return step.to(g.dtype), slots
+
+    def _lr_at(self, t):
+        if callable(self.lr):
+            return self.lr(t)
+        return self.lr
+
+    def update(self, grads, params, state):
+        """Returns (steps, state). ``state``'s slots are updated in place and
+        its step counter advances; ``params`` are not touched."""
+        t = state["t"] + 1
+        lr = self._lr_at(t)
+
+        keys = _leaf_keys(grads)
+        g_leaves = [grads[i][k] for i, k in keys]
+        if self.clip_norm is not None and g_leaves:
+            total = torch.sqrt(builtins.sum(
+                torch.sum(g.float() ** 2) for g in g_leaves))
+            scale = torch.clamp(self.clip_norm / (total + 1e-6), max=1.0)
+            g_leaves = [g * scale.to(g.dtype) for g in g_leaves]
+
+        steps = [{} for _ in grads]
+        for (i, k), g in zip(keys, g_leaves):
+            p = params[i][k]
+            g = g.to(p.dtype)
+            slots_i = {n: state["slots"][n][i][k] for n in self.slot_names}
+            step, _ = self.step_leaf(g, lr, t, slots_i)
+            if self.weight_decay:
+                step = step - self.weight_decay * p
+            steps[i][k] = step
+        state["t"] = t
+        return steps, state
+
+    def _step_leaf(self, g, lr, t, slots):
+        raise NotImplementedError
+
+    # ----------------------------------------- reference-compatible facade
+
+    def compute_step(self, grads, params):
+        """Stateful eager facade: same list-of-dicts structures in/out."""
+        grads_t = _tree_of(grads)
+        params_t = _tree_of(params)
+        if self._state is None:
+            self._state = self.init_state(params_t)
+        steps, self._state = self.update(grads_t, params_t, self._state)
+        return steps
+
+    def reset(self):
+        self._state = None
+
+    def state_dict(self):
+        return self._state
+
+    def load_state_dict(self, state):
+        self._state = state
+
+
+class SGD(BaseOptimizer):
+    """step = -lr * g."""
+
+    def __init__(self, lr, weight_decay=0.0, clip_norm=None):
+        super().__init__(lr, weight_decay, clip_norm=clip_norm)
+
+    def _step_leaf(self, g, lr, t, slots):
+        return -lr * g
+
+
+class Adam(BaseOptimizer):
+    """EMA moments with bias correction:
+    m += (1-b1)(g - m); v += (1-b2)(g^2 - v);
+    step = -lr * m_hat / (sqrt(v_hat) + eps).
+    """
+
+    slot_names = ("m", "v")
+
+    def __init__(self, lr=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 weight_decay=0.0, slot_dtype=None,
+                 stochastic_rounding=False, clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._b1 = beta1
+        self._b2 = beta2
+        self._eps = epsilon
+
+    def _step_leaf(self, g, lr, t, slots):
+        m, v = slots["m"], slots["v"]
+        m.add_((1.0 - self._b1) * (g - m))
+        v.add_((1.0 - self._b2) * (g * g - v))
+        # The JAX package's algebraic form, in f32, so the two agree at
+        # rounding level: b**t = exp(t*ln b), and the bias corrections are
+        # folded into scalars:
+        #   -lr * m_hat / (sqrt(v_hat) + eps)
+        #     == -(lr/c1) * m / (sqrt(v) * rsqrt(c2) + eps)
+        tf = np.float32(t)
+        one = np.float32(1.0)
+        c1 = one - np.exp(tf * np.log(np.float32(self._b1)))
+        c2 = one - np.exp(tf * np.log(np.float32(self._b2)))
+        scale = float(-(np.float32(lr) / c1))
+        rsqrt_c2 = float(one / np.sqrt(c2))
+        return scale * m / (torch.sqrt(v) * rsqrt_c2 + self._eps)

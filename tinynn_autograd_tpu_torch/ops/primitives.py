@@ -1,0 +1,466 @@
+"""Differentiable primitives: forward in PyTorch + hand-written VJP closures.
+
+PyTorch counterpart of the JAX package's primitives (tinynn_autograd_tpu/ops/
+primitives.py), for the ops the MLP trainer uses. Each primitive computes
+its forward value with torch calls (the 2-D matmul goes to the hand-written
+CUDA kernel on a GPU, see ``ops/kernels.py``) and registers hand-written VJP
+closures on the output Tensor. ``torch.autograd`` is NOT used; reverse mode
+is the framework's own tape (see ``core/tensor.py``).
+
+Broadcasting semantics: every binary VJP funnels through a single
+``unbroadcast`` helper that reproduces numpy broadcasting reduction exactly.
+
+Semantics kept from the JAX package where torch's built-ins differ:
+- ``relu_`` takes subgradient 1 at exactly 0 (``torch.relu``'s takes 0), to
+  match ``clip_``, whose boundary values are inside the pass-through mask.
+- reduce max/min send the FULL incoming gradient to every tied extreme.
+- ``getitem_`` accumulates gradients for repeated indices (scatter-add).
+"""
+
+import numpy as np
+import torch
+
+from tinynn_autograd_tpu_torch.core.tensor import (
+    Tensor, as_tensor, to_torch, torch_dtype,
+)
+from tinynn_autograd_tpu_torch.ops import kernels
+
+
+# --------------------------------------------------------------------------
+# builders
+# --------------------------------------------------------------------------
+
+def build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values):
+    """Wrap ``values`` in a Tensor recording VJP edges to requiring inputs."""
+    requires_grad = ts1.requires_grad or ts2.requires_grad
+    dependency = []
+    if ts1.requires_grad:
+        dependency.append((ts1, grad_fn_ts1))
+    if ts2.requires_grad:
+        dependency.append((ts2, grad_fn_ts2))
+    return ts1.__class__(values, requires_grad, dependency)
+
+
+def build_unary_ops_tensor(ts, grad_fn, values):
+    requires_grad = ts.requires_grad
+    dependency = [(ts, grad_fn)] if requires_grad else []
+    return ts.__class__(values, requires_grad, dependency)
+
+
+def unbroadcast(grad, shape):
+    """Reduce ``grad`` back to ``shape`` under numpy broadcasting rules.
+
+    Sum over leading dims that were prepended by broadcasting, then
+    keepdims-sum every axis where ``shape`` has size 1 but ``grad`` doesn't.
+    """
+    ndiff = grad.ndim - len(shape)
+    if ndiff > 0:
+        grad = grad.sum(dim=tuple(range(ndiff)))
+    axes = tuple(
+        i for i, dim in enumerate(shape) if dim == 1 and grad.shape[i] != 1
+    )
+    if axes:
+        grad = grad.sum(dim=axes, keepdim=True)
+    return grad
+
+
+# --------------------------------------------------------------------------
+# binary ops
+# --------------------------------------------------------------------------
+
+def add_(ts1, ts2):
+    """c = a + b."""
+    values = ts1.data + ts2.data
+
+    def grad_fn_ts1(grad):
+        return unbroadcast(grad, ts1.shape)
+
+    def grad_fn_ts2(grad):
+        return unbroadcast(grad, ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
+
+
+def sub_(ts1, ts2):
+    """c = a - b, composed as a + (-b)."""
+    return ts1 + (-ts2)
+
+
+def mul_(ts1, ts2):
+    """c = a * b."""
+    values = ts1.data * ts2.data
+
+    def grad_fn_ts1(grad):
+        return unbroadcast(grad * ts2.data, ts1.shape)
+
+    def grad_fn_ts2(grad):
+        return unbroadcast(grad * ts1.data, ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
+
+
+def div_(ts1, ts2):
+    """c = a / b."""
+    values = ts1.data / ts2.data
+
+    def grad_fn_ts1(grad):
+        return unbroadcast(grad / ts2.data, ts1.shape)
+
+    def grad_fn_ts2(grad):
+        return unbroadcast(-grad * ts1.data / ts2.data ** 2, ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
+
+
+def pow_(ts1, ts2):
+    """c = a ** b; d/da = b * a**(b-1); d/db = ln(a) * a**b (NaN for a <= 0,
+    matching numpy)."""
+    a, b = ts1.data, ts2.data
+    values = a ** b
+
+    def grad_fn_ts1(grad):
+        return unbroadcast(grad * b * a ** (b - 1), ts1.shape)
+
+    def grad_fn_ts2(grad):
+        return unbroadcast(grad * torch.log(a) * values, ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
+
+
+def _swap_last2(x):
+    # a strided view: the matmul kernel reads it in place
+    return x.transpose(-1, -2)
+
+
+def dot_(ts1, ts2):
+    """c = a @ b with numpy.matmul semantics: 1-D operands and batched N-D
+    matmul with broadcast batch dims. A 2-D float product and both of its
+    VJPs go through ``kernels.matmul`` (the CUDA kernel on a GPU)."""
+    a, b = ts1.data, ts2.data
+    values = kernels.matmul(a, b)
+
+    if a.ndim == 1 and b.ndim == 1:
+        def grad_fn_ts1(grad):
+            return grad * b
+
+        def grad_fn_ts2(grad):
+            return grad * a
+    elif b.ndim == 1:
+        # (..., m, k) @ (k,) -> (..., m)
+        def grad_fn_ts1(grad):
+            return unbroadcast(grad[..., None] * b, ts1.shape)
+
+        def grad_fn_ts2(grad):
+            g = grad[..., None, :] @ a  # (..., 1, k)
+            return unbroadcast(g[..., 0, :], ts2.shape)
+    elif a.ndim == 1:
+        # (k,) @ (..., k, n) -> (..., n)
+        def grad_fn_ts1(grad):
+            g = b @ grad[..., None]  # (..., k, 1)
+            return unbroadcast(g[..., 0], ts1.shape)
+
+        def grad_fn_ts2(grad):
+            return unbroadcast(a[:, None] * grad[..., None, :], ts2.shape)
+    else:
+        def grad_fn_ts1(grad):
+            return unbroadcast(kernels.matmul(grad, _swap_last2(b)), ts1.shape)
+
+        def grad_fn_ts2(grad):
+            return unbroadcast(kernels.matmul(_swap_last2(a), grad), ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
+
+
+# --------------------------------------------------------------------------
+# unary ops
+# --------------------------------------------------------------------------
+
+def exp_(ts):
+    values = torch.exp(ts.data)
+
+    def grad_fn(grad):
+        return values * grad
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def _normalize_axes(axis, ndim):
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        return tuple(a % ndim for a in axis)
+    return (axis % ndim,)
+
+
+def _expand_dims(grad, axes):
+    for a in sorted(axes):
+        grad = grad.unsqueeze(a)
+    return grad
+
+
+def _reduce_extreme(ts, axis, reducer):
+    """Shared machinery for max_/min_ reductions: every element equal to the
+    extreme receives the FULL incoming gradient (no splitting), for any
+    axis."""
+    x = ts.data
+    axes = _normalize_axes(axis, x.ndim)
+    dims = axes if axes is not None else tuple(range(x.ndim))
+    if dims:
+        values = reducer(x, dim=dims)
+        kd = reducer(x, dim=dims, keepdim=True)
+    else:  # 0-d input
+        values = kd = x.clone()
+    mask = (x == kd)
+
+    def grad_fn(grad):
+        if axes is not None:
+            grad = _expand_dims(grad, axes)
+        return grad * mask
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def max_(ts, axis=None):
+    return _reduce_extreme(ts, axis, torch.amax)
+
+
+def min_(ts, axis=None):
+    return _reduce_extreme(ts, axis, torch.amin)
+
+
+def log_(ts):
+    values = torch.log(ts.data)
+
+    def grad_fn(grad):
+        return grad / ts.data
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def _reduce(x, op, axes, keepdims):
+    if axes is None:
+        if keepdims:
+            return op(x, dim=tuple(range(x.ndim)), keepdim=True)
+        return op(x)
+    return op(x, dim=axes, keepdim=keepdims)
+
+
+def sum_(ts, axis=None, keepdims=False):
+    """Reduce-sum; grad broadcasts back over the reduced axes (tuple axes
+    and keepdims supported)."""
+    shape = ts.shape
+    axes = _normalize_axes(axis, ts.data.ndim)
+    values = _reduce(ts.data, torch.sum, axes, keepdims)
+
+    def grad_fn(grad):
+        if axes is not None and not keepdims:
+            grad = _expand_dims(grad, axes)
+        return torch.broadcast_to(grad, shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def mean_(ts, axis=None, keepdims=False):
+    """Reduce-mean = sum / count, fused as a single primitive."""
+    shape = ts.shape
+    axes = _normalize_axes(axis, ts.data.ndim)
+    values = _reduce(ts.data, torch.mean, axes, keepdims)
+    if axes is None:
+        count = ts.data.numel()
+    else:
+        count = 1
+        for a in axes:
+            count *= shape[a]
+
+    def grad_fn(grad):
+        if axes is not None and not keepdims:
+            grad = _expand_dims(grad, axes)
+        return torch.broadcast_to(grad / count, shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def transpose_(ts, axes=None):
+    """Axes are normalized to non-negative before inverting the permutation,
+    so numpy-legal negative axes transpose the cotangent correctly."""
+    ndim = ts.data.ndim
+    if axes is None:
+        axes = list(reversed(range(ndim)))
+    axes = [a % ndim for a in axes]
+    values = ts.data.permute(axes)
+    inv = [int(i) for i in np.argsort(axes)]
+
+    def grad_fn(grad):
+        return grad.permute(inv)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def _coerce_key(key, device):
+    def one(k):
+        if isinstance(k, Tensor):
+            k = k.data
+        if isinstance(k, (np.ndarray, list)):
+            k = to_torch(k)
+        if isinstance(k, torch.Tensor):
+            k = k.to(device)
+        return k
+
+    if isinstance(key, tuple):
+        return tuple(one(k) for k in key)
+    return one(key)
+
+
+def getitem_(ts, key):
+    """Indexing/slicing; the VJP scatters the gradient back into zeros.
+
+    Repeated indices ACCUMULATE (scatter-add), the calculus-correct adjoint:
+    the key is applied to a grid of flat positions, and the gradient is
+    index-added at the positions it selected, whatever mix of ints, slices,
+    index arrays and masks the key holds.
+    """
+    key = _coerce_key(key, ts.device)
+    values = ts.data[key]
+
+    def grad_fn(grad):
+        x = ts.data
+        pos = torch.arange(x.numel(), device=x.device).reshape(x.shape)[key]
+        flat = torch.zeros(x.numel(), dtype=grad.dtype, device=grad.device)
+        flat.index_add_(0, pos.reshape(-1), grad.reshape(-1))
+        return flat.reshape(x.shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def neg_(ts):
+    values = -ts.data
+
+    def grad_fn(grad):
+        return -grad
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def reshape_(ts, newshape):
+    shape = ts.shape
+    values = ts.data.reshape(newshape)
+
+    def grad_fn(grad):
+        return grad.reshape(shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def flatten_(ts):
+    shape = ts.shape
+    values = ts.data.reshape(-1)
+
+    def grad_fn(grad):
+        return grad.reshape(shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def clip_(ts, min=None, max=None):
+    """Clip; boundary values are INCLUDED in the pass-through mask, so e.g.
+    d/dx relu(0) = 1."""
+    x = ts.data
+    values = x if min is None and max is None else torch.clamp(x, min, max)
+
+    mask = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    if min is not None:
+        mask = mask & (x >= min)
+    if max is not None:
+        mask = mask & (x <= max)
+
+    def grad_fn(grad):
+        return grad * mask
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def astype_(ts, dtype):
+    """Dtype cast; gradient casts back to the source gradient dtype."""
+    src = ts.data.dtype
+    values = ts.data.to(torch_dtype(dtype))
+
+    def grad_fn(grad):
+        if src.is_floating_point:
+            return grad.to(src)
+        return grad
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+
+def sigmoid_(ts):
+    """Numerically stable logistic; d/dx = y * (1 - y)."""
+    values = torch.sigmoid(ts.data)
+
+    def grad_fn(grad):
+        return grad * values * (1.0 - values)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def tanh_(ts):
+    """True tanh; d/dx = 1 - y**2."""
+    values = torch.tanh(ts.data)
+
+    def grad_fn(grad):
+        return grad * (1.0 - values * values)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def relu_(ts):
+    """max(x, 0); subgradient at 0 is 1 (boundary-inclusive, like clip_)."""
+    x = ts.data
+    values = torch.clamp(x, min=0)
+
+    def grad_fn(grad):
+        return grad * (x >= 0)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def log_softmax_(ts, axis=-1):
+    """Row-stable log-softmax; VJP: g - exp(y) * sum(g, axis, keepdims).
+    The kernel under SoftmaxCrossEntropyLoss."""
+    values = torch.log_softmax(ts.data, dim=axis)
+
+    def grad_fn(grad):
+        return grad - torch.exp(values) * grad.sum(dim=axis, keepdim=True)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def softmax_(ts, axis=-1):
+    """Row-stable softmax; VJP: dx = y * (g - sum(g*y, axis, keepdims))."""
+    values = torch.softmax(ts.data, dim=axis)
+
+    def grad_fn(grad):
+        return values * (grad - (grad * values).sum(dim=axis, keepdim=True))
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def where_(cond, ts1, ts2):
+    """Elementwise select; gradient flows to the selected branch only."""
+    c = to_torch(cond)
+    device = next((t.device for t in (ts1, ts2) if isinstance(t, Tensor)),
+                  c.device)
+    ts1, ts2 = as_tensor(ts1, device), as_tensor(ts2, device)
+    c = c.to(device=device, dtype=torch.bool)
+    values = torch.where(c, ts1.data, ts2.data)
+
+    def grad_fn_ts1(grad):
+        return unbroadcast(torch.where(c, grad, 0.0), ts1.shape)
+
+    def grad_fn_ts2(grad):
+        return unbroadcast(torch.where(c, 0.0, grad), ts2.shape)
+
+    return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
