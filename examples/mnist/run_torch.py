@@ -2,16 +2,19 @@
 
 Same flags as run.py (--num_ep/--data_dir/--lr/--batch_size/--seed/--eager/
 --target_acc/--accum/--ckpt) and the same flagship MLP (784-200-100-70-30-10
-Dense+ReLU, Adam, batch 128), plus --device, which has no default: the run
-says where it trains and never moves to the CPU when no GPU is found.
+Dense+ReLU, Adam, batch 128), plus --device: the card (``cuda``) unless the
+caller asks for the CPU (``--device cpu``). Without a CUDA device,
+``--device cuda`` stops with an error; it never moves to the CPU.
 
 - default mode stages the dataset on the device once and trains each epoch
-  as a loop of train steps over it (on-device shuffle)
+  with ``train_epoch``'s default ``fused="auto"`` (on-device shuffle): on
+  the card the whole epoch is one launch of the K2 kernel, on the CPU a loop
+  of train steps
 - --eager runs the reference-style zero_grad/forward/backward/step loop
 - offline: falls back to synthetic pseudo-MNIST when data/mnist.pkl.gz is
   absent
 
-Run:  python examples/mnist/run_torch.py --device cuda --num_ep 10
+Run:  python examples/mnist/run_torch.py --num_ep 10
 """
 
 import argparse
@@ -106,8 +109,9 @@ def main(args):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser()
-    parser.add_argument("--device", required=True, type=str,
-                        help="torch device to train on, e.g. cuda or cpu")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train on (default cuda; cpu "
+                             "runs the plain versions of the kernels)")
     parser.add_argument("--num_ep", default=50, type=int)
     parser.add_argument("--data_dir", default="./data", type=str)
     parser.add_argument("--lr", default=1e-3, type=float)

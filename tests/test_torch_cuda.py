@@ -1,5 +1,6 @@
-"""The CUDA matmul kernel on the card (tests marked ``cuda``; they skip
-without a CUDA device, since the kernel has no CPU mode).
+"""The CUDA kernels on the card: the matmul (K1) and the whole-epoch kernel
+(K2). Tests marked ``cuda``; they skip without a CUDA device, since the
+kernels have no CPU mode.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -78,3 +79,82 @@ def test_cuda_train_step_launches_fourteen_kernels():
     assert kernels.cuda_matmul.launches == before + 14
     model.predict(x)
     assert kernels.cuda_matmul.launches == before + 19
+
+
+def _flagship_epoch(dev, n_steps):
+    """The flagship MLP (pinned seed-1 weights) as the whole-epoch kernel's
+    inputs: net, optimizer, spec, n_steps batches of 128 and the step
+    scalars. The data seed is
+    pinned too: Adam turns a weight gradient whose terms nearly cancel into
+    a full-size step, so the kernel's and cuBLAS's summation orders leave a
+    few weights 1e-5 apart on some data (PERF.md), not on this."""
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.utils import datasets, seeder
+
+    with seeder.scope(1):
+        net = build_mnist_mlp()
+    net.to(dev)
+    opt = Adam(1e-3)
+    (x, y), _ = datasets.synthetic_mnist(n_steps * 128, 10, seed=5)
+    xb = torch.from_numpy(x).to(dev).reshape(n_steps, 128, 784)
+    yb = torch.from_numpy(datasets.one_hot(y)).to(dev).reshape(n_steps, 128, 10)
+    scalars = torch.from_numpy(opt.step_scalars(0, n_steps)).to(dev)
+    return net, opt, fused_epoch.epoch_spec(net, opt), xb, yb, scalars
+
+
+def _state(net, opt):
+    from tinynn_autograd_tpu_torch.ops.fused_epoch import dense_leaves
+
+    params = [{k: v.clone() for k, v in d.items()} for d in net.params_tree()]
+    slots = opt.init_state(params)["slots"]
+    return (dense_leaves(net, params),
+            {k: dense_leaves(net, tree) for k, tree in slots.items()})
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_matches_reference_at_flagship_width():
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, opt, spec, xb, yb, scalars = _flagship_epoch(dev, 5)
+    (kp, ks), (rp, rs) = _state(net, opt), _state(net, opt)
+    before = fused_epoch.cuda_fused_epoch.launches
+    got = fused_epoch.cuda_fused_epoch(spec, kp, ks, xb, yb, scalars)
+    torch.cuda.synchronize()
+    assert fused_epoch.cuda_fused_epoch.launches == before + 1
+    ref = fused_epoch.fused_epoch_reference(spec, rp, rs, xb, yb, scalars)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    pairs = list(zip(kp, rp)) + [
+        pair for k in ("m", "v") for pair in zip(ks[k], rs[k])]
+    for i, (a, b) in enumerate(pairs):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg="leaf pair %d" % i)
+
+
+@pytest.mark.cuda
+def test_cuda_auto_epoch_is_one_fused_launch():
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(), Adam(1e-3),
+                  device=dev)
+    rng = np.random.RandomState(0)
+    x = rng.rand(4 * 128, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 4 * 128)]
+    k1, k2 = kernels.cuda_matmul.launches, fused_epoch.cuda_fused_epoch.launches
+    losses = model.train_epoch(x, y, batch_size=128)
+    torch.cuda.synchronize()
+    assert fused_epoch.cuda_fused_epoch.launches == k2 + 1
+    assert kernels.cuda_matmul.launches == k1
+    assert losses.shape == (4,) and torch.isfinite(losses).all()
+    assert model.optimizer.state_dict()["t"] == 4

@@ -7,10 +7,16 @@ PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainer:
    batch, returning the loss as a device scalar (no host sync).
 3. ``train_epoch``/``train_epochs``: the data staged on the device once, an
    on-device shuffle per epoch (``torch.randperm`` with the model's own
-   generator), then a loop of train steps over the batches. This is the
-   step tier; ``fused="auto"`` and ``False`` take it. The whole-epoch
-   megakernel (``fused=True``) and the weight-streaming tier
-   (``fused="stream"``) are not ported yet and raise.
+   generator), then one of two tiers over the batches:
+   - the whole-epoch kernel (K2, ``ops/fused_epoch.py``): the epoch in one
+     CUDA launch, on the CPU its plain version. ``fused=True`` takes it or
+     raises ``ValueError`` saying why the net is not eligible;
+     ``fused="auto"`` takes it on a CUDA device when ``supports()`` holds.
+   - the step tier, a loop of train steps: ``fused=False``, and
+     ``fused="auto"`` otherwise.
+   The weight-streaming tier (``fused="stream"``) is not ported yet and
+   raises. A build or launch failure of the kernel raises; nothing falls
+   back to the step tier.
 
 Parameters are updated IN PLACE (``param.add_(step)``), which saves a second
 copy of the weights on the device each step. Every parameter and every input
@@ -147,18 +153,18 @@ class Model:
                      shuffle=True, fused="auto"):
         """``n_epochs`` full epochs over data staged on the device; returns
         the loss trace [n_epochs, n_steps] on the device."""
-        if fused is True or fused == "stream":
+        if fused == "stream":
             raise NotImplementedError(
-                "fused=%r is not ported to the PyTorch package yet: the "
-                "whole-epoch megakernel is ROADMAP K2 and the weight-"
-                "streaming kernels are K3. Use fused='auto' or False."
-                % (fused,))
-        if fused not in ("auto", False):
+                "fused='stream' is not ported to the PyTorch package yet: the "
+                "weight-streaming kernels are ROADMAP K3. Use fused='auto', "
+                "True or False.")
+        if fused not in ("auto", True, False):
             raise ValueError("fused must be 'auto', False, True or 'stream', "
                              "got %r" % (fused,))
         x_all, y_all = self.stage(x_all, y_all)
         feat, label_feat = tuple(x_all.shape[1:]), tuple(y_all.shape[1:])
-        self._ensure_init((batch_size,) + feat)
+        batch_shape = (batch_size,) + feat
+        self._ensure_init(batch_shape)
         if self._phase != "TRAIN":
             self.set_phase("TRAIN")
 
@@ -169,6 +175,8 @@ class Model:
                 "dataset of %d samples is smaller than batch_size=%d "
                 "(the ragged tail is dropped; nothing would train)"
                 % (n, batch_size))
+        epoch_fn = self._whole_epoch_kernel(fused, n_steps, batch_shape,
+                                            (batch_size,) + label_feat)
         used = n_steps * batch_size
         losses = torch.empty((n_epochs, n_steps), device=self.device)
         for epoch in range(n_epochs):
@@ -180,9 +188,42 @@ class Model:
                 xs, ys = x_all[:used], y_all[:used]
             xs = xs.reshape((n_steps, batch_size) + feat)
             ys = ys.reshape((n_steps, batch_size) + label_feat)
+            if epoch_fn is not None:
+                state = self.optimizer.state_dict()
+                state["t"], losses[epoch] = epoch_fn(
+                    self.net.params_tree(), state["slots"], state["t"],
+                    xs.to(torch.float32).contiguous(),
+                    ys.to(torch.float32).contiguous())
+                continue
             for s in range(n_steps):
                 losses[epoch, s] = self._step(xs[s], ys[s])
         return losses
+
+    def _whole_epoch_kernel(self, fused, n_steps, batch_shape, label_shape):
+        """The K2 ``epoch_fn`` when this call takes the whole-epoch kernel,
+        else None (the step tier). The JAX package's tier choice: True
+        forces it, raising ``ValueError`` with the reason when the model is
+        not eligible (a mixed-precision layer among them); "auto" takes it
+        only on the accelerator, and only for an eligible model."""
+        from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+        if fused is False or (fused == "auto"
+                              and self.device.type != "cuda"):
+            return None
+        reason = fused_epoch.unsupported_reason(
+            self.net, self.net.params_tree(), self.optimizer, self.loss,
+            batch_shape)
+        if reason is not None:
+            if fused is True:
+                raise ValueError("fused=True: the whole-epoch kernel cannot "
+                                 "run this model: %s" % reason)
+            return None
+        if self.optimizer.state_dict() is None:
+            self.optimizer.load_state_dict(
+                self.optimizer.init_state(self.net.params_tree()))
+        return fused_epoch.build_fused_epoch(
+            self.net, self.loss, self.optimizer, n_steps, batch_shape,
+            label_shape)
 
     # ------------------------------------------------------------ eager step
 

@@ -2,11 +2,13 @@
 per-layer dicts), as in the JAX package's nn/optimizer.py: ``BaseOptimizer``
 with ``weight_decay`` and global-norm ``clip_norm``, ``SGD`` and ``Adam``.
 
-Two entry points:
+Three entry points:
 - ``update(grads, params, state) -> (steps, state)``, called once per train
   step by the Model.
 - ``compute_step(grads, params)``, the stateful eager facade (list-of-dicts
   in, list-of-dicts of steps out).
+- ``step_scalars(t0, n_steps)``, the per-step scalars the whole-epoch kernel
+  (ops/fused_epoch.py) reads for SGD and Adam.
 
 ``steps`` is what gets ADDED to the params (param += step).
 
@@ -107,6 +109,13 @@ class BaseOptimizer:
     def _step_leaf(self, g, lr, t, slots):
         raise NotImplementedError
 
+    def step_scalars(self, t0, n_steps):
+        """[n_steps, 2] float32: the scalars of steps t0+1 ... t0+n_steps
+        that the whole-epoch kernel multiplies by, computed as ``update``
+        computes them."""
+        raise NotImplementedError(
+            "%s has no whole-epoch kernel" % type(self).__name__)
+
     # ----------------------------------------- reference-compatible facade
 
     def compute_step(self, grads, params):
@@ -137,6 +146,12 @@ class SGD(BaseOptimizer):
     def _step_leaf(self, g, lr, t, slots):
         return -lr * g
 
+    def step_scalars(self, t0, n_steps):
+        """Column 0 is -lr (column 1 is unused)."""
+        out = np.zeros((n_steps, 2), np.float32)
+        out[:, 0] = [-self._lr_at(t) for t in range(t0 + 1, t0 + 1 + n_steps)]
+        return out
+
 
 class Adam(BaseOptimizer):
     """EMA moments with bias correction:
@@ -155,19 +170,27 @@ class Adam(BaseOptimizer):
         self._b2 = beta2
         self._eps = epsilon
 
-    def _step_leaf(self, g, lr, t, slots):
-        m, v = slots["m"], slots["v"]
-        m.add_((1.0 - self._b1) * (g - m))
-        v.add_((1.0 - self._b2) * (g * g - v))
-        # The JAX package's algebraic form, in f32, so the two agree at
-        # rounding level: b**t = exp(t*ln b), and the bias corrections are
-        # folded into scalars:
-        #   -lr * m_hat / (sqrt(v_hat) + eps)
-        #     == -(lr/c1) * m / (sqrt(v) * rsqrt(c2) + eps)
+    def _bias_scalars(self, lr, t):
+        """(-(lr/c1), rsqrt(c2)) of step t. The JAX package's algebraic
+        form, in f32, so the two agree at rounding level: b**t = exp(t*ln b),
+        and the bias corrections are folded into scalars:
+          -lr * m_hat / (sqrt(v_hat) + eps)
+            == -(lr/c1) * m / (sqrt(v) * rsqrt(c2) + eps)"""
         tf = np.float32(t)
         one = np.float32(1.0)
         c1 = one - np.exp(tf * np.log(np.float32(self._b1)))
         c2 = one - np.exp(tf * np.log(np.float32(self._b2)))
-        scale = float(-(np.float32(lr) / c1))
-        rsqrt_c2 = float(one / np.sqrt(c2))
+        return float(-(np.float32(lr) / c1)), float(one / np.sqrt(c2))
+
+    def _step_leaf(self, g, lr, t, slots):
+        m, v = slots["m"], slots["v"]
+        m.add_((1.0 - self._b1) * (g - m))
+        v.add_((1.0 - self._b2) * (g * g - v))
+        scale, rsqrt_c2 = self._bias_scalars(lr, t)
         return scale * m / (torch.sqrt(v) * rsqrt_c2 + self._eps)
+
+    def step_scalars(self, t0, n_steps):
+        """Columns -(lr/c1) and rsqrt(c2)."""
+        return np.array([self._bias_scalars(self._lr_at(t), t)
+                         for t in range(t0 + 1, t0 + 1 + n_steps)],
+                        np.float32).reshape(n_steps, 2)

@@ -16,8 +16,9 @@ Dispatch policy
   - both operands 2-D floats on the CPU: ``matmul_reference``.
   - anything else: ``torch.matmul``, accumulating sub-32-bit floats in f32.
 
-The kernel is compiled with ``nvcc`` at first use into ``_build/`` beside this
-package, keyed by a hash of the source and flags, and loaded with ``ctypes``.
+Every kernel of the package (``csrc/<name>.cu``) is compiled with ``nvcc`` at
+first use into ``_build/`` beside this package, keyed by a hash of the source
+and flags, and loaded with ``ctypes`` (``build_library``/``load_library``).
 Nothing here imports ``ctypes`` or calls ``nvcc`` when the module is imported.
 """
 
@@ -30,7 +31,8 @@ from pathlib import Path
 import torch
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[1]
-MATMUL_SOURCE = _PACKAGE_DIR / "csrc" / "matmul.cu"
+CSRC_DIR = _PACKAGE_DIR / "csrc"
+MATMUL_SOURCE = CSRC_DIR / "matmul.cu"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,7 +46,7 @@ _MATMUL_PRECISION = os.environ.get("TINYNN_TPU_MATMUL_PRECISION", "f32")
 # dtype codes of the kernel's C interface
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_loaded = {}  # "lib" -> the ctypes handle, once loaded
+_loaded = {}  # kernel name -> its ctypes handle, once loaded
 
 
 def set_matmul_precision(mode):
@@ -100,17 +102,18 @@ def _find_nvcc():
             return path
     raise RuntimeError(
         "nvcc not found (neither on PATH nor under CUDA_HOME): the CUDA "
-        "matmul kernel cannot be built")
+        "kernels cannot be built")
 
 
-def build_matmul():
-    """Compile ``csrc/matmul.cu`` unless a library built from the same source
-    and flags is already in ``_build/``. Returns ``(path, compiler_log)``;
-    the log is empty when nothing was compiled. Raises with nvcc's stderr
-    when the compile fails."""
-    source = MATMUL_SOURCE.read_bytes()
+def build_library(name):
+    """Compile ``csrc/<name>.cu`` unless a library built from the same
+    source and flags is already in ``_build/``. Returns ``(path,
+    compiler_log)``; the log is empty when nothing was compiled. Raises with
+    nvcc's stderr when the compile fails."""
+    source_path = CSRC_DIR / ("%s.cu" % name)
+    source = source_path.read_bytes()
     tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / ("libtinynn_matmul_%s.so" % tag[:16])
+    out = BUILD_DIR / ("libtinynn_%s_%s.so" % (name, tag[:16]))
     if out.exists():
         return out, ""
     nvcc = _find_nvcc()
@@ -118,28 +121,39 @@ def build_matmul():
     # compile to a private name, then rename: a concurrent process never
     # loads a half-written library
     tmp = BUILD_DIR / ("%s.%d.tmp" % (out.name, os.getpid()))
-    proc = subprocess.run(nvcc_command(nvcc, MATMUL_SOURCE, tmp),
+    proc = subprocess.run(nvcc_command(nvcc, source_path, tmp),
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError("nvcc failed (exit %d) building %s:\n%s"
-                           % (proc.returncode, MATMUL_SOURCE, proc.stderr))
+                           % (proc.returncode, source_path, proc.stderr))
     os.replace(tmp, out)
     return out, proc.stderr
 
 
-def _library():
-    lib = _loaded.get("lib")
+def build_matmul():
+    """``build_library("matmul")``: the K1 matmul kernel."""
+    return build_library("matmul")
+
+
+def load_library(name, bind):
+    """The ctypes handle of ``csrc/<name>.cu``, built and loaded at first
+    use; ``bind(lib, ctypes)`` declares its functions' argument types."""
+    lib = _loaded.get(name)
     if lib is None:
         import ctypes
 
-        path, _ = build_matmul()
+        path, _ = build_library(name)
         lib = ctypes.CDLL(str(path))
-        lib.tinynn_matmul.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        lib.tinynn_matmul.restype = ctypes.c_int
-        _loaded["lib"] = lib
+        bind(lib, ctypes)
+        _loaded[name] = lib
     return lib
+
+
+def _bind_matmul(lib, ctypes):
+    lib.tinynn_matmul.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.tinynn_matmul.restype = ctypes.c_int
 
 
 # --------------------------------------------------------------------------
@@ -177,7 +191,7 @@ def cuda_matmul(a, b):
         return out
     if k == 0:
         return out.zero_()
-    lib = _library()
+    lib = load_library("matmul", _bind_matmul)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.tinynn_matmul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
