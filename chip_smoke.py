@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch package on one NVIDIA GPU.
 
-Drives the port's main path, at the full width of the flagship MNIST MLP
-(784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3, batch 128, random
-weights from seed 0, synthetic MNIST at 50,000/10,000), through both of its
-kernels: K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
-(csrc/fused_epoch.cu).
+Drives the port's two paths at full width through their kernels. The
+flagship MNIST MLP (784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3,
+batch 128, random weights from seed 0, synthetic MNIST at 50,000/10,000)
+runs through K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
+(csrc/fused_epoch.cu). The deep MLP (256-256, a DenseStack of 98 layers of
+256x256 with ReLU, 256-10; batch 128; 2,560 samples from numpy seed 0,
+labelled by a fixed random linear teacher) runs through K3 and K3b, the
+weight-streaming kernels (csrc/streaming_epoch.cu).
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles both kernels from csrc/ (one nvcc each, started
-   together; sm_90a) and prints their registers, shared memory and spills.
+2. build: compiles the three libraries from csrc/ (one nvcc each, started
+   together; sm_90a) and prints each kernel's registers, shared memory and
+   spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
    shape the main path gives it (the 14 products of a train step,
    transposed views included, the 10,000-row eval product, two ragged
@@ -22,16 +26,45 @@ kernels: K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
    under bf16 matmul precision losses within rtol 1e-3 that differ from the
    f32 run. Then both times at the main path's shape, a 390-step epoch,
    and the kernel's time in each of its phases.
-5. slice: one epoch with ``fused="auto"``, which must be one K2 launch and
+5. stream kernels vs plain: the deep MLP from seed-1 weights (the stack's
+   times sqrt(2), so that every layer carries values of order 1), batch
+   128: one K3 launch against ``stream_forward_reference`` (the acts
+   stack, rtol 1e-4/atol 1e-4: a 98-layer chain of f32 sums in two
+   orders), one K3b launch against ``stream_backward_reference`` for Adam
+   and for SGD, each output at rtol 1e-4 and an atol of 1e-4 of its own
+   largest plain value: the step w took, each slot, db, dh0; each rerun
+   bit-identical. Adam's step is held to Adam's rule on the kernel's own
+   new m and v: its step lr g / (|g| + eps) turns the rounding of a
+   gradient near eps into a step difference, so a few hundred of the 6.4
+   million weights land further from the plain version's (counted, with
+   their |g|, printed, and in the kernels line). Then five whole streaming steps from
+   the main path's Xavier weights through the kernels against the same
+   steps through the plain versions (losses rtol 1e-5/atol 1e-6,
+   parameters and slots rtol 1e-4/atol 1e-5), with Adam and with SGD,
+   from seed 7, where no ReLU unit of the five Adam steps has a
+   pre-activation within rounding of 0 (``stream_seed_scan.py`` shows what
+   such a unit does on other seeds); then each kernel's time a launch
+   (CUDA events, and device time from torch.profiler), its plain
+   version's, and its bound.
+6. slice: one epoch with ``fused="auto"``, which must be one K2 launch and
    no K1 launch, test accuracy above 0.9, then a second K2 epoch, timed.
    From the same seed in a fresh model, one ``fused=False`` epoch (the
    step loop), 3 eager steps, a predict and an evaluate_batch: K1 must be
    launched 14 times per train step plus 5 per forward, and K2 never.
    Each path's launch counts are set to 0 before it and read after it.
    Both epochs' steps/s; the two accuracies within 0.02.
-6. trace: torch.profiler over 50 step-loop train steps (device busy share,
-   the kernels that take the device time), and over one K2 epoch.
-7. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
+7. deep slice: ``Model(build_deep_mlp(stacked=True), ..., Adam(1e-3),
+   device="cuda").train_epochs(fused="auto")`` from seed 0, three epochs
+   of 20 steps: K3 and K3b once a step, K2 never, K1 5 a step (prefix and
+   suffix forward, suffix dW and dx, prefix dW); finite losses whose epoch
+   mean falls; the steps/s of the timed epochs after the first. The same
+   with SGD(0.01). Then one ``fused=False`` epoch from the same weights
+   (``dense_stack_`` on K1: 5 + 294 launches a step), its steps/s and the
+   gap between its losses and the stream tier's.
+8. trace: torch.profiler over 50 step-loop train steps (device busy share,
+   the kernels that take the device time), over one K2 epoch, and over one
+   stream epoch (busy share, K3 and K3b device time a step).
+9. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
    initial weights; losses agree to rtol 1e-5, atol 1e-6.
 
 Prints the card line, one JSON line of kernel results, and as its last line
@@ -54,12 +87,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tinynn_autograd_tpu_torch import Tensor  # noqa: E402
-from tinynn_autograd_tpu_torch.models import build_mnist_mlp  # noqa: E402
+from tinynn_autograd_tpu_torch.models import build_deep_mlp, build_mnist_mlp  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
-from tinynn_autograd_tpu_torch.nn.optimizer import Adam  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import fused_epoch, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
 
@@ -82,6 +116,33 @@ STATE_TOL = dict(rtol=1e-4, atol=1e-5)
 # seed is pinned to data that has no such weight (PERF.md).
 PARITY_DATA_SEED = 5
 EPOCH_STEPS = 390  # a flagship epoch: 50,000 samples at batch 128
+# The deep MLP (the JAX package's deep-graph config): 256 -> 256, ReLU, a
+# DenseStack of 98 layers of 256x256, 256 -> 10; batch 128, 2,560 samples (20
+# steps an epoch), its weights from seed 1 for the kernel checks and seed 0
+# for the slice.
+DEEP = dict(num_in=256, depth=100, width=256, num_out=10, stacked=True)
+DEEP_SAMPLES = 2560
+# The kernel checks scale the stack's Xavier weights by sqrt(2): at Xavier
+# gain a ReLU layer shrinks its input ~0.7x, so the deep layers would carry
+# values of 1e-15 and hide any error there; at sqrt(2) every layer carries
+# values of order 1.
+DEEP_GAIN = float(np.sqrt(2.0))
+# K3 against its plain version: a 98-layer chain of f32 sums in two orders,
+# whose error grows with depth
+STREAM_TOL = dict(rtol=1e-4, atol=1e-4)
+# K3b's outputs differ in size by orders of magnitude (Adam's v is 1e-3 g^2,
+# a weight's step 1e-3 of the weight): each is held at rtol 1e-4 and an atol
+# of 1e-4 of its own largest plain value
+SCALED_TOL = dict(rtol=1e-4, atol=1e-4)
+# The weights of the five-step check. Where a ReLU unit's pre-activation is
+# within rounding of 0, the two forwards' sums in two orders can leave it
+# active in one run and not in the other, and the gradients of its row
+# below it differ. Adam's step lr g / (|g| + eps) changes most with g where
+# |g| is near eps, so a change of a small g moves the state past STATE_TOL.
+# stream_seed_scan.py shows it seed by seed: with Adam seed 7's five steps
+# have no such unit; with SGD one unit flips before step 5 and moves nothing
+# past STATE_TOL.
+STEPS_SEED = 7
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): f32 FMA
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -118,6 +179,23 @@ def epoch_cost(spec, n_steps, batch):
     n_bytes = 4.0 * (n_steps * batch * (spec.layers[0][0] + spec.layers[-1][1])
                      + n_steps + 2 * n_state * leaves)
     return flops, n_bytes
+
+
+def stream_costs(n_layers, batch, width, n_slots):
+    """FLOPs and bytes of one K3 and one K3b launch. K3: the L products
+    [B,W] @ [W,W]; h0, w and b read once, acts written once. K3b: the dh and
+    dW products (its elementwise work, about 1% more, left out); h0, the
+    loss gradient, acts, w and the slots read once, w, the slots, db and
+    dh0 written once."""
+    product = 2.0 * n_layers * batch * width * width
+    stack = n_layers * width * width
+    rows = batch * width
+    k3 = (product, 4.0 * (rows + stack + n_layers * width
+                          + n_layers * rows))
+    k3b = (2 * product, 4.0 * (2 * rows + n_layers * rows
+                               + 2 * (1 + n_slots) * stack
+                               + n_layers * width + rows))
+    return k3, k3b
 
 
 def card_line():
@@ -379,6 +457,21 @@ def eager_step(model, xb, yb):
     return float(loss.values)
 
 
+def launch_counts():
+    """Each kernel wrapper's launches since zero_counts()."""
+    return {"matmul": kernels.cuda_matmul.launches,
+            "fused_epoch": fused_epoch.cuda_fused_epoch.launches,
+            "streaming_forward": se.cuda_stream_forward.launches,
+            "streaming_backward": se.cuda_stream_backward.launches}
+
+
+def zero_counts():
+    kernels.cuda_matmul.launches = 0
+    fused_epoch.cuda_fused_epoch.launches = 0
+    se.cuda_stream_forward.launches = 0
+    se.cuda_stream_backward.launches = 0
+
+
 def run_fused_slice(device):
     """The main path through K2: ``train_epoch`` with ``fused="auto"``
     from seed 0, then an evaluate_batch, then a second epoch, timed (the
@@ -392,8 +485,7 @@ def run_fused_slice(device):
     x_dev, y_dev = model.stage(train_x, one_hot(train_y))
     torch.cuda.synchronize()
 
-    kernels.cuda_matmul.launches = 0
-    fused_epoch.cuda_fused_epoch.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     losses = model.train_epoch(x_dev, y_dev, batch_size=BATCH)
     torch.cuda.synchronize()
@@ -405,8 +497,7 @@ def run_fused_slice(device):
     losses2 = model.train_epoch(x_dev, y_dev, batch_size=BATCH)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    launches = {"fused_epoch": fused_epoch.cuda_fused_epoch.launches,
-                "matmul": kernels.cuda_matmul.launches}
+    launches = launch_counts()
 
     n_steps = int(losses.shape[0])
     trace = torch.cat([losses, losses2]).cpu().numpy()
@@ -426,7 +517,8 @@ def run_fused_slice(device):
         raise AssertionError("fused='auto' epoch made %d fused_epoch and %d "
                              "matmul launches, expected 1 and 0"
                              % after_epoch)
-    if launches != {"fused_epoch": 2, "matmul": 5}:
+    if launches != {"fused_epoch": 2, "matmul": 5, "streaming_forward": 0,
+                    "streaming_backward": 0}:
         raise AssertionError("launch counts %s" % launches)
     if not np.all(np.isfinite(trace)):
         raise AssertionError("non-finite loss")
@@ -453,8 +545,7 @@ def run_step_slice(device):
     x_test = model.stage(test_x)
     torch.cuda.synchronize()
 
-    kernels.cuda_matmul.launches = 0
-    fused_epoch.cuda_fused_epoch.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     losses = model.train_epoch(x_dev, y_dev, batch_size=BATCH, fused=False)
     torch.cuda.synchronize()
@@ -468,8 +559,7 @@ def run_step_slice(device):
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     res = model.evaluate_batch(test_x, test_y, AccEvaluator)
-    launches = {"fused_epoch": fused_epoch.cuda_fused_epoch.launches,
-                "matmul": kernels.cuda_matmul.launches}
+    launches = launch_counts()
 
     n_steps = int(losses.shape[0])
     expected = 14 * (n_steps + len(eager)) + 5 * 2
@@ -487,9 +577,10 @@ def run_step_slice(device):
           "forwards = %d); fused_epoch launches %d (expected 0)"
           % (launches["matmul"], n_steps + len(eager), expected,
              launches["fused_epoch"]))
-    if launches != {"fused_epoch": 0, "matmul": expected}:
+    if launches != {"fused_epoch": 0, "matmul": expected,
+                    "streaming_forward": 0, "streaming_backward": 0}:
         raise AssertionError("launch counts %s, expected matmul %d and no "
-                             "fused_epoch" % (launches, expected))
+                             "other kernel" % (launches, expected))
     if not (np.all(np.isfinite(trace)) and np.all(np.isfinite(eager))):
         raise AssertionError("non-finite loss")
     if not trace[-1] < trace[0]:
@@ -563,6 +654,387 @@ def run_fused_trace(model, x_dev, y_dev):
         print("  %10.2f us  %3d launches  %s" % (dev_us, count, key[:80]))
 
 
+def deep_data():
+    """The deep MLP's 2,560 x 256 inputs, as the JAX package's benchmark
+    makes them (numpy seed 0), with labels from a fixed random linear
+    teacher (seed 1), so that the loss has something to learn."""
+    x = np.random.RandomState(0).randn(DEEP_SAMPLES, 256).astype(np.float32)
+    teacher = np.random.RandomState(1).randn(256, 10).astype(np.float32)
+    return x, one_hot(np.argmax(x @ teacher, axis=1))
+
+
+def deep_model(device, opt, seed, gain=1.0):
+    """The deep MLP from ``seed`` (its stack's weights times ``gain``) in a
+    Model on ``device`` with its optimizer state made."""
+    with seeder.scope(seed):
+        net = build_deep_mlp(**DEEP)
+    net.layers[2].params["w"].data.mul_(gain)
+    model = Model(net, SoftmaxCrossEntropyLoss(), opt, device=device)
+    opt.load_state_dict(opt.init_state(net.params_tree()))
+    return model
+
+
+def adam_update(opt, w0, m, v):
+    """The new weights of Adam's first step (t = 1) from its new moments:
+    Adam's step from step_leaf's algebra, with weight decay."""
+    scale, rsqrt_c2 = opt.scalars(opt.lr, 1)
+    step = scale * m / (torch.sqrt(v) * rsqrt_c2 + opt._eps)
+    if opt.weight_decay:
+        step = step - opt.weight_decay * w0
+    return w0 + step
+
+
+def max_err(pairs):
+    """The largest |a - b| over pairs of tensors, each pair held to
+    STREAM_TOL."""
+    worst = 0.0
+    for what, a, b in pairs:
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        np.testing.assert_allclose(a, b, err_msg=what, **STREAM_TOL)
+        worst = max(worst, float(np.max(np.abs(a - b))))
+    return worst
+
+
+def scaled_allowance(want, ulp_of=None):
+    """SCALED_TOL's allowance for each element of ``want`` (numpy); plus,
+    where ``ulp_of`` is given, one unit in the last place of it: a step read
+    back as new w - w carries the rounding of the new w."""
+    atol = SCALED_TOL["atol"] * float(np.max(np.abs(want), initial=0.0))
+    allowed = atol + SCALED_TOL["rtol"] * np.abs(want)
+    if ulp_of is not None:
+        allowed = allowed + np.spacing(np.abs(ulp_of))
+    return allowed
+
+
+def hold_scaled(what, got, want, ulp_of=None):
+    """Holds ``got`` to ``want`` at ``scaled_allowance``; returns the
+    largest share of its allowance an element uses (1.0 at the limit)."""
+    got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    if ulp_of is not None:
+        ulp_of = ulp_of.detach().cpu().numpy()
+    allowed = scaled_allowance(want, ulp_of)
+    over = np.abs(got - want) > allowed
+    if over.any():
+        raise AssertionError("%s: %d of %d elements outside rtol %g and atol "
+                             "%g of max|plain| (largest difference %.3g)"
+                             % (what, int(over.sum()), over.size,
+                                SCALED_TOL["rtol"], SCALED_TOL["atol"],
+                                float(np.max(np.abs(got - want)))))
+    used = np.abs(got - want) / np.where(allowed > 0, allowed, 1.0)
+    return float(np.max(used, initial=0.0))
+
+
+def stream_pair(device, make_opt, seed):
+    """Two deep MLPs from ``seed`` (Xavier weights, ``make_opt()``) on the
+    card, and their streaming steps: the first through the kernels, the
+    second through the plain versions."""
+    models = [deep_model(device, make_opt(), seed=seed) for _ in range(2)]
+    steps = [se.build_streaming_step(models[0].net, models[0].loss,
+                                     models[0].optimizer),
+             se.build_streaming_step(models[1].net, models[1].loss,
+                                     models[1].optimizer,
+                                     forward=se.stream_forward_reference,
+                                     backward=se.stream_backward_reference)]
+    return models, steps
+
+
+def stream_steps(device, make_opt, seed, x, y, n_steps=5):
+    """``n_steps`` streaming steps of ``stream_pair``'s two models. Returns
+    both runs' losses [2, n_steps] and their parameters and slots."""
+    models, steps = stream_pair(device, make_opt, seed)
+    losses = [[], []]
+    for i in range(n_steps):
+        xs = torch.from_numpy(x[i * BATCH:(i + 1) * BATCH]).to(device)
+        ys = torch.from_numpy(y[i * BATCH:(i + 1) * BATCH]).to(device)
+        for j in range(2):
+            losses[j].append(float(steps[j](xs, ys)))
+    state = [leaves_of(m.net.params_tree(), m.optimizer.state_dict()["slots"])
+             for m in models]
+    return np.array(losses), state
+
+
+def hold_steps(what, losses, state):
+    """Holds the kernels' run of ``stream_steps`` to the plain run: losses
+    at LOSS_TOL, parameters and slots at STATE_TOL. Returns the largest
+    |difference| over them."""
+    np.testing.assert_allclose(losses[0], losses[1],
+                               err_msg=what + ": losses", **LOSS_TOL)
+    worst = float(np.max(np.abs(losses[0] - losses[1])))
+    for i, (got, want) in enumerate(zip(*state)):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_allclose(got, want, err_msg="%s: state leaf %d"
+                                   % (what, i), **STATE_TOL)
+        worst = max(worst, float(np.max(np.abs(got - want))))
+    return worst
+
+
+def check_stream_kernels(device):
+    """K3 and K3b against their plain versions on the card at the deep
+    MLP's full width, batch 128; five whole streaming steps against the
+    plain step; a rerun for determinism; then the times. Returns a dict
+    per kernel: max_abs_err, ms, plain_ms, bound_ms, bound_by."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = deep_data()
+    xb = torch.from_numpy(x[:BATCH]).to(device)
+    yb = torch.from_numpy(y[:BATCH]).to(device)
+    model = deep_model(device, Adam(1e-3), seed=1, gain=DEEP_GAIN)
+    stack = model.net.layers[2]
+    act = stack.activation
+    w, b = stack.params["w"].data, stack.params["b"].data
+    h0 = model.net.layers[1].forward(model.net.layers[0].forward(
+        Tensor(xb))).data.contiguous()
+    n_layers, width = w.shape[0], w.shape[-1]
+
+    acts = se.cuda_stream_forward(h0, w, b, act)
+    torch.cuda.synchronize()
+    acts_ref = se.stream_forward_reference(h0, w, b, act)
+    k3_err = max_err([("acts", acts, acts_ref)])
+    if not torch.equal(acts, se.cuda_stream_forward(h0, w, b, act)):
+        raise AssertionError("two K3 runs on the same inputs differ")
+    print("K3, [%d,%d] x %d layers of [%d,%d] (%s): acts max abs err %.3g "
+          "(tol rtol 1e-4 atol 1e-4); rerun bit-identical"
+          % (BATCH, width, n_layers, width, width, act, k3_err))
+
+    h_last = Tensor(acts_ref[-1], requires_grad=True)
+    model.loss.loss(model.net.layers[3].forward(h_last), Tensor(yb)).backward()
+    dlast = h_last.grad.contiguous()
+    # the largest |kernel - plain| over every output, Adam's w included, and
+    # the Adam weights whose step is outside SCALED_TOL of the plain step
+    k3b_err, adam_w_over = 0.0, 0
+    for opt in (Adam(1e-3), SGD(0.01)):
+        outs = []
+        for fn in (se.cuda_stream_backward, se.cuda_stream_backward,
+                   se.stream_backward_reference):
+            wk = w.clone()
+            slots = {n: torch.zeros_like(w) for n in opt.slot_names}
+            db, dh0 = fn(act, opt, h0, dlast, acts_ref, wk, slots,
+                         opt.scalars(opt.lr, 1))
+            torch.cuda.synchronize()
+            outs.append([wk] + [slots[n] for n in opt.slot_names]
+                        + [db, dh0])
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+            raise AssertionError("two K3b runs from the same state differ")
+        got, plain = outs[0], outs[2]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        k3b_err = max(k3b_err, err)
+        # w by the step it took, which an error of the step would move; for
+        # Adam the step that Adam's rule makes of the kernel's own m and v
+        want_w = adam_update(opt, w, *got[1:3]) if isinstance(opt, Adam) \
+            else plain[0]
+        names = ["the step of w"] + list(opt.slot_names) + ["db", "dh0"]
+        pairs = ([(names[0], got[0] - w, want_w - w, want_w)]
+                 + [(n, a, b, None)
+                    for n, a, b in zip(names[1:], got[1:], plain[1:])])
+        used = {what: hold_scaled("K3b, %s: %s" % (type(opt).__name__, what),
+                                  a, b, ulp_of)
+                for what, a, b, ulp_of in pairs}
+        print("K3b, %s: each output within SCALED_TOL (rtol 1e-4, atol 1e-4 "
+              "of its max|plain|), share of the allowance used: %s; rerun "
+              "bit-identical; the step moved w by up to %.3g"
+              % (type(opt).__name__,
+                 ", ".join("%s %.3g" % kv for kv in used.items()),
+                 float((got[0] - w).abs().max())))
+        if isinstance(opt, Adam):
+            step_k = (got[0] - w).cpu().numpy()
+            step_p = (plain[0] - w).cpu().numpy()
+            outside = np.abs(step_k - step_p) > scaled_allowance(
+                step_p, plain[0].cpu().numpy())
+            adam_w_over = int(outside.sum())
+            # Adam's first m is (1 - beta1) g
+            g = np.abs(plain[1].cpu().numpy()) / (1.0 - opt._b1)
+            print("  Adam: %d of %d weights took a step outside SCALED_TOL of "
+                  "the plain version's step; their plain |g| is at most %.3g "
+                  "and at least %.3g (Adam's step lr g / (|g| + eps), eps "
+                  "%g, turns the rounding of a g near eps into a step "
+                  "difference); their new w differs from the plain w by up "
+                  "to %.3g" % (adam_w_over, w.numel(),
+                               float(np.max(g[outside], initial=0.0)),
+                               float(np.min(g[outside], initial=np.inf)),
+                               opt._eps,
+                               float((got[0] - plain[0]).abs().max())))
+        print("  largest |kernel - plain| over w, slots, db, dh0: %.3g" % err)
+
+    # five whole steps: the streaming step through the kernels against the
+    # same step through the plain versions, on the card, from the main
+    # path's Xavier weights, not at gain sqrt(2): there the 98-layer chain
+    # amplifies a rounding-level change of the weights after one step into
+    # a loss change far above LOSS_TOL
+    losses, state = stream_steps(device, lambda: Adam(1e-3), STEPS_SEED, x, y)
+    worst = hold_steps("Adam, seed %d" % STEPS_SEED, losses, state)
+    print("5 streaming steps (Adam 1e-3, seed %d), kernels vs plain: losses "
+          "%s; max abs err over losses, parameters and slots %.3g (tol "
+          "losses rtol 1e-5 atol 1e-6, state rtol 1e-4 atol 1e-5)"
+          % (STEPS_SEED, np.array2string(losses[0], precision=6), worst))
+    losses, state = stream_steps(device, lambda: SGD(0.01), STEPS_SEED, x, y)
+    worst = hold_steps("SGD, seed %d" % STEPS_SEED, losses, state)
+    print("5 streaming steps (SGD 0.01, seed %d), kernels vs plain: losses "
+          "%s; max abs err %.3g (the same tolerances)"
+          % (STEPS_SEED, np.array2string(losses[0], precision=6), worst))
+
+    # times at the main path's shape; K3b updates a scratch copy of the state
+    opt = Adam(1e-3)
+    wk = w.clone()
+    slots = {n: torch.zeros_like(w) for n in opt.slot_names}
+    scalars = opt.scalars(1e-3, 1)
+    fns = {
+        "streaming_forward": (
+            lambda: se.cuda_stream_forward(h0, w, b, act),
+            lambda: se.stream_forward_reference(h0, w, b, act)),
+        "streaming_backward": (
+            lambda: se.cuda_stream_backward(act, opt, h0, dlast, acts_ref,
+                                            wk, slots, scalars),
+            lambda: se.stream_backward_reference(act, opt, h0, dlast,
+                                                 acts_ref, wk, slots,
+                                                 scalars)),
+    }
+    costs = dict(zip(fns, stream_costs(n_layers, BATCH, width,
+                                       len(opt.slot_names))))
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        kernel()
+        plain()
+        # in turns: plain, kernel, kernel, plain
+        p1, k1, k2, p2 = (epoch_ms(plain, 3), epoch_ms(kernel, 50),
+                          epoch_ms(kernel, 50), epoch_ms(plain, 3))
+        dev_ms = device_us(kernel, reps=20) / 1e3
+        bound_ms, bound_by = bound(*costs[name])
+        out[name] = dict(max_abs_err=k3_err if name == "streaming_forward"
+                         else k3b_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print("%s (Adam for K3b): %.4f ms a launch by CUDA events (turns "
+              "%.4f, %.4f), %.4f ms device time (profiler); plain %.3f ms "
+              "(turns %.3f, %.3f); bound %.4f ms (%s-bound: %.4g GFLOP, "
+              "%.4g MB); kernel at %.2f%% of it"
+              % (name, out[name]["ms"], k1, k2, dev_ms, out[name]["plain_ms"],
+                 p1, p2, bound_ms, bound_by, costs[name][0] / 1e9,
+                 costs[name][1] / 1e6, 100.0 * bound_ms / out[name]["ms"]))
+    sgd_bound = bound(*stream_costs(n_layers, BATCH, width, 0)[1])
+    print("K3b bound with SGD: %.4f ms (%s-bound)" % sgd_bound)
+    out["streaming_backward"]["adam_w_over_tol"] = adam_w_over
+    return out
+
+
+def run_deep_slice(device, opt, fused="auto", n_epochs=3):
+    """The deep MLP's main path: ``Model(build_deep_mlp(stacked=True), ...,
+    device="cuda").train_epochs(..., fused=...)`` from seed 0 over the
+    2,560-sample data, an epoch and then ``n_epochs - 1`` timed ones.
+    Returns the model, the losses [n_epochs, 20], the launch counts and the
+    timed epochs' steps/s (the first epoch's where it is the only one)."""
+    x, y = deep_data()
+    seeder.random_seed(0)
+    model = Model(build_deep_mlp(**DEEP), SoftmaxCrossEntropyLoss(), opt,
+                  device=device)
+    x_dev, y_dev = model.stage(x, y)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    first = model.train_epoch(x_dev, y_dev, batch_size=BATCH, fused=fused)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rest = first[None][:0]
+    if n_epochs > 1:
+        t0 = time.perf_counter()
+        rest = model.train_epochs(x_dev, y_dev, n_epochs=n_epochs - 1,
+                                  batch_size=BATCH, fused=fused)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = torch.cat([first[None], rest]).cpu().numpy()
+    n_steps = losses.shape[1]
+    rate = (n_steps * (n_epochs - 1) / timed_s if n_epochs > 1
+            else n_steps / first_s)
+    print("%s, fused=%r: %d epochs of %d steps; epoch 1 %.4f s (the "
+          "kernels' first loads included); %s %.1f steps/s = %.1f us/step; "
+          "epoch-mean losses %s; launches %s"
+          % (type(opt).__name__, fused, n_epochs, n_steps, first_s,
+             "then" if n_epochs > 1 else "that is", rate, 1e6 / rate,
+             np.array2string(losses.mean(axis=1), precision=6), counts))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss")
+    if n_epochs > 1 and not losses[-1].mean() < losses[0].mean():
+        raise AssertionError("the loss did not fall: epoch means %s"
+                             % losses.mean(axis=1))
+    return model, x_dev, y_dev, losses, counts, rate
+
+
+def check_deep_slice(device):
+    """The stream tier's slice (Adam, then SGD) and the step loop from the
+    same weights. Returns the summed launch counts and the stream
+    model (Adam) with its staged data."""
+    n_steps = DEEP_SAMPLES // BATCH
+    total = dict.fromkeys(launch_counts(), 0)
+    rates = {}
+    for opt in (Adam(1e-3), SGD(0.01)):
+        model, x_dev, y_dev, losses, counts, rate = run_deep_slice(device,
+                                                                   opt)
+        steps = 3 * n_steps
+        expected = {"matmul": 5 * steps, "fused_epoch": 0,
+                    "streaming_forward": steps, "streaming_backward": steps}
+        if counts != expected:
+            raise AssertionError("launch counts %s, expected %s (K3 and K3b "
+                                 "once a step, K1 5 a step: prefix and suffix "
+                                 "forward, suffix dW and dx, prefix dW)"
+                                 % (counts, expected))
+        rates[type(opt).__name__] = rate
+        for k in total:
+            total[k] += counts[k]
+        if isinstance(opt, Adam):
+            stream = (model, x_dev, y_dev, losses[0])
+    _, _, _, loop_losses, counts, loop_rate = run_deep_slice(
+        device, Adam(1e-3), fused=False, n_epochs=1)
+    n_body = DEEP["depth"] - 2
+    expected = {"matmul": (5 + 3 * n_body) * n_steps, "fused_epoch": 0,
+                "streaming_forward": 0, "streaming_backward": 0}
+    if counts != expected:
+        raise AssertionError("step-loop launch counts %s, expected %s (K1 5 + "
+                             "3 x %d a step)" % (counts, expected, n_body))
+    for k in total:
+        total[k] += counts[k]
+    gap = np.abs(loop_losses[0] - stream[3])
+    print("same call: the stream tier (Adam) %.1f steps/s, SGD %.1f, the "
+          "step loop (dense_stack_ on K1, %d launches a step) %.1f (its "
+          "first epoch); stream/loop %.2f. The two tiers' losses from the "
+          "same weights and batches differ by at most %.3g over the epoch"
+          % (rates["Adam"], rates["SGD"], 5 + 3 * n_body, loop_rate,
+             rates["Adam"] / loop_rate, gap.max()))
+    return total, stream
+
+
+def run_stream_trace(model, x_dev, y_dev):
+    """Device busy share of one stream epoch, the K3 and K3b device time a
+    step, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = model.train_epoch(x_dev, y_dev, batch_size=BATCH)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n_steps = int(losses.shape[0])
+    rows = sorted(device_kernels(prof), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print("trace, stream epoch: %d steps, wall %.1f us/step under the "
+          "profiler, %d kernel launches/step" % (
+              n_steps, wall_us / n_steps, sum(r[1] for r in rows) // n_steps))
+    if busy_us == 0:
+        print("trace, stream epoch: device time not measured (the profiler "
+              "saw no device kernels)")
+        return
+    k3 = sum(r[0] for r in rows if "stream_forward_kernel" in r[2])
+    k3b = sum(r[0] for r in rows if "stream_backward" in r[2])
+    print("trace, stream epoch: device busy %.1f us/step = %.1f%% of wall "
+          "(idle %.1f%%); K3 %.1f us/step, K3b %.1f us/step (its two "
+          "kernels), the rest %.1f us/step"
+          % (busy_us / n_steps, 100.0 * busy_us / wall_us,
+             100.0 - 100.0 * busy_us / wall_us, k3 / n_steps, k3b / n_steps,
+             (busy_us - k3 - k3b) / n_steps))
+    for dev_us, count, key in rows[:8]:
+        print("  %8.2f us/step  %3d launches/step  %s"
+              % (dev_us / n_steps, count // n_steps, key[:80]))
+
+
 def run_parity(device):
     (x, y), _ = synthetic_mnist(5 * BATCH, 10)
     y = one_hot(y)
@@ -593,16 +1065,18 @@ def main():
                                           torch.version.cuda))
 
     phase("build")
-    names = ("matmul", "fused_epoch")
+    names = ("matmul", "fused_epoch", "streaming_epoch")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
-    print("built both kernels in %.2f s (one nvcc each, in parallel)"
-          % (time.perf_counter() - t0))
+    print("built the %d libraries in %.2f s (one nvcc each, in parallel)"
+          % (len(names), time.perf_counter() - t0))
     for path, log in built:
         print("  %s" % path.name)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print("    ptxas: %s" % line.split("'")[1][-60:])
+            elif "registers" in line or "spill" in line:
                 print("    ptxas: %s" % line.strip())
     per_sm, sms = fused_epoch.kernel_grid()
     print("fused_epoch grid: %d blocks/SM x %d SMs = %d blocks of 256 threads"
@@ -622,6 +1096,9 @@ def main():
     k2_err, k2_ms, k2_plain_ms, spec = check_fused_epoch(device)
     k2_bound_ms, k2_bound_by = bound(*epoch_cost(spec, EPOCH_STEPS, BATCH))
 
+    phase("stream kernels vs plain")
+    stream = check_stream_kernels(device)
+
     phase("slice")
     (fmodel, fx, fy, f_acc, f_launches, f_rate,
      f_trace) = run_fused_slice(device)
@@ -638,9 +1115,13 @@ def main():
         raise AssertionError("accuracies %.4f (K2) and %.4f (step loop) "
                              "differ by more than 0.02" % (f_acc, s_acc))
 
+    phase("deep slice")
+    deep_launches, (dmodel, dx, dy, _) = check_deep_slice(device)
+
     phase("trace")
     run_trace(smodel, sx, sy)
     run_fused_trace(fmodel, fx, fy)
+    run_stream_trace(dmodel, dx, dy)
 
     phase("parity gpu vs cpu")
     run_parity(device)
@@ -650,17 +1131,27 @@ def main():
         {"name": "matmul", "route": "cuda",
          "source": "tinynn_autograd_tpu_torch/csrc/matmul.cu",
          "replaces": "tinynn_autograd_tpu/ops/kernels.py:122",
-         "launches": f_launches["matmul"] + s_launches["matmul"],
+         "launches": (f_launches["matmul"] + s_launches["matmul"]
+                      + deep_launches["matmul"]),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
          "library_ms": k1_plain_ms},
         {"name": "fused_epoch", "route": "cuda",
          "source": "tinynn_autograd_tpu_torch/csrc/fused_epoch.cu",
          "replaces": "tinynn_autograd_tpu/ops/fused_epoch.py:159",
-         "launches": f_launches["fused_epoch"] + s_launches["fused_epoch"],
+         "launches": (f_launches["fused_epoch"] + s_launches["fused_epoch"]
+                      + deep_launches["fused_epoch"]),
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound_ms, "bound_by": k2_bound_by,
-         "library_ms": None}]}))
+         "library_ms": None}] + [
+        dict({"name": name, "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/streaming_epoch.cu",
+              "replaces": "tinynn_autograd_tpu/ops/streaming_epoch.py:%d"
+                          % line,
+              "launches": deep_launches[name], "library_ms": None},
+             **stream[name])
+        for name, line in (("streaming_forward", 151),
+                           ("streaming_backward", 192))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-"""The CUDA kernels on the card: the matmul (K1) and the whole-epoch kernel
-(K2). Tests marked ``cuda``; they skip without a CUDA device, since the
-kernels have no CPU mode.
+"""The CUDA kernels on the card: the matmul (K1), the whole-epoch kernel
+(K2) and the weight-streaming kernels (K3, K3b). Tests marked ``cuda``; they
+skip without a CUDA device, since the kernels have no CPU mode.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -156,5 +156,196 @@ def test_cuda_auto_epoch_is_one_fused_launch():
     torch.cuda.synchronize()
     assert fused_epoch.cuda_fused_epoch.launches == k2 + 1
     assert kernels.cuda_matmul.launches == k1
+    assert losses.shape == (4,) and torch.isfinite(losses).all()
+    assert model.optimizer.state_dict()["t"] == 4
+
+
+# the streaming kernels: (layers, batch, width, activation); the deep MLP's
+# body at batch 128, with ReLU and with the two bodies whose derivative is
+# neither 0 nor 1, a ragged batch on a 3-block cluster, a cluster of one, a
+# width past 3488, where a cluster of K3 takes one row and K3b's first pass
+# eight, and a width past 3616, where a cluster of either takes one
+STREAM_SHAPES = {"deep_mlp": (98, 128, 256, "relu"),
+                 "deep_tanh": (98, 128, 256, "tanh"),
+                 "deep_sigmoid": (98, 128, 256, "sigmoid"),
+                 "ragged": (3, 20, 96, "tanh"),
+                 "narrow": (2, 5, 32, "sigmoid"),
+                 "mid": (4, 17, 3520, "relu"),
+                 "wide": (1, 3, 3648, "linear")}
+# a 98-layer chain of f32 sums in two orders: the error grows with depth (up
+# to 1.5e-5 on values of order 1 seen on an H100 at the deep MLP's shape)
+STREAM_TOL = dict(rtol=1e-4, atol=1e-4)
+# K3b's outputs differ in size by orders of magnitude (Adam's v is 1e-3 g^2,
+# a weight's step 1e-3 of the weight): each is held at rtol 1e-4 and an atol
+# of 1e-4 of its own largest plain value (and 1e-30, for a sigmoid stack's
+# gradients that vanish to 0 or to subnormals)
+SCALED_RTOL = 1e-4
+SCALED_ATOL = 1e-4
+
+
+def _stream_inputs(dev, n_layers, batch, width, act, seed=0):
+    """h0, w, b and the loss gradient at the body's output, from numpy. The
+    weights of a ReLU stack carry gain sqrt(2) over Xavier, so every layer
+    holds values of order 1 (at Xavier gain they shrink ~0.7x a layer). A
+    tanh stack keeps Xavier's: at sqrt(2) it is chaotic, and its 98-layer
+    chain would grow a rounding-level difference past the tolerance."""
+    rng = np.random.RandomState(seed)
+    gain = 1.0 if act == "tanh" else np.sqrt(2.0)
+    bound = gain * np.sqrt(6.0 / (2 * width))
+    arrays = (rng.randn(batch, width),
+              rng.uniform(-bound, bound, (n_layers, width, width)),
+              0.1 * rng.randn(n_layers, 1, width),
+              rng.randn(batch, width) / batch)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               err_msg=what, **STREAM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(STREAM_SHAPES))
+def test_cuda_stream_forward_matches_reference(shape):
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_layers, batch, width, act = STREAM_SHAPES[shape]
+    h0, w, b, _ = _stream_inputs(dev, n_layers, batch, width, act)
+    before = se.cuda_stream_forward.launches
+    got = se.cuda_stream_forward(h0, w, b, act)
+    torch.cuda.synchronize()
+    assert se.cuda_stream_forward.launches == before + 1
+    _close(got, se.stream_forward_reference(h0, w, b, act), "acts")
+    assert torch.equal(got, se.cuda_stream_forward(h0, w, b, act))
+
+
+def _close_scaled(got, want, what, ulp_of=None):
+    """``got`` within rtol SCALED_RTOL and an atol of SCALED_ATOL of
+    max|want| of ``want``; plus, where ``ulp_of`` is given, one unit in the
+    last place of it: a step read back as new w - w carries the rounding of
+    the new w."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    allowed = (SCALED_ATOL * float(np.max(np.abs(want), initial=0.0)) + 1e-30
+               + SCALED_RTOL * np.abs(want))
+    if ulp_of is not None:
+        allowed = allowed + np.spacing(np.abs(ulp_of.cpu().numpy()))
+    over = np.abs(got - want) > allowed
+    assert not over.any(), "%s: %d of %d elements outside, largest " \
+        "difference %.3g" % (what, over.sum(), over.size,
+                             np.max(np.abs(got - want)))
+
+
+def _backward_both(dev, shape, opt_name, steps=1, kernel_only=False):
+    """The starting w, the optimizer, and the kernel's (and unless
+    ``kernel_only`` the plain version's) results of ``steps`` K3b calls
+    from one state: the new w, each slot, db and dh0."""
+    from tinynn_autograd_tpu_torch.nn import optimizer
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_layers, batch, width, act = STREAM_SHAPES[shape]
+    h0, w, b, dlast = _stream_inputs(dev, n_layers, batch, width,
+                                      act)
+    opt = getattr(optimizer, opt_name)(lr=1e-3, weight_decay=1e-4)
+    acts = se.stream_forward_reference(h0, w, b, act)
+    runs = []
+    fns = [se.cuda_stream_backward]
+    if not kernel_only:
+        fns.append(se.stream_backward_reference)
+    for fn in fns:
+        wk = w.clone()
+        slots = {n: torch.zeros_like(w) for n in opt.slot_names}
+        for t in range(1, steps + 1):
+            db, dh0 = fn(act, opt, h0, dlast, acts, wk, slots,
+                         opt.scalars(1e-3, t))
+        torch.cuda.synchronize()
+        runs.append([wk] + [slots[n] for n in opt.slot_names] + [db, dh0])
+    return w, opt, runs
+
+
+def _hold_outputs(w0, got, want):
+    """The kernel's outputs against ``want``, each at its own scale: the
+    step w took (not w itself, whose size would hide an error of the
+    step), each slot, db and dh0."""
+    _close_scaled(got[0] - w0, want[0] - w0, "the step of w", ulp_of=want[0])
+    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+        _close_scaled(a, b, "output %d" % (i + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name", ["Adam", "SGD"])
+@pytest.mark.parametrize("shape", ["deep_mlp", "deep_tanh", "deep_sigmoid",
+                                   "ragged", "mid", "wide"])
+def test_cuda_stream_backward_matches_reference(shape, opt_name):
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    dev = _cuda()
+    before = se.cuda_stream_backward.launches
+    w0, opt, (got, want) = _backward_both(dev, shape, opt_name)
+    assert se.cuda_stream_backward.launches == before + 1
+    if opt_name == "Adam":
+        # Adam turns a gradient within rounding of 0 into a step of up to
+        # lr whose sign the order of the sum decides: the kernel's step is
+        # held to Adam's rule on its own new m and v, which are held to the
+        # plain version's
+        scale, rsqrt_c2 = opt.scalars(1e-3, 1)
+        m, v = got[1], got[2]
+        want[0] = w0 + (scale * m / (torch.sqrt(v) * rsqrt_c2 + opt._eps)
+                        - opt.weight_decay * w0)
+    _hold_outputs(w0, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name", ["Momentum", "Lion", "RMSProp",
+                                      "Adagrad", "Adadelta"])
+def test_cuda_stream_backward_applies_every_rule(opt_name):
+    _cuda()
+    w0, _, (got, want) = _backward_both(torch.device("cuda"), "ragged",
+                                        opt_name, steps=3)
+    _hold_outputs(w0, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["deep_mlp", "deep_tanh", "deep_sigmoid"])
+def test_cuda_stream_backward_reruns_are_bit_identical(shape):
+    # five runs from one state; with tanh and sigmoid a block that read a
+    # neighbour's slice of the dh panel while the neighbour changed it would
+    # show here as a run that differs
+    _cuda()
+    first = _backward_both(torch.device("cuda"), shape, "Adam",
+                           kernel_only=True)[2][0]
+    for _ in range(4):
+        again = _backward_both(torch.device("cuda"), shape, "Adam",
+                               kernel_only=True)[2][0]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_cuda_auto_deep_mlp_epoch_takes_the_stream_tier():
+    from tinynn_autograd_tpu_torch.models import build_deep_mlp
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    dev = _cuda()
+    model = Model(build_deep_mlp(num_in=64, depth=10, width=128, num_out=10,
+                                 stacked=True),
+                  SoftmaxCrossEntropyLoss(), Adam(1e-3), device=dev)
+    rng = np.random.RandomState(0)
+    x = rng.randn(4 * 32, 64).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 4 * 32)]
+    counts = (kernels.cuda_matmul.launches,
+              fused_epoch.cuda_fused_epoch.launches,
+              se.cuda_stream_forward.launches, se.cuda_stream_backward.launches)
+    losses = model.train_epoch(x, y, batch_size=32)
+    torch.cuda.synchronize()
+    assert (kernels.cuda_matmul.launches - counts[0],
+            fused_epoch.cuda_fused_epoch.launches - counts[1],
+            se.cuda_stream_forward.launches - counts[2],
+            se.cuda_stream_backward.launches - counts[3]) == (20, 0, 4, 4)
     assert losses.shape == (4,) and torch.isfinite(losses).all()
     assert model.optimizer.state_dict()["t"] == 4

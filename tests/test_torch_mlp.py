@@ -252,7 +252,7 @@ def test_unported_options_raise():
     model = Model(build_mnist_mlp(hidden=NARROW), SoftmaxCrossEntropyLoss(),
                   Adam(1e-3), device="cpu")
     xs, ys = _batches(1)
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="DenseStack"):
         model.train_epoch(xs[0], ys[0], fused="stream")
     with pytest.raises(NotImplementedError):
         model.train_step(xs[0], ys[0], accum_steps=2)

@@ -1,3 +1,3 @@
-from tinynn_autograd_tpu_torch.models.mlp import build_mnist_mlp
+from tinynn_autograd_tpu_torch.models.mlp import build_deep_mlp, build_mnist_mlp
 
-__all__ = ["build_mnist_mlp"]
+__all__ = ["build_mnist_mlp", "build_deep_mlp"]

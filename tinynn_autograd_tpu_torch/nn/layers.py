@@ -1,6 +1,6 @@
-"""Network layers and activations: the MLP trainer's subset of the JAX
-package's nn/layers.py (Layer, Dense, Activation, ReLU, Sigmoid, Tanh,
-Flatten).
+"""Network layers and activations: the MLP trainers' subset of the JAX
+package's nn/layers.py (Layer, Dense, DenseStack, Activation, ReLU, Sigmoid,
+Tanh, Flatten).
 
 Every layer's forward is Tensor algebra over the tape primitives. Layers own
 their parameters as tape Tensors (so they are the framework's own classes,
@@ -11,8 +11,10 @@ expose ``param_shapes`` for checkpoint compatibility checks.
 import contextlib
 
 import numpy as np
+import torch
 
 import tinynn_autograd_tpu_torch.ops as ops
+from tinynn_autograd_tpu_torch.core.tensor import Tensor
 from tinynn_autograd_tpu_torch.nn.initializer import (
     XavierUniformInit, ZerosInit,
 )
@@ -104,6 +106,66 @@ class Dense(Layer):
             self.params["w"] = self.initializers["w"](self.shapes["w"])
             self.params["b"] = self.initializers["b"](self.shapes["b"])
         self._is_init = True
+
+
+class DenseStack(Layer):
+    """``depth`` homogeneous Dense(width->width)+activation layers with
+    STACKED parameters (w: [depth, W, W], b: [depth, 1, W]) executed as one
+    primitive (``ops.dense_stack_``). ``activation`` is "relu", "tanh",
+    "sigmoid" or "linear". ``width`` may be omitted and is inferred from the
+    first input (lazy init); ``seed`` pins the parameter draws.
+
+    The deep-MLP body: on the card the weight-streaming tier
+    (ops/streaming_epoch.py) trains it with two kernels a step."""
+
+    def __init__(self, depth, width=None, activation="relu", w_init=None,
+                 b_init=None, seed=None):
+        super().__init__("DenseStack")
+        self.depth = depth
+        self.activation = activation
+        self._seed = seed
+        self.initializers = {
+            "w": w_init if w_init is not None else XavierUniformInit(),
+            "b": b_init if b_init is not None else ZerosInit(),
+        }
+        self.shapes = {"w": [depth, width, width], "b": [depth, 1, width]}
+        self.params = {"w": None, "b": None}
+        self._is_init = False
+        if width is not None:
+            self._init_parameters(width)
+
+    @property
+    def width(self):
+        return self.shapes["w"][-1]
+
+    @property
+    def is_init(self):
+        return self._is_init
+
+    def _init_parameters(self, width):
+        width = int(width)
+        self.shapes = {"w": [self.depth, width, width],
+                       "b": [self.depth, 1, width]}
+        # per-layer draws with the 2-D fans, stacked
+        with _init_scope(self._seed):
+            ws = [self.initializers["w"]((width, width)).data
+                  for _ in range(self.depth)]
+            bs = [self.initializers["b"]((1, width)).data
+                  for _ in range(self.depth)]
+        self.params = {"w": Tensor(torch.stack(ws), requires_grad=True),
+                       "b": Tensor(torch.stack(bs), requires_grad=True)}
+        self._is_init = True
+
+    def init_params(self, input_shape):
+        if not self._is_init:
+            self._init_parameters(input_shape[-1])
+        return (input_shape[0], self.width)
+
+    def forward(self, inputs):
+        if not self._is_init:
+            self._init_parameters(inputs.shape[-1])
+        return ops.dense_stack_(inputs, self.params["w"], self.params["b"],
+                                activation=self.activation)
 
 
 class Flatten(Layer):

@@ -7,16 +7,20 @@ PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainer:
    batch, returning the loss as a device scalar (no host sync).
 3. ``train_epoch``/``train_epochs``: the data staged on the device once, an
    on-device shuffle per epoch (``torch.randperm`` with the model's own
-   generator), then one of two tiers over the batches:
+   generator), then one of three tiers over the batches:
    - the whole-epoch kernel (K2, ``ops/fused_epoch.py``): the epoch in one
      CUDA launch, on the CPU its plain version. ``fused=True`` takes it or
-     raises ``ValueError`` saying why the net is not eligible;
-     ``fused="auto"`` takes it on a CUDA device when ``supports()`` holds.
-   - the step tier, a loop of train steps: ``fused=False``, and
-     ``fused="auto"`` otherwise.
-   The weight-streaming tier (``fused="stream"``) is not ported yet and
-   raises. A build or launch failure of the kernel raises; nothing falls
-   back to the step tier.
+     raises ``ValueError`` saying why the net is not eligible.
+   - the weight-streaming tier (K3 and K3b, ``ops/streaming_epoch.py``): a
+     host loop of streaming steps over the batches, each running the
+     DenseStack body's forward in one launch and its backward with the
+     optimizer's update in another; on the CPU their plain versions.
+     ``fused="stream"`` takes it or raises ``ValueError`` saying why.
+   - the step tier, a loop of train steps (``fused=False``).
+   ``fused="auto"``, the default, takes the first of K2, the streaming tier
+   and the step tier that can run the net, as the JAX package does; the
+   kernels' tiers only on a CUDA device. A build or launch failure of a
+   kernel raises; nothing falls back to another tier.
 
 Parameters are updated IN PLACE (``param.add_(step)``), which saves a second
 copy of the weights on the device each step. Every parameter and every input
@@ -153,12 +157,7 @@ class Model:
                      shuffle=True, fused="auto"):
         """``n_epochs`` full epochs over data staged on the device; returns
         the loss trace [n_epochs, n_steps] on the device."""
-        if fused == "stream":
-            raise NotImplementedError(
-                "fused='stream' is not ported to the PyTorch package yet: the "
-                "weight-streaming kernels are ROADMAP K3. Use fused='auto', "
-                "True or False.")
-        if fused not in ("auto", True, False):
+        if fused not in ("auto", True, False, "stream"):
             raise ValueError("fused must be 'auto', False, True or 'stream', "
                              "got %r" % (fused,))
         x_all, y_all = self.stage(x_all, y_all)
@@ -177,6 +176,8 @@ class Model:
                 % (n, batch_size))
         epoch_fn = self._whole_epoch_kernel(fused, n_steps, batch_shape,
                                             (batch_size,) + label_feat)
+        step_fn = (self._streaming_step(fused, batch_shape)
+                   if epoch_fn is None else None) or self._step
         used = n_steps * batch_size
         losses = torch.empty((n_epochs, n_steps), device=self.device)
         for epoch in range(n_epochs):
@@ -196,7 +197,7 @@ class Model:
                     ys.to(torch.float32).contiguous())
                 continue
             for s in range(n_steps):
-                losses[epoch, s] = self._step(xs[s], ys[s])
+                losses[epoch, s] = step_fn(xs[s], ys[s])
         return losses
 
     def _whole_epoch_kernel(self, fused, n_steps, batch_shape, label_shape):
@@ -207,8 +208,8 @@ class Model:
         only on the accelerator, and only for an eligible model."""
         from tinynn_autograd_tpu_torch.ops import fused_epoch
 
-        if fused is False or (fused == "auto"
-                              and self.device.type != "cuda"):
+        if fused in (False, "stream") or (fused == "auto"
+                                          and self.device.type != "cuda"):
             return None
         reason = fused_epoch.unsupported_reason(
             self.net, self.net.params_tree(), self.optimizer, self.loss,
@@ -224,6 +225,29 @@ class Model:
         return fused_epoch.build_fused_epoch(
             self.net, self.loss, self.optimizer, n_steps, batch_shape,
             label_shape)
+
+    def _streaming_step(self, fused, batch_shape):
+        """The streaming tier's ``step_fn`` when this call takes it, else
+        None. "stream" forces it, raising ``ValueError`` with the reason
+        when the net is not eligible; "auto" takes it only on the
+        accelerator, and only for an eligible net."""
+        from tinynn_autograd_tpu_torch.ops import streaming_epoch
+
+        if fused not in ("stream", "auto") or (fused == "auto"
+                                                and self.device.type != "cuda"):
+            return None
+        reason = streaming_epoch.unsupported_reason(self.net, self.optimizer,
+                                                    batch_shape)
+        if reason is not None:
+            if fused == "stream":
+                raise ValueError("fused='stream': the streaming tier cannot "
+                                 "run this model: %s" % reason)
+            return None
+        if self.optimizer.state_dict() is None:
+            self.optimizer.load_state_dict(
+                self.optimizer.init_state(self.net.params_tree()))
+        return streaming_epoch.build_streaming_step(self.net, self.loss,
+                                                    self.optimizer)
 
     # ------------------------------------------------------------ eager step
 

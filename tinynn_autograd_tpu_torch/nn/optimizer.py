@@ -1,21 +1,28 @@
 """Optimizers as per-leaf updates over the parameter tree (a list of
 per-layer dicts), as in the JAX package's nn/optimizer.py: ``BaseOptimizer``
-with ``weight_decay`` and global-norm ``clip_norm``, ``SGD`` and ``Adam``.
+with ``weight_decay`` and global-norm ``clip_norm``, and the seven rules
+``SGD``, ``Momentum``, ``Adam``, ``Lion``, ``RMSProp``, ``Adagrad`` and
+``Adadelta``, each in the JAX package's algebraic form (``rsqrt`` where it
+uses ``rsqrt``), so that the two agree at rounding level. ``lr`` may be a
+number or a schedule (nn/scheduler.py), a callable ``t -> lr`` evaluated on
+the host.
 
-Three entry points:
+Entry points:
 - ``update(grads, params, state) -> (steps, state)``, called once per train
   step by the Model.
 - ``compute_step(grads, params)``, the stateful eager facade (list-of-dicts
   in, list-of-dicts of steps out).
-- ``step_scalars(t0, n_steps)``, the per-step scalars the whole-epoch kernel
-  (ops/fused_epoch.py) reads for SGD and Adam.
+- ``rule(g, scalars, slots)``, one leaf's update given the step's scalars;
+  ``scalars(lr, t)`` computes them, ``step_scalars(t0, n_steps)`` for a run
+  of steps. The kernels (ops/fused_epoch.py, ops/streaming_epoch.py) take
+  the same scalars as launch arguments and apply the same rule.
 
 ``steps`` is what gets ADDED to the params (param += step).
 
 Unlike the JAX package's pure update, the optimizer slots (Adam's m and v)
 are updated IN PLACE: that saves a second copy of the optimizer state on the
-device each step. The step counter ``t`` is a host integer, so the bias
-corrections are host scalars and cost no device work.
+device each step. The step counter ``t`` is a host integer, so the learning
+rate and the bias corrections are host scalars and cost no device work.
 
 ``slot_dtype``/``stochastic_rounding`` (bf16 optimizer state) are not ported
 yet and raise.
@@ -72,7 +79,7 @@ class BaseOptimizer:
     def step_leaf(self, g, lr, t, slots):
         """Apply the rule to one leaf: the slots are updated in place, the
         step is returned in the gradient's dtype. Returns (step, slots)."""
-        step = self._step_leaf(g, lr, t, slots)
+        step = self.rule(g, self.scalars(lr, t), slots)
         return step.to(g.dtype), slots
 
     def _lr_at(self, t):
@@ -106,15 +113,23 @@ class BaseOptimizer:
         state["t"] = t
         return steps, state
 
-    def _step_leaf(self, g, lr, t, slots):
+    def rule(self, g, scalars, slots):
+        """One leaf's step (before weight decay) from its gradient, the
+        step's ``scalars`` and its slots, which are updated in place."""
         raise NotImplementedError
 
+    def scalars(self, lr, t):
+        """(s0, s1), the f32 scalars of step ``t`` at learning rate ``lr``
+        that ``rule`` multiplies by: (-lr, 0) unless the rule says
+        otherwise."""
+        return float(-np.float32(lr)), 0.0
+
     def step_scalars(self, t0, n_steps):
-        """[n_steps, 2] float32: the scalars of steps t0+1 ... t0+n_steps
-        that the whole-epoch kernel multiplies by, computed as ``update``
-        computes them."""
-        raise NotImplementedError(
-            "%s has no whole-epoch kernel" % type(self).__name__)
+        """[n_steps, 2] float32: the scalars of steps t0+1 ... t0+n_steps,
+        computed as ``update`` computes them."""
+        return np.array([self.scalars(self._lr_at(t), t)
+                         for t in range(t0 + 1, t0 + 1 + n_steps)],
+                        np.float32).reshape(n_steps, 2)
 
     # ----------------------------------------- reference-compatible facade
 
@@ -143,14 +158,25 @@ class SGD(BaseOptimizer):
     def __init__(self, lr, weight_decay=0.0, clip_norm=None):
         super().__init__(lr, weight_decay, clip_norm=clip_norm)
 
-    def _step_leaf(self, g, lr, t, slots):
-        return -lr * g
+    def rule(self, g, scalars, slots):
+        return scalars[0] * g
 
-    def step_scalars(self, t0, n_steps):
-        """Column 0 is -lr (column 1 is unused)."""
-        out = np.zeros((n_steps, 2), np.float32)
-        out[:, 0] = [-self._lr_at(t) for t in range(t0 + 1, t0 + 1 + n_steps)]
-        return out
+
+class Momentum(BaseOptimizer):
+    """acc = momentum * acc + g; step = -lr * acc."""
+
+    slot_names = ("acc",)
+
+    def __init__(self, lr, momentum=0.9, weight_decay=0.0,
+                 slot_dtype=None, stochastic_rounding=False,
+                 clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._momentum = momentum
+
+    def rule(self, g, scalars, slots):
+        acc = slots["acc"].mul_(self._momentum).add_(g)
+        return scalars[0] * acc
 
 
 class Adam(BaseOptimizer):
@@ -170,7 +196,7 @@ class Adam(BaseOptimizer):
         self._b2 = beta2
         self._eps = epsilon
 
-    def _bias_scalars(self, lr, t):
+    def scalars(self, lr, t):
         """(-(lr/c1), rsqrt(c2)) of step t. The JAX package's algebraic
         form, in f32, so the two agree at rounding level: b**t = exp(t*ln b),
         and the bias corrections are folded into scalars:
@@ -182,15 +208,98 @@ class Adam(BaseOptimizer):
         c2 = one - np.exp(tf * np.log(np.float32(self._b2)))
         return float(-(np.float32(lr) / c1)), float(one / np.sqrt(c2))
 
-    def _step_leaf(self, g, lr, t, slots):
+    def rule(self, g, scalars, slots):
         m, v = slots["m"], slots["v"]
         m.add_((1.0 - self._b1) * (g - m))
         v.add_((1.0 - self._b2) * (g * g - v))
-        scale, rsqrt_c2 = self._bias_scalars(lr, t)
+        scale, rsqrt_c2 = scalars
         return scale * m / (torch.sqrt(v) * rsqrt_c2 + self._eps)
 
-    def step_scalars(self, t0, n_steps):
-        """Columns -(lr/c1) and rsqrt(c2)."""
-        return np.array([self._bias_scalars(self._lr_at(t), t)
-                         for t in range(t0 + 1, t0 + 1 + n_steps)],
-                        np.float32).reshape(n_steps, 2)
+
+class Lion(BaseOptimizer):
+    """Lion (Chen et al. 2023): the step is the sign of an interpolated
+    momentum, u = sign(b1 * m + (1 - b1) * g), step = -lr * u; then
+    m = b2 * m + (1 - b2) * g."""
+
+    slot_names = ("m",)
+
+    def __init__(self, lr=1e-4, beta1=0.9, beta2=0.99, weight_decay=0.0,
+                 slot_dtype=None, stochastic_rounding=False,
+                 clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._b1 = beta1
+        self._b2 = beta2
+
+    def rule(self, g, scalars, slots):
+        m = slots["m"]
+        u = torch.sign(self._b1 * m + (1.0 - self._b1) * g)
+        m.mul_(self._b2).add_((1.0 - self._b2) * g)
+        return scalars[0] * u
+
+
+class RMSProp(BaseOptimizer):
+    """ms += (1-decay)(g^2 - ms);
+    mom = momentum*mom + lr*g*rsqrt(ms + eps); step = -mom."""
+
+    slot_names = ("ms", "mom")
+
+    def __init__(self, lr=0.01, decay=0.99, momentum=0.0, epsilon=1e-8,
+                 weight_decay=0.0, slot_dtype=None,
+                 stochastic_rounding=False, clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._decay = decay
+        self._momentum = momentum
+        self._eps = epsilon
+
+    def scalars(self, lr, t):
+        """(lr, 0): the rule adds lr * g * rsqrt(...) to its momentum."""
+        return float(np.float32(lr)), 0.0
+
+    def rule(self, g, scalars, slots):
+        ms, mom = slots["ms"], slots["mom"]
+        ms.add_((1.0 - self._decay) * (g * g - ms))
+        mom.mul_(self._momentum).add_(
+            scalars[0] * g * torch.rsqrt(ms + self._eps))
+        return -mom
+
+
+class Adagrad(BaseOptimizer):
+    """G += g^2; step = -lr * g * rsqrt(G + eps)."""
+
+    slot_names = ("G",)
+
+    def __init__(self, lr, weight_decay=0.0, epsilon=1e-8,
+                 slot_dtype=None, stochastic_rounding=False,
+                 clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._eps = epsilon
+
+    def rule(self, g, scalars, slots):
+        G = slots["G"].add_(g * g)
+        return scalars[0] * g * torch.rsqrt(G + self._eps)
+
+
+class Adadelta(BaseOptimizer):
+    """Zeiler 2012: Eg += (1-decay)(g^2 - Eg);
+    delta = g * sqrt(d + eps) * rsqrt(Eg + eps); step = -lr * delta;
+    d += (1-decay)(delta^2 - d)."""
+
+    slot_names = ("Eg", "d")
+
+    def __init__(self, lr=1.0, weight_decay=0.0, decay=0.9, epsilon=1e-8,
+                 slot_dtype=None, stochastic_rounding=False,
+                 clip_norm=None):
+        super().__init__(lr, weight_decay, slot_dtype, stochastic_rounding,
+                         clip_norm)
+        self._decay = decay
+        self._eps = epsilon
+
+    def rule(self, g, scalars, slots):
+        Eg, d = slots["Eg"], slots["d"]
+        Eg.add_((1.0 - self._decay) * (g * g - Eg))
+        delta = g * torch.sqrt(d + self._eps) * torch.rsqrt(Eg + self._eps)
+        d.add_((1.0 - self._decay) * (delta * delta - d))
+        return scalars[0] * delta

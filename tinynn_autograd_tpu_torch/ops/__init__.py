@@ -9,6 +9,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     build_binary_ops_tensor,
     build_unary_ops_tensor,
     clip_,
+    dense_stack_,
     div_,
     dot_,
     exp_,

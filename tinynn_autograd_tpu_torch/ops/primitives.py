@@ -448,6 +448,66 @@ def softmax_(ts, axis=-1):
     return build_unary_ops_tensor(ts, grad_fn, values)
 
 
+_STACK_ACTS = {
+    "relu": (lambda z: torch.clamp(z, min=0), lambda z, a: z >= 0),
+    "tanh": (torch.tanh, lambda z, a: 1.0 - a * a),
+    "sigmoid": (torch.sigmoid, lambda z, a: a * (1.0 - a)),
+    "linear": (lambda z: z, lambda z, a: torch.ones_like(z)),
+}
+
+
+def dense_stack_(ts_x, ts_w, ts_b, activation="relu"):
+    """L homogeneous Dense+activation layers as ONE primitive:
+    h_{l+1} = act(h_l @ w[l] + b[l]), weights stacked w:[L,W,W], b:[L,1,W].
+
+    The forward is a loop over the layer axis that keeps every layer's
+    input, pre-activation and output; the hand-written VJP is the reverse
+    loop, one backward computation shared by the three gradient functions.
+    Each product goes through ``kernels.matmul`` (the CUDA kernel on a GPU),
+    so a step of an L-layer body makes 3L matmul launches. ReLU's derivative
+    here is the tape's, ``z >= 0``."""
+    act_fn, act_grad = _STACK_ACTS[activation]
+    x, w, b = ts_x.data, ts_w.data, ts_b.data
+    h_ins, zs, acts = [], [], []
+    h = x
+    for l in range(w.shape[0]):
+        h_ins.append(h)
+        zs.append(kernels.matmul(h, w[l]) + b[l])
+        h = act_fn(zs[-1])
+        acts.append(h)
+
+    # the three grad_fns share one backward pass per cotangent; the cache
+    # holds a strong reference to the cotangent and compares with `is`, so
+    # a freed object whose id is reused never aliases a stale entry
+    cache = []  # [grad_object, (dx, dw, db)]
+
+    def memo(grad):
+        if not cache or cache[0] is not grad:
+            cache[:] = [grad,
+                        _dense_stack_bwd(grad, w, h_ins, zs, acts, act_grad)]
+        return cache[1]
+
+    dependency = []
+    for i, ts in enumerate((ts_x, ts_w, ts_b)):
+        if ts.requires_grad:
+            dependency.append((ts, lambda grad, i=i: memo(grad)[i]))
+    requires_grad = bool(dependency)
+    return ts_x.__class__(h, requires_grad, dependency)
+
+
+def _dense_stack_bwd(grad, w, h_ins, zs, acts, act_grad):
+    """Reverse loop over layers: dz = dh * act'(z); dW = h_in^T dz;
+    db = sum_rows dz; dh = dz @ w^T."""
+    dws, dbs = [None] * len(zs), [None] * len(zs)
+    dh = grad
+    for l in reversed(range(len(zs))):
+        dz = dh * act_grad(zs[l], acts[l])
+        dws[l] = kernels.matmul(_swap_last2(h_ins[l]), dz)
+        dbs[l] = dz.sum(dim=0, keepdim=True)
+        dh = kernels.matmul(dz, _swap_last2(w[l]))
+    return dh, torch.stack(dws), torch.stack(dbs)
+
+
 def where_(cond, ts1, ts2):
     """Elementwise select; gradient flows to the selected branch only."""
     c = to_torch(cond)
