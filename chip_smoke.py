@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch package on one NVIDIA GPU.
 
-Drives the port's two paths at full width through their kernels. The
+Drives the port's three paths at full width through their kernels. The
 flagship MNIST MLP (784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3,
 batch 128, random weights from seed 0, synthetic MNIST at 50,000/10,000)
 runs through K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
 (csrc/fused_epoch.cu). The deep MLP (256-256, a DenseStack of 98 layers of
 256x256 with ReLU, 256-10; batch 128; 2,560 samples from numpy seed 0,
 labelled by a fixed random linear teacher) runs through K3 and K3b, the
-weight-streaming kernels (csrc/streaming_epoch.cu).
+weight-streaming kernels (csrc/streaming_epoch.cu). The long-context causal
+transformer classifier (bench_all.py's config 6b: vocab 256, seq 2048, dim
+512, 8 heads, depth 2, 16 classes; batch 4, Adam 1e-3, random weights from
+seed 0, random tokens from numpy seed 0) runs through the flash-attention
+kernels (csrc/attention.cu: the forward, the dq and the dk/dv kernels).
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles the three libraries from csrc/ (one nvcc each, started
+2. build: compiles the four libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
@@ -61,10 +65,28 @@ weight-streaming kernels (csrc/streaming_epoch.cu).
    with SGD(0.01). Then one ``fused=False`` epoch from the same weights
    (``dense_stack_`` on K1: 5 + 294 launches a step), its steps/s and the
    gap between its losses and the stream tier's.
-8. trace: torch.profiler over 50 step-loop train steps (device busy share,
-   the kernels that take the device time), over one K2 epoch, and over one
-   stream epoch (busy share, K3 and K3b device time a step).
-9. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
+8. attention kernels vs plain: the forward, dq and dk/dv kernels against
+   ``attention_forward_reference``/``attention_backward_reference`` at
+   every shape of ATTN_SHAPES (config 6b's, the TPU's K4b and K4c shapes,
+   config 6's, windows of 512 and of 40 over a ragged 300, GQA 8q/2kv,
+   cross attention 256/384, dropout 0.1), o and lse at rtol 1e-4/atol
+   1e-5, dq/dk/dv at rtol 1e-4 and an atol of 1e-4 of their own largest
+   plain value, reruns bit-identical; then at config 6b each kernel's time,
+   its plain version's, SDPA's (forward, and backward by autograd.grad) and
+   the bounds.
+9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
+   device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
+   step launches each attention kernel twice (two blocks) and K1 three
+   times (the head Dense), K2, K3 and K3b never; finite losses; the steps/s
+   of epochs 2-3; an evaluate_batch on 32 held-out sequences. Then 5 Adam
+   steps with attn="fused" against 5 with attn="tape" from the same weights
+   (losses within rtol 1e-4) and a timed attn="tape" epoch.
+10. trace: torch.profiler over 50 step-loop train steps (device busy share,
+   the kernels that take the device time), over one K2 epoch, over one
+   stream epoch (busy share, K3 and K3b device time a step), and over 10
+   transformer steps (busy share, the attention kernels' device time a
+   step).
+11. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
    initial weights; losses agree to rtol 1e-5, atol 1e-6.
 
 Prints the card line, one JSON line of kernel results, and as its last line
@@ -87,12 +109,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tinynn_autograd_tpu_torch import Tensor  # noqa: E402
-from tinynn_autograd_tpu_torch.models import build_deep_mlp, build_mnist_mlp  # noqa: E402
+from tinynn_autograd_tpu_torch.models import (  # noqa: E402
+    build_deep_mlp, build_mnist_mlp, build_tiny_transformer,
+)
 from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam  # noqa: E402
-from tinynn_autograd_tpu_torch.ops import fused_epoch, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.ops import attention, fused_epoch, kernels  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
@@ -147,6 +171,46 @@ STEPS_SEED = 7
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Config 6b of bench_all.py (bench_transformer_long): the long-context causal
+# transformer classifier, 7.49 M parameters, head dim 64; batch 4, Adam 1e-3,
+# 256 sequences of random tokens (64 steps an epoch) and random labels from
+# numpy seed 0; its weights from seed 0 for the slice, seed 1 for the
+# fused-vs-tape check. Nothing is cut but the run: 3 epochs.
+TRANSFORMER = dict(vocab=256, seq_len=2048, dim=512, heads=8, depth=2,
+                   num_out=16, causal=True)
+T_BATCH = 4
+T_SAMPLES = 256
+T_EVAL = 32
+T_PARITY_STEPS = 5
+# The attention kernels' checks, (B, H, Hkv, Tq, Tk, d, causal, window,
+# dropout): config 6b's shape (K4's row-band forward and K4d's gridded
+# backward on the TPU), the shapes that take K4b (T=512) and K4c (non-causal
+# T=2048) there, config 6's, a 512 window over 2048 (config 6d), a window
+# narrower than a tile over a ragged T, GQA 8q/2kv, cross attention, dropout
+ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
+               "k4b_t512": (4, 8, 8, 512, 512, 64, True, None, 0.0),
+               "k4c_noncausal": (4, 8, 8, 2048, 2048, 64, False, None, 0.0),
+               "config6": (32, 8, 8, 128, 128, 32, False, None, 0.0),
+               "window512": (4, 8, 8, 2048, 2048, 64, True, 512, 0.0),
+               "window40_ragged": (2, 4, 4, 300, 300, 64, True, 40, 0.0),
+               "gqa_8q_2kv": (2, 8, 2, 256, 256, 64, True, None, 0.0),
+               "cross_256_384": (2, 4, 4, 256, 384, 64, False, None, 0.0),
+               "dropout": (1, 4, 4, 2048, 2048, 64, True, None, 0.1)}
+ATTN_MAIN = "config6b"
+# timed too: the shapes that take K4b and K4c on the TPU
+ATTN_TIMED = ("k4b_t512", "k4c_noncausal")
+ATTN_SEED = 1234
+# O and lse: sums of up to 2048 f32 terms in another order. dq, dk and dv
+# differ in size by shape; each is held at rtol 1e-4 and an atol of 1e-4 of
+# its own largest plain value, as K3b's outputs are. Under dropout one keep
+# decision that differs from the plain hash moves an output by ~p v / (1 -
+# rate), far past these.
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_RTOL = 1e-4
+GRAD_ATOL = 1e-4
+# fused vs tape losses over 5 Adam steps: the same math with sums in other
+# orders
+PARITY_RTOL = 1e-4
 
 
 def phase(name):
@@ -457,19 +521,30 @@ def eager_step(model, xb, yb):
     return float(loss.values)
 
 
+def _wrappers():
+    """Each kernel's wrapper, by the kernel's name in the kernels line."""
+    return {"matmul": kernels.cuda_matmul,
+            "fused_epoch": fused_epoch.cuda_fused_epoch,
+            "streaming_forward": se.cuda_stream_forward,
+            "streaming_backward": se.cuda_stream_backward,
+            "attention_forward": attention.cuda_attention_forward,
+            "attention_backward_dq": attention.cuda_attention_backward_dq,
+            "attention_backward_dkv": attention.cuda_attention_backward_dkv}
+
+
 def launch_counts():
     """Each kernel wrapper's launches since zero_counts()."""
-    return {"matmul": kernels.cuda_matmul.launches,
-            "fused_epoch": fused_epoch.cuda_fused_epoch.launches,
-            "streaming_forward": se.cuda_stream_forward.launches,
-            "streaming_backward": se.cuda_stream_backward.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def zero_counts():
-    kernels.cuda_matmul.launches = 0
-    fused_epoch.cuda_fused_epoch.launches = 0
-    se.cuda_stream_forward.launches = 0
-    se.cuda_stream_backward.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def only(**counts):
+    """A launch-count dict with ``counts`` and every other kernel at 0."""
+    return dict(dict.fromkeys(_wrappers(), 0), **counts)
 
 
 def run_fused_slice(device):
@@ -517,8 +592,7 @@ def run_fused_slice(device):
         raise AssertionError("fused='auto' epoch made %d fused_epoch and %d "
                              "matmul launches, expected 1 and 0"
                              % after_epoch)
-    if launches != {"fused_epoch": 2, "matmul": 5, "streaming_forward": 0,
-                    "streaming_backward": 0}:
+    if launches != only(fused_epoch=2, matmul=5):
         raise AssertionError("launch counts %s" % launches)
     if not np.all(np.isfinite(trace)):
         raise AssertionError("non-finite loss")
@@ -577,8 +651,7 @@ def run_step_slice(device):
           "forwards = %d); fused_epoch launches %d (expected 0)"
           % (launches["matmul"], n_steps + len(eager), expected,
              launches["fused_epoch"]))
-    if launches != {"fused_epoch": 0, "matmul": expected,
-                    "streaming_forward": 0, "streaming_backward": 0}:
+    if launches != only(matmul=expected):
         raise AssertionError("launch counts %s, expected matmul %d and no "
                              "other kernel" % (launches, expected))
     if not (np.all(np.isfinite(trace)) and np.all(np.isfinite(eager))):
@@ -968,8 +1041,8 @@ def check_deep_slice(device):
         model, x_dev, y_dev, losses, counts, rate = run_deep_slice(device,
                                                                    opt)
         steps = 3 * n_steps
-        expected = {"matmul": 5 * steps, "fused_epoch": 0,
-                    "streaming_forward": steps, "streaming_backward": steps}
+        expected = only(matmul=5 * steps, streaming_forward=steps,
+                        streaming_backward=steps)
         if counts != expected:
             raise AssertionError("launch counts %s, expected %s (K3 and K3b "
                                  "once a step, K1 5 a step: prefix and suffix "
@@ -983,8 +1056,7 @@ def check_deep_slice(device):
     _, _, _, loop_losses, counts, loop_rate = run_deep_slice(
         device, Adam(1e-3), fused=False, n_epochs=1)
     n_body = DEEP["depth"] - 2
-    expected = {"matmul": (5 + 3 * n_body) * n_steps, "fused_epoch": 0,
-                "streaming_forward": 0, "streaming_backward": 0}
+    expected = only(matmul=(5 + 3 * n_body) * n_steps)
     if counts != expected:
         raise AssertionError("step-loop launch counts %s, expected %s (K1 5 + "
                              "3 x %d a step)" % (counts, expected, n_body))
@@ -1053,6 +1125,397 @@ def run_parity(device):
         np.testing.assert_allclose(lg, lc, err_msg="step %d" % i, **LOSS_TOL)
 
 
+def attn_inputs(device, name, seed=0):
+    """q, k, v, dO of ``name``'s shape on ``device``, each the strided view
+    that split heads makes of a [B, T, heads, d] tensor, and the call's
+    keyword arguments."""
+    b, h, hkv, tq, tk, d, causal, window, rate = ATTN_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+
+    def heads(n, t):
+        x = torch.randn((b, t, n, d), generator=gen).to(device)
+        return x.permute(0, 2, 1, 3)
+
+    q, k, v, do = heads(h, tq), heads(hkv, tk), heads(hkv, tk), heads(h, tq)
+    kw = dict(causal=causal, scale=1.0 / np.sqrt(d), window=window,
+              dropout_rate=rate, seed=ATTN_SEED if rate else None)
+    return q, k, v, do, kw
+
+
+def visible_pairs(tq, tk, causal, window):
+    """The (query, key) pairs of one head that the masks leave visible."""
+    if not causal:
+        return tq * tk
+    return int(np.minimum(np.arange(tq) + 1, window or tq).sum())
+
+
+def attention_costs(name):
+    """FLOPs and bytes of the forward, the dq kernel, the dk/dv kernel and
+    the backward as a whole at ``name``'s shape, on the visible pairs only.
+    The forward: S and P.V, 4 d FLOPs a pair; q, k, v read, o and lse
+    written. dq alone needs S, dP and dS.K (6 d a pair), dk/dv alone S, dP,
+    P^T.dO and dS^T.Q (8 d); the backward as a whole shares S and dP (10 d
+    a pair). Each reads q, k, v, dO, lse and delta and writes its outputs."""
+    b, h, hkv, tq, tk, d, causal, window, _ = ATTN_SHAPES[name]
+    vis = b * h * visible_pairs(tq, tk, causal, window)
+    qo, kv, rows = b * h * tq * d, b * hkv * tk * d, b * h * tq
+    reads = 2 * qo + 2 * kv + 2 * rows
+    return {"attention_forward": (4.0 * vis * d,
+                                  4.0 * (2 * qo + 2 * kv + rows)),
+            "attention_backward_dq": (6.0 * vis * d, 4.0 * (reads + qo)),
+            "attention_backward_dkv": (8.0 * vis * d, 4.0 * (reads + 2 * kv)),
+            "backward": (10.0 * vis * d, 4.0 * (reads + qo + 2 * kv))}
+
+
+def hold_grad(what, got, want):
+    """``got`` within rtol GRAD_RTOL and an atol of GRAD_ATOL of max|want|;
+    returns max|got - want|."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL * float(np.abs(want).max()),
+                               err_msg=what)
+    return float(np.max(np.abs(got - want)))
+
+
+def check_attention_shape(device, name):
+    """The three attention kernels against the plain versions at one shape;
+    each rerun must be bit-identical. Returns each kernel's max abs err."""
+    q, k, v, do, kw = attn_inputs(device, name)
+    o, lse = attention.cuda_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_r, lse_r = attention.attention_forward_reference(q, k, v, **kw)
+    for what, a, b in (("o", o, o_r), ("lse", lse, lse_r)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   err_msg="%s: %s" % (name, what),
+                                   **ATTN_TOL)
+    errs = {"attention_forward": float(max((o - o_r).abs().max(),
+                                           (lse - lse_r).abs().max()))}
+    if not all(torch.equal(a, b) for a, b in zip(
+            (o, lse), attention.cuda_attention_forward(q, k, v, **kw))):
+        raise AssertionError("%s: two forward runs differ" % name)
+    # the backward from the plain forward's o and lse
+    delta = (do * o_r).sum(dim=-1)
+    runs = []
+    for _ in range(2):
+        dq = attention.cuda_attention_backward_dq(q, k, v, do, lse_r, delta,
+                                                  **kw)
+        dk, dv = attention.cuda_attention_backward_dkv(q, k, v, do, lse_r,
+                                                       delta, **kw)
+        torch.cuda.synchronize()
+        runs.append((dq, dk, dv))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("%s: two backward runs differ" % name)
+    want = attention.attention_backward_reference(q, k, v, do, lse_r, delta,
+                                                  **kw)
+    grads = [hold_grad("%s: %s" % (name, what), a, b)
+             for what, a, b in zip(("dq", "dk", "dv"), runs[0], want)]
+    errs["attention_backward_dq"] = grads[0]
+    errs["attention_backward_dkv"] = max(grads[1:])
+    print("  %-16s %s: max abs err o/lse %.3g, dq %.3g, dk %.3g, dv %.3g "
+          "(max|plain| dq %.3g, dk %.3g, dv %.3g); reruns bit-identical"
+          % (name, ATTN_SHAPES[name], errs["attention_forward"], *grads,
+             *(float(w.abs().max()) for w in want)))
+    return errs
+
+
+def sdpa_times(q, k, v, do, kw):
+    """PyTorch's scaled_dot_product_attention at the same shape, as a
+    yardstick only: (forward ms, backward ms from autograd.grad, the device
+    kernels that ran, max|SDPA - plain| of o)."""
+    import torch.nn.functional as F
+
+    args = dict(is_causal=kw["causal"], scale=kw["scale"])
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, **args)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, **args)
+        torch.autograd.grad(out, leaves, do)
+
+    ref, _ = attention.attention_forward_reference(q, k, v, **kw)
+    err = float((fwd() - ref).abs().max())
+    fwd_bwd()
+    f1, b1, b2, f2 = (epoch_ms(fwd, 10), epoch_ms(fwd_bwd, 5),
+                      epoch_ms(fwd_bwd, 5), epoch_ms(fwd, 10))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    names = [row[2][:70] for row in sorted(device_kernels(prof),
+                                           reverse=True)[:3]]
+    fwd_ms = (f1 + f2) / 2
+    return fwd_ms, (b1 + b2) / 2 - fwd_ms, names, err
+
+
+def clock_under(fn, n):
+    """The SM clock and power draw (nvidia-smi) while ``n`` back-to-back
+    calls of ``fn`` run: the calls are queued, the card is read while it
+    works through them, then the queue is drained."""
+    for _ in range(n):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    torch.cuda.synchronize()
+    return out.stdout.strip().splitlines()[0]
+
+
+def check_attention(device):
+    """The attention kernels against the plain versions at every shape of
+    ATTN_SHAPES, then the times at config 6b's and ATTN_TIMED's: each
+    kernel, the plain versions, SDPA, the bounds. Returns config 6b's dict
+    per kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = dict.fromkeys(("attention_forward", "attention_backward_dq",
+                           "attention_backward_dkv"), 0.0)
+    print("  shape (B, H, Hkv, Tq, Tk, d, causal, window, dropout); tol o/lse "
+          "rtol 1e-4 atol 1e-5, dq/dk/dv rtol 1e-4 atol 1e-4 x max|plain|")
+    for name in ATTN_SHAPES:
+        for kname, err in check_attention_shape(device, name).items():
+            worst[kname] = max(worst[kname], err)
+        torch.cuda.empty_cache()
+
+    out = time_attention(device, ATTN_MAIN, detail=True)
+    for name in out:
+        out[name]["max_abs_err"] = worst[name]
+    for name in ATTN_TIMED:
+        time_attention(device, name)
+    return out
+
+
+def time_attention(device, name, detail=False):
+    """Each attention kernel's time a launch at shape ``name`` (CUDA
+    events, in turns with the plain version), its bound and SDPA's time;
+    with ``detail`` also the profiler's device time and the card's clock
+    under 300 back-to-back launches. Returns a dict per kernel."""
+    q, k, v, do, kw = attn_inputs(device, name)
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    delta = (do * o).sum(dim=-1)
+    bwd = (q, k, v, do, lse, delta)
+    fns = {
+        "attention_forward": (
+            lambda: attention.cuda_attention_forward(q, k, v, **kw),
+            lambda: attention.attention_forward_reference(q, k, v, **kw)),
+        "attention_backward_dq": (
+            lambda: attention.cuda_attention_backward_dq(*bwd, **kw),
+            lambda: attention.attention_backward_reference(*bwd, **kw)),
+        "attention_backward_dkv": (
+            lambda: attention.cuda_attention_backward_dkv(*bwd, **kw),
+            lambda: attention.attention_backward_reference(*bwd, **kw)),
+    }
+    costs = attention_costs(name)
+    sdpa_fwd, sdpa_bwd, sdpa_kernels, sdpa_err = sdpa_times(q, k, v, do, kw)
+    out = {}
+    for kname, (kernel, plain) in fns.items():
+        kernel()
+        plain()
+        # in turns: plain, kernel, kernel, plain
+        p1, k1, k2, p2 = (epoch_ms(plain, 2), epoch_ms(kernel, 10),
+                          epoch_ms(kernel, 10), epoch_ms(plain, 2))
+        bound_ms, bound_by = bound(*costs[kname])
+        ms = (k1 + k2) / 2
+        out[kname] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          library_ms=(sdpa_fwd if kname == "attention_forward"
+                                      else sdpa_bwd))
+        extra = ""
+        if detail:
+            extra = ("; %.4f ms device time (profiler); under 300 "
+                     "back-to-back launches the card read (SM clock, max SM "
+                     "clock, power) %s" % (device_us(kernel, reps=5) / 1e3,
+                                           clock_under(kernel, 300)))
+        print("%s at %s: %.4f ms a launch by CUDA events (turns %.4f, "
+              "%.4f); plain %.3f ms (turns %.3f, %.3f); bound %.4f ms "
+              "(%s-bound: %.4g GFLOP, %.4g MB); kernel at %.2f%% of it%s"
+              % (kname, name, ms, k1, k2, out[kname]["plain_ms"], p1, p2,
+                 bound_ms, bound_by, costs[kname][0] / 1e9,
+                 costs[kname][1] / 1e6, 100.0 * bound_ms / ms, extra))
+    pair = out["attention_backward_dq"]["ms"] + \
+        out["attention_backward_dkv"]["ms"]
+    pair_bound = bound(*costs["backward"])
+    print("backward pair at %s: %.4f ms; the VJP's bound %.4f ms (%s-bound, "
+          "%.4g GFLOP: S and dP once), the pair at %.2f%% of it (the kernels "
+          "recompute S and dP in each)"
+          % (name, pair, pair_bound[0], pair_bound[1],
+             costs["backward"][0] / 1e9, 100.0 * pair_bound[0] / pair))
+    print("SDPA (f32) at %s: forward %.4f ms, backward %.4f ms "
+          "(autograd.grad, all of dq, dk, dv); max|SDPA - plain| of o %.3g; "
+          "its device kernels: %s" % (name, sdpa_fwd, sdpa_bwd, sdpa_err,
+                                      " | ".join(sdpa_kernels)))
+    return out
+
+
+def transformer_data():
+    """Config 6b's data as bench_all.py makes it: 256 sequences of 2048
+    random tokens and random labels of 16 classes from numpy seed 0; and 32
+    held-out sequences from seed 1."""
+    rng = np.random.RandomState(0)
+    tx = rng.randint(0, TRANSFORMER["vocab"], (T_SAMPLES,
+                                               TRANSFORMER["seq_len"]))
+    ty = one_hot(rng.randint(0, TRANSFORMER["num_out"], T_SAMPLES),
+                 TRANSFORMER["num_out"])
+    held = np.random.RandomState(1)
+    ex = held.randint(0, TRANSFORMER["vocab"], (T_EVAL,
+                                                TRANSFORMER["seq_len"]))
+    return tx, ty, ex, held.randint(0, TRANSFORMER["num_out"], T_EVAL)
+
+
+def transformer_model(device, seed, attn="fused"):
+    """Config 6b from ``seed``, its blocks' attention core set to ``attn``,
+    in a Model on ``device``."""
+    with seeder.scope(seed):
+        net = build_tiny_transformer(**TRANSFORMER)
+    for layer in net.layers:
+        if hasattr(layer, "attn"):
+            layer.attn = attn
+    return Model(net, SoftmaxCrossEntropyLoss(), Adam(1e-3), device=device)
+
+
+def run_transformer_slice(device):
+    """Config 6b's main path: ``Model(build_tiny_transformer(**6b), ...,
+    device="cuda").train_epochs(fused="auto")`` from seed 0, an epoch, two
+    timed epochs, an evaluate_batch on 32 held-out sequences. Returns the
+    model, its staged data, the launch counts and the steps/s."""
+    tx, ty, ex, ey = transformer_data()
+    model = transformer_model(device, 0)
+    x_dev, y_dev = model.stage(tx, ty)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    first = model.train_epoch(x_dev, y_dev, batch_size=T_BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = model.train_epochs(x_dev, y_dev, n_epochs=2, batch_size=T_BATCH)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    train_counts = launch_counts()
+    res = model.evaluate_batch(ex, ey, AccEvaluator)
+    logits = model.predict(ex)
+    counts = launch_counts()
+    losses = torch.cat([first[None], rest]).cpu().numpy()
+    n_steps = losses.shape[1]
+    steps = 3 * n_steps
+    rate = 2 * n_steps / timed_s
+    depth = TRANSFORMER["depth"]
+    print("6b, fused='auto': 3 epochs of %d steps (batch %d, seq %d); epoch "
+          "1 %.3f s; epochs 2-3 %.3f s = %.2f steps/s = %.2f ms/step; "
+          "epoch-mean losses %s" % (n_steps, T_BATCH, TRANSFORMER["seq_len"],
+                                    first_s, timed_s, rate, 1e3 / rate,
+                                    np.array2string(losses.mean(axis=1),
+                                                    precision=5)))
+    print("launches over the %d train steps: %s; K1 %.1f a step (the head "
+          "Dense's forward, dW and dx)" % (steps, train_counts,
+                                          train_counts["matmul"] / steps))
+    print("evaluate_batch on %d held-out sequences: accuracy %.4f (random "
+          "labels: chance 1/16); two forwards, launches then %s"
+          % (T_EVAL, res["accuracy"], counts))
+    # per step each of the `depth` blocks runs one forward and one backward
+    # of each attention kernel; the two eval forwards one forward a block
+    want = only(attention_forward=depth * (steps + 2),
+                attention_backward_dq=depth * steps,
+                attention_backward_dkv=depth * steps,
+                matmul=3 * steps + 2)
+    if counts != want:
+        raise AssertionError("launch counts %s, expected %s and K1 3 a step"
+                             % (counts, want))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss")
+    if tuple(logits.shape) != (T_EVAL, TRANSFORMER["num_out"]) or \
+            not torch.isfinite(logits.data).all():
+        raise AssertionError("bad eval logits")
+    return model, x_dev, y_dev, counts, rate
+
+
+def check_fused_vs_tape(device):
+    """From the same seed-1 weights, T_PARITY_STEPS Adam steps with
+    attn="fused" (the kernels) and with attn="tape" (batched products, an
+    additive -1e9 mask and softmax_ on [B, H, T, T] scores: the cross-check
+    path); then one timed attn="tape" epoch. Returns its steps/s."""
+    tx, ty, _, _ = transformer_data()
+    models = [transformer_model(device, 1, attn) for attn in ("fused",
+                                                               "tape")]
+    losses = np.array([[float(m.train_step(tx[i * T_BATCH:(i + 1) * T_BATCH],
+                                           ty[i * T_BATCH:(i + 1) * T_BATCH]))
+                        for i in range(T_PARITY_STEPS)] for m in models])
+    rel = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    print("%d steps from the same weights, fused %s, tape %s: largest "
+          "relative difference %.3g (tol rtol %g: f32 sums in other orders, "
+          "and -1e9 against -1e30 masking, which both give p = 0)"
+          % (T_PARITY_STEPS, np.array2string(losses[0], precision=6),
+             np.array2string(losses[1], precision=6), rel.max(), PARITY_RTOL))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=PARITY_RTOL,
+                               err_msg="fused vs tape losses")
+    tape = models[1]
+    x_dev, y_dev = tape.stage(tx, ty)
+    del models
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trace = tape.train_epoch(x_dev, y_dev, batch_size=T_BATCH)
+    torch.cuda.synchronize()
+    tape_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_steps = int(trace.shape[0])
+    print("attn='tape' epoch: %d steps in %.3f s = %.2f steps/s; peak device "
+          "memory %.2f GB; launches %s" % (
+              n_steps, tape_s, n_steps / tape_s,
+              torch.cuda.max_memory_allocated() / 1e9, counts))
+    if counts != only(matmul=3 * n_steps):
+        raise AssertionError("the tape epoch launched %s" % counts)
+    if not torch.isfinite(trace).all():
+        raise AssertionError("non-finite tape loss")
+    return n_steps / tape_s
+
+
+def run_transformer_trace(model, x_dev, y_dev, steps=10):
+    """Device busy share and the attention kernels' device time a step over
+    ``steps`` 6b train steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = x_dev[:steps * T_BATCH].reshape(steps, T_BATCH, -1)
+    ys = y_dev[:steps * T_BATCH].reshape(steps, T_BATCH, -1)
+    model.train_step(xs[0], ys[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.train_step(xs[i], ys[i])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(device_kernels(prof), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print("trace, 6b: %d steps, wall %.1f us/step under the profiler, %d "
+          "kernel launches/step" % (steps, wall_us / steps,
+                                    sum(r[1] for r in rows) // steps))
+    if busy_us == 0:
+        print("trace, 6b: device time not measured (the profiler saw no "
+              "device kernels)")
+        return
+    attn = {kind: sum(r[0] for r in rows if "attention_%s_kernel" % kind
+                      in r[2]) / steps
+            for kind in ("forward", "backward_dq", "backward_dkv")}
+    print("trace, 6b: device busy %.1f us/step = %.1f%% of wall (idle "
+          "%.1f%%); attention forward %.1f, dq %.1f, dk/dv %.1f us/step "
+          "(%.1f%% of the device time), the rest %.1f us/step"
+          % (busy_us / steps, 100.0 * busy_us / wall_us,
+             100.0 - 100.0 * busy_us / wall_us, attn["forward"],
+             attn["backward_dq"], attn["backward_dkv"],
+             100.0 * sum(attn.values()) * steps / busy_us,
+             busy_us / steps - sum(attn.values())))
+    for dev_us, count, key in rows[:10]:
+        print("  %9.2f us/step  %3d launches/step  %s"
+              % (dev_us / steps, count // steps, key[:80]))
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -1065,7 +1528,7 @@ def main():
                                           torch.version.cuda))
 
     phase("build")
-    names = ("matmul", "fused_epoch", "streaming_epoch")
+    names = ("matmul", "fused_epoch", "streaming_epoch", "attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
@@ -1118,10 +1581,21 @@ def main():
     phase("deep slice")
     deep_launches, (dmodel, dx, dy, _) = check_deep_slice(device)
 
+    phase("attention kernels vs plain")
+    attn = check_attention(device)
+
+    phase("transformer slice")
+    tmodel, tx_dev, ty_dev, t_launches, t_rate = run_transformer_slice(device)
+    tape_rate = check_fused_vs_tape(device)
+    print("same call, 6b: attn='fused' (the kernels) %.2f steps/s, "
+          "attn='tape' %.2f steps/s, fused/tape %.2f"
+          % (t_rate, tape_rate, t_rate / tape_rate))
+
     phase("trace")
     run_trace(smodel, sx, sy)
     run_fused_trace(fmodel, fx, fy)
     run_stream_trace(dmodel, dx, dy)
+    run_transformer_trace(tmodel, tx_dev, ty_dev)
 
     phase("parity gpu vs cpu")
     run_parity(device)
@@ -1132,7 +1606,7 @@ def main():
          "source": "tinynn_autograd_tpu_torch/csrc/matmul.cu",
          "replaces": "tinynn_autograd_tpu/ops/kernels.py:122",
          "launches": (f_launches["matmul"] + s_launches["matmul"]
-                      + deep_launches["matmul"]),
+                      + deep_launches["matmul"] + t_launches["matmul"]),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
          "library_ms": k1_plain_ms},
@@ -1151,7 +1625,14 @@ def main():
               "launches": deep_launches[name], "library_ms": None},
              **stream[name])
         for name, line in (("streaming_forward", 151),
-                           ("streaming_backward", 192))]}))
+                           ("streaming_backward", 192))] + [
+        dict({"name": name, "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/attention.cu",
+              "replaces": "tinynn_autograd_tpu/ops/attention.py:%d" % line,
+              "launches": t_launches[name]}, **attn[name])
+        for name, line in (("attention_forward", 250),
+                           ("attention_backward_dq", 650),
+                           ("attention_backward_dkv", 690))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

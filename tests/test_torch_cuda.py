@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: the matmul (K1), the whole-epoch kernel
-(K2) and the weight-streaming kernels (K3, K3b). Tests marked ``cuda``; they
-skip without a CUDA device, since the kernels have no CPU mode.
+(K2), the weight-streaming kernels (K3, K3b) and the flash-attention kernels
+(K4's forward, K4b-d's dq and dk/dv). Tests marked ``cuda``; they skip
+without a CUDA device, since the kernels have no CPU mode.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -349,3 +350,150 @@ def test_cuda_auto_deep_mlp_epoch_takes_the_stream_tier():
             se.cuda_stream_backward.launches - counts[3]) == (20, 0, 4, 4)
     assert losses.shape == (4,) and torch.isfinite(losses).all()
     assert model.optimizer.state_dict()["t"] == 4
+
+
+# the attention kernels: (B, H, Hkv, Tq, Tk, d, causal, window, dropout) at
+# the shapes of chip_smoke.py: config 6b's (the shape that takes K4 and K4d
+# on the TPU), the shapes that take K4b (T=512) and K4c (non-causal T=2048)
+# there, config 6's, a 512 window (config 6d), a window narrower than a tile
+# over a ragged T, GQA 8q/2kv, cross attention, dropout 0.1, and head dims
+# 128 and 40 (zero-padded to 64)
+ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
+               "k4b_t512": (4, 8, 8, 512, 512, 64, True, None, 0.0),
+               "k4c_noncausal": (4, 8, 8, 2048, 2048, 64, False, None, 0.0),
+               "config6": (32, 8, 8, 128, 128, 32, False, None, 0.0),
+               "window512": (4, 8, 8, 2048, 2048, 64, True, 512, 0.0),
+               "window40_ragged": (2, 4, 4, 300, 300, 64, True, 40, 0.0),
+               "gqa_8q_2kv": (2, 8, 2, 256, 256, 64, True, None, 0.0),
+               "cross_256_384": (2, 4, 4, 256, 384, 64, False, None, 0.0),
+               "dropout": (1, 4, 4, 2048, 2048, 64, True, None, 0.1),
+               "d128_gqa_dropout": (1, 4, 2, 200, 200, 128, True, None, 0.1),
+               "d40": (1, 2, 1, 100, 100, 40, False, None, 0.0)}
+# O and lse are sums of 2048 f32 terms in another order: rtol 1e-4, atol
+# 1e-5; dq, dk and dv each at rtol 1e-4 and an atol of 1e-4 of their own
+# largest plain value (their size varies with the shape)
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _attn_inputs(dev, name, seed=0):
+    """q, k, v, dO of ``name``'s shape on ``dev`` (q and dO as the strided
+    views that split heads makes of a [B, T, H, d] tensor), and the call's
+    keyword arguments."""
+    b, h, hkv, tq, tk, d, causal, window, rate = ATTN_SHAPES[name]
+    rng = np.random.RandomState(seed)
+
+    def heads(n, t):
+        x = rng.randn(b, t, n, d).astype(np.float32)
+        return torch.from_numpy(x).to(dev).permute(0, 2, 1, 3)
+
+    q, k, v, do = heads(h, tq), heads(hkv, tk), heads(hkv, tk), heads(h, tq)
+    kw = dict(causal=causal, scale=1.0 / np.sqrt(d), window=window,
+              dropout_rate=rate, seed=1234 if rate else None)
+    return q, k, v, do, kw
+
+
+def _attn_forward_both(dev, name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    q, k, v, do, kw = _attn_inputs(dev, name)
+    got = attention.cuda_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention.attention_forward_reference(q, k, v, **kw)
+    return (q, k, v, do, kw), got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ATTN_SHAPES))
+def test_cuda_attention_forward_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    before = attention.cuda_attention_forward.launches
+    (q, k, v, _, kw), got, want = _attn_forward_both(dev, name)
+    assert attention.cuda_attention_forward.launches == before + 1
+    for what, a, b in zip(("o", "lse"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   err_msg=what, **ATTN_TOL)
+    again = attention.cuda_attention_forward(q, k, v, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ATTN_SHAPES))
+def test_cuda_attention_backward_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    (q, k, v, do, kw), _, (o, lse) = _attn_forward_both(dev, name)
+    delta = (do * o).sum(dim=-1)
+    counts = (attention.cuda_attention_backward_dq.launches,
+              attention.cuda_attention_backward_dkv.launches)
+    runs = []
+    for _ in range(2):
+        dq = attention.cuda_attention_backward_dq(q, k, v, do, lse, delta,
+                                                  **kw)
+        dk, dv = attention.cuda_attention_backward_dkv(q, k, v, do, lse,
+                                                       delta, **kw)
+        torch.cuda.synchronize()
+        runs.append((dq, dk, dv))
+    assert (attention.cuda_attention_backward_dq.launches,
+            attention.cuda_attention_backward_dkv.launches) == (
+                counts[0] + 2, counts[1] + 2)
+    want = attention.attention_backward_reference(q, k, v, do, lse, delta,
+                                                  **kw)
+    for what, a, b in zip(("dq", "dk", "dv"), runs[0], want):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b, rtol=1e-4,
+            atol=1e-4 * float(np.abs(b).max()), err_msg=what)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_dropout_mask_is_the_hash():
+    # with dropout 0.5, one keep decision that differs from the plain hash
+    # moves o by ~p v / (1 - rate), far past the tolerance; and a different
+    # seed must change o
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    q, k, v, _, kw = _attn_inputs(dev, "d128_gqa_dropout")
+    kw["dropout_rate"] = 0.5
+    got, _ = attention.cuda_attention_forward(q, k, v, **kw)
+    want, _ = attention.attention_forward_reference(q, k, v, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+    other, _ = attention.cuda_attention_forward(q, k, v, **dict(kw, seed=7))
+    assert not torch.allclose(got, other)
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_step_launches_the_attention_kernels():
+    from tinynn_autograd_tpu_torch.models import build_tiny_transformer
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import attention, fused_epoch
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    dev = _cuda()
+    model = Model(build_tiny_transformer(vocab=256, seq_len=2048, dim=512,
+                                         heads=8, depth=2, num_out=16,
+                                         causal=True),
+                  SoftmaxCrossEntropyLoss(), Adam(1e-3), device=dev)
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 256, (2 * 4, 2048))
+    y = np.eye(16, dtype=np.float32)[rng.randint(0, 16, 2 * 4)]
+    fns = (attention.cuda_attention_forward,
+           attention.cuda_attention_backward_dq,
+           attention.cuda_attention_backward_dkv, kernels.cuda_matmul,
+           fused_epoch.cuda_fused_epoch, se.cuda_stream_forward,
+           se.cuda_stream_backward)
+    before = [f.launches for f in fns]
+    losses = model.train_epoch(x, y, batch_size=4)
+    torch.cuda.synchronize()
+    # per step: two blocks, so two of each attention kernel; the head
+    # Dense's forward, dW and dx on K1
+    assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 4, 6, 0,
+                                                             0, 0]
+    assert losses.shape == (2,) and torch.isfinite(losses).all()

@@ -4,7 +4,10 @@ The PyTorch and CUDA port of ``tinynn_autograd_tpu``. Tensors wrap
 ``torch.Tensor``s, reverse-mode autodiff is the framework's own tape (not
 ``torch.autograd``), and the matmul under every Dense layer runs through a
 hand-written CUDA kernel on the GPU (``ops/kernels.py``, ``csrc/matmul.cu``).
-This package covers the MNIST MLP trainer; see ROADMAP.md for what remains.
+This package covers the MLP trainers and the transformer sequence
+classifier, whose attention runs through hand-written flash-attention
+kernels (``ops/attention.py``, ``csrc/attention.cu``); see ROADMAP.md for
+what remains.
 """
 
 from tinynn_autograd_tpu_torch.core.tensor import Tensor, as_tensor

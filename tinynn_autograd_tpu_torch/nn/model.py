@@ -1,6 +1,8 @@
 """Model: net + loss + optimizer facade on one explicit device.
 
-PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainer:
+PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainers
+and the transformer sequence classifier (int token ids in, staged and batched
+as they are):
 
 1. The eager loop: ``zero_grad -> forward -> loss -> backward -> step``.
 2. ``train_step(x, y)``: forward + tape backward + optimizer update for one
@@ -16,7 +18,10 @@ PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainer:
      DenseStack body's forward in one launch and its backward with the
      optimizer's update in another; on the CPU their plain versions.
      ``fused="stream"`` takes it or raises ``ValueError`` saying why.
-   - the step tier, a loop of train steps (``fused=False``).
+   - the step tier, a loop of train steps (``fused=False``). A transformer
+     net always runs here: its attention launches the flash kernels
+     (``ops/attention.py``) from the tape, and K2 and the streaming tier
+     refuse the net with their reasons.
    ``fused="auto"``, the default, takes the first of K2, the streaming tier
    and the step tier that can run the net, as the JAX package does; the
    kernels' tiers only on a CUDA device. A build or launch failure of a
@@ -204,7 +209,8 @@ class Model:
         """The K2 ``epoch_fn`` when this call takes the whole-epoch kernel,
         else None (the step tier). The JAX package's tier choice: True
         forces it, raising ``ValueError`` with the reason when the model is
-        not eligible (a mixed-precision layer among them); "auto" takes it
+        not eligible (a transformer, or a layer other than Dense, the
+        activations and Flatten); "auto" takes it
         only on the accelerator, and only for an eligible model."""
         from tinynn_autograd_tpu_torch.ops import fused_epoch
 
@@ -216,8 +222,9 @@ class Model:
             batch_shape)
         if reason is not None:
             if fused is True:
-                raise ValueError("fused=True: the whole-epoch kernel cannot "
-                                 "run this model: %s" % reason)
+                raise ValueError("fused=True: the whole-epoch kernel (MLPs of "
+                                 "Dense layers) cannot run this model: %s"
+                                 % reason)
             return None
         if self.optimizer.state_dict() is None:
             self.optimizer.load_state_dict(
@@ -240,8 +247,9 @@ class Model:
                                                     batch_shape)
         if reason is not None:
             if fused == "stream":
-                raise ValueError("fused='stream': the streaming tier cannot "
-                                 "run this model: %s" % reason)
+                raise ValueError("fused='stream': the streaming tier (MLPs "
+                                 "with one DenseStack body) cannot run this "
+                                 "model: %s" % reason)
             return None
         if self.optimizer.state_dict() is None:
             self.optimizer.load_state_dict(

@@ -1,9 +1,11 @@
-"""Functional op namespace: the primitives of the MLP trainer plus coercing
-wrappers, as in the JAX package's ``ops`` namespace."""
+"""Functional op namespace: the primitives of the MLP trainers and the
+transformer classifier plus coercing wrappers, as in the JAX package's ``ops``
+namespace."""
 
 from tinynn_autograd_tpu_torch.core.tensor import as_tensor as _as_tensor
 from tinynn_autograd_tpu_torch.ops import kernels
 from tinynn_autograd_tpu_torch.ops.primitives import (
+    _attn_dropout_seed,
     add_,
     astype_,
     build_binary_ops_tensor,
@@ -13,8 +15,11 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     div_,
     dot_,
     exp_,
+    flash_attention_,
     flatten_,
+    gelu_,
     getitem_,
+    layer_norm_,
     log_,
     log_softmax_,
     max_,
@@ -91,6 +96,10 @@ def tanh(obj):
 
 def relu(obj):
     return relu_(_as_tensor(obj))
+
+
+def gelu(obj):
+    return gelu_(_as_tensor(obj))
 
 
 def log_softmax(obj, axis=-1):

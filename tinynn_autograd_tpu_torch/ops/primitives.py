@@ -1,9 +1,11 @@
 """Differentiable primitives: forward in PyTorch + hand-written VJP closures.
 
 PyTorch counterpart of the JAX package's primitives (tinynn_autograd_tpu/ops/
-primitives.py), for the ops the MLP trainer uses. Each primitive computes
-its forward value with torch calls (the 2-D matmul goes to the hand-written
-CUDA kernel on a GPU, see ``ops/kernels.py``) and registers hand-written VJP
+primitives.py), for the ops the MLP trainers and the transformer classifier
+use. Each primitive computes its forward value with torch calls (the 2-D
+matmul goes to the hand-written CUDA kernel on a GPU, see ``ops/kernels.py``;
+attention to the flash kernels, see ``ops/attention.py``) and registers
+hand-written VJP
 closures on the output Tensor. ``torch.autograd`` is NOT used; reverse mode
 is the framework's own tape (see ``core/tensor.py``).
 
@@ -506,6 +508,116 @@ def _dense_stack_bwd(grad, w, h_ins, zs, acts, act_grad):
         dbs[l] = dz.sum(dim=0, keepdim=True)
         dh = kernels.matmul(dz, _swap_last2(w[l]))
     return dh, torch.stack(dws), torch.stack(dbs)
+
+
+def gelu_(ts):
+    """Tanh-approximation GELU with its exact hand derivative."""
+    x = ts.data
+    c = float(np.float32(np.sqrt(2.0 / np.pi)))
+    inner = c * (x + 0.044715 * x ** 3)
+    t = torch.tanh(inner)
+    values = 0.5 * x * (1.0 + t)
+
+    def grad_fn(grad):
+        dinner = c * (1.0 + 3 * 0.044715 * x ** 2)
+        return grad * (0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def layer_norm_(ts_x, ts_gamma, ts_beta, eps=1e-5):
+    """Layer normalization over the LAST axis with learned scale/shift:
+    y = (x - mean)/sqrt(var + eps) * gamma + beta. Hand VJPs:
+      dx     = (gamma*g - mean(gamma*g) - xhat * mean(gamma*g * xhat)) / std
+      dgamma = sum over leading axes of g * xhat
+      dbeta  = sum over leading axes of g
+    """
+    x, gamma, beta = ts_x.data, ts_gamma.data, ts_beta.data
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    std = torch.sqrt(var + eps)
+    xhat = (x - mu) / std
+    values = xhat * gamma + beta
+
+    def grad_fn_x(grad):
+        gg = grad * gamma
+        m1 = gg.mean(dim=-1, keepdim=True)
+        m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+        return (gg - m1 - xhat * m2) / std
+
+    def grad_fn_gamma(grad):
+        return unbroadcast(grad * xhat, ts_gamma.shape)
+
+    def grad_fn_beta(grad):
+        return unbroadcast(grad, ts_beta.shape)
+
+    dependency = [(ts, fn) for ts, fn in ((ts_x, grad_fn_x),
+                                          (ts_gamma, grad_fn_gamma),
+                                          (ts_beta, grad_fn_beta))
+                  if ts.requires_grad]
+    return ts_x.__class__(values, bool(dependency), dependency)
+
+
+def flash_attention_(ts_q, ts_k, ts_v, causal=False, scale=None, impl=None,
+                     dropout_rate=0.0, dropout_rng=None, window=None):
+    """Fused multi-head attention as ONE tape primitive:
+    out = softmax(Q K^T * scale [+ causal/window mask]) V, Q: [B, H, Tq, d],
+    K/V: [B, Hkv, Tk, d] (Hkv | H: grouped-query attention).
+
+    The forward and the hand-written VJPs run as the CUDA kernels of
+    ``ops/attention.py`` on a GPU (the plain versions on the CPU, or on the
+    card with ``impl="plain"``). The three grad_fns share one memoised joint
+    backward, which launches the dq and dk/dv kernels once per cotangent.
+
+    ``dropout_rate`` > 0 drops attention probabilities inside the kernels
+    from a counter hash of the absolute (head, query, key) index and a seed
+    (``dropout_rng``: an int, else a uint32 drawn from the seeder's
+    generator), so the backward replays the forward's mask without storing
+    it. ``window`` (causal only) bands attention to the keys in
+    (p - window, p].
+    """
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    q, k, v = ts_q.data, ts_k.data, ts_v.data
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    seed = _attn_dropout_seed(dropout_rate, dropout_rng)
+    o, lse = attention.mha_fwd(q, k, v, causal=causal, scale=scale,
+                               impl=impl, dropout_rate=dropout_rate,
+                               dropout_seed=seed, window=window)
+
+    # strong reference to the cotangent, compared with `is` (see dense_stack_)
+    cache = []  # [grad_object, (dq, dk, dv)]
+
+    def memo(grad):
+        if not cache or cache[0] is not grad:
+            cache[:] = [grad, attention.mha_bwd(
+                q, k, v, o, lse, grad, causal=causal, scale=scale,
+                impl=impl, dropout_rate=dropout_rate, dropout_seed=seed,
+                window=window)]
+        return cache[1]
+
+    dependency = [(ts, lambda grad, i=i: memo(grad)[i])
+                  for i, ts in enumerate((ts_q, ts_k, ts_v))
+                  if ts.requires_grad]
+    return ts_q.__class__(o, bool(dependency), dependency)
+
+
+def _attn_dropout_seed(dropout_rate, dropout_rng):
+    """The kernels' uint32 dropout seed: ``dropout_rng`` itself when it is
+    an int, else a draw from the seeder's generator; None when dropout is
+    off."""
+    if dropout_rate <= 0.0:
+        return None
+    if dropout_rng is None:
+        from tinynn_autograd_tpu_torch.utils import seeder
+
+        return int(torch.randint(0, 2 ** 32, (1,),
+                                 generator=seeder.generator()))
+    if isinstance(dropout_rng, (int, np.integer)):
+        return int(dropout_rng) % 2 ** 32
+    raise TypeError("dropout_rng must be an int seed or None, got %r"
+                    % (dropout_rng,))
 
 
 def where_(cond, ts1, ts2):
