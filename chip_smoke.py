@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch package on one NVIDIA GPU.
 
-Drives the port's three paths at full width through their kernels. The
+Drives the port's four paths at full width through their kernels. The
 flagship MNIST MLP (784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3,
 batch 128, random weights from seed 0, synthetic MNIST at 50,000/10,000)
 runs through K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
@@ -12,10 +12,14 @@ weight-streaming kernels (csrc/streaming_epoch.cu). The long-context causal
 transformer classifier (bench_all.py's config 6b: vocab 256, seq 2048, dim
 512, 8 heads, depth 2, 16 classes; batch 4, Adam 1e-3, random weights from
 seed 0, random tokens from numpy seed 0) runs through the flash-attention
-kernels (csrc/attention.cu: the forward, the dq and the dk/dv kernels).
+kernels (csrc/attention.cu: the forward, the dq and the dk/dv kernels). The
+stacked-LSTM sequence classifier (bench_all.py's config 8: 64 features,
+two LSTM layers of 256, 16 classes, T=128; batch 64, Adam 1e-3, random
+weights from seed 77, 2,048 sequences from numpy seed 0) runs through the
+recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles the four libraries from csrc/ (one nvcc each, started
+2. build: compiles the five libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
@@ -81,12 +85,28 @@ kernels (csrc/attention.cu: the forward, the dq and the dk/dv kernels).
    of epochs 2-3; an evaluate_batch on 32 held-out sequences. Then 5 Adam
    steps with attn="fused" against 5 with attn="tape" from the same weights
    (losses within rtol 1e-4) and a timed attn="tape" epoch.
-10. trace: torch.profiler over 50 step-loop train steps (device busy share,
+10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
+   versions at config 8's shape (zero initial states) and a ragged one
+   (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
+   1e-4/atol 1e-5, backwards at rtol 1e-4 and an atol of 1e-4 of their own
+   largest plain value; reruns bit-identical. Then at config 8 each
+   kernel's plan (cluster size, rows, the clusters the card holds at
+   once), time (CUDA events, in turns with the plain version), block 0's
+   time by phase, bound, and cuDNN's layer (torch.nn.LSTM/GRU, TF32 off)
+   beside the port's layer.
+11. recurrent slice: ``Model(build_rnn_classifier(**config8), ...,
+   device="cuda").train_epochs(fused="auto")``, 3 epochs of 32 steps: K5
+   and K5b twice a step, K1 10 times, K2, K3, K3b and K4 never; finite
+   losses; an evaluate_batch; 5 Adam steps against impl="plain" from the
+   same weights (losses within rtol 1e-4); a timed impl="plain" epoch; one
+   GRU epoch and one two-layer Bidirectional LSTM epoch at the same widths,
+   each with its launch counts.
+12. trace: torch.profiler over 50 step-loop train steps (device busy share,
    the kernels that take the device time), over one K2 epoch, over one
-   stream epoch (busy share, K3 and K3b device time a step), and over 10
+   stream epoch (busy share, K3 and K3b device time a step), over 10
    transformer steps (busy share, the attention kernels' device time a
-   step).
-11. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
+   step) and over 10 config-8 steps (busy share, K5 and K5b).
+13. parity: 5 train steps on the GPU and 5 on the CPU from the same seeded
    initial weights; losses agree to rtol 1e-5, atol 1e-6.
 
 Prints the card line, one JSON line of kernel results, and as its last line
@@ -108,15 +128,21 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tinynn_autograd_tpu_torch import Tensor  # noqa: E402
+from tinynn_autograd_tpu_torch import Tensor, ops  # noqa: E402
 from tinynn_autograd_tpu_torch.models import (  # noqa: E402
-    build_deep_mlp, build_mnist_mlp, build_tiny_transformer,
+    build_deep_mlp, build_mnist_mlp, build_rnn_classifier,
+    build_tiny_transformer,
 )
 from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.layers import (  # noqa: E402
+    LSTM, Bidirectional, Dense,
+)
 from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.net import Net  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import attention, fused_epoch, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
@@ -211,6 +237,23 @@ GRAD_ATOL = 1e-4
 # fused vs tape losses over 5 Adam steps: the same math with sums in other
 # orders
 PARITY_RTOL = 1e-4
+# Config 8 of bench_all.py (bench_rnn): the stacked-LSTM sequence
+# classifier, build_rnn_classifier(num_in=64, num_out=16, hidden=(256, 256),
+# cell="lstm", seed=77) after random_seed(0); T=128, batch 64, Adam 1e-3,
+# softmax-CE; 2,048 sequences from numpy seed 0 (32 steps an epoch) and 64
+# held-out ones from seed 1. Nothing is cut but the run: 3 epochs (the bench
+# times 12).
+RNN = dict(num_in=64, num_out=16, hidden=(256, 256), cell="lstm", seed=77)
+RNN_T = 128
+RNN_BATCH = 64
+RNN_SAMPLES = 2048
+RNN_PARITY_STEPS = 5
+# The recurrent kernels' checks, (B, T, H): config 8's (zero initial states,
+# as the slice has them) and a ragged one with random initial states
+RNN_SHAPES = {"config8": (RNN_BATCH, RNN_T, 256), "ragged": (3, 7, 100)}
+# the forwards' outputs: 128 steps of f32 sums in another order; the
+# backwards' are held as the attention gradients are (GRAD_RTOL, GRAD_ATOL)
+RNN_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def phase(name):
@@ -529,7 +572,11 @@ def _wrappers():
             "streaming_backward": se.cuda_stream_backward,
             "attention_forward": attention.cuda_attention_forward,
             "attention_backward_dq": attention.cuda_attention_backward_dq,
-            "attention_backward_dkv": attention.cuda_attention_backward_dkv}
+            "attention_backward_dkv": attention.cuda_attention_backward_dkv,
+            "lstm_forward": rk.cuda_lstm_forward,
+            "lstm_backward": rk.cuda_lstm_backward,
+            "gru_forward": rk.cuda_gru_forward,
+            "gru_backward": rk.cuda_gru_backward}
 
 
 def launch_counts():
@@ -1516,6 +1563,457 @@ def run_transformer_trace(model, x_dev, y_dev, steps=10):
               % (dev_us / steps, count // steps, key[:80]))
 
 
+def rnn_inputs(device, cell, name, seed=0):
+    """The forward's inputs of RNN_SHAPES[name] (the projected inputs, wh
+    scaled by 1/sqrt(H) so that the gates stay out of saturation, and the
+    initial states: zero at config 8, as the slice has them, random on the
+    ragged shape) and an output cotangent, from numpy ``seed``."""
+    b, t, h = RNN_SHAPES[name]
+    g = rk.GATES[cell]
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device)
+
+    xp = arr(t, b, g * h, scale=0.5)
+    wh = arr(h, g * h, scale=1.0 / np.sqrt(h))
+    states = name != "config8"
+    h0 = arr(b, h, scale=0.5) if states else torch.zeros((b, h),
+                                                         device=device)
+    c0 = arr(b, h, scale=0.5) if states else torch.zeros((b, h),
+                                                         device=device)
+    return xp, wh, h0, c0, arr(t, b, h)
+
+
+def rnn_fns(cell, xp, wh, h0, c0, gt, reverse):
+    """{kernel name: (kernel call, plain call)} of the forward and the
+    backward of ``cell`` on these inputs (the kernel call takes the wrapper's
+    ``phase_ns``); the backwards take the plain forward's outputs."""
+    if cell == "lstm":
+        fwd = (lambda **kw: rk.cuda_lstm_forward(xp, wh, h0, c0,
+                                                 reverse=reverse, **kw),
+               lambda: rk.lstm_forward_reference(xp, wh, h0, c0,
+                                                 reverse=reverse))
+        hs, cs, gates = fwd[1]()
+        cprev = (torch.cat([cs[1:], c0[None]]) if reverse
+                 else torch.cat([c0[None], cs[:-1]]))
+        args = (gt, gates, cs, cprev, wh.T)
+        bwd = (lambda **kw: rk.cuda_lstm_backward(*args, reverse=reverse,
+                                                  **kw),
+               lambda: rk.lstm_backward_reference(*args, reverse=reverse))
+    else:
+        fwd = (lambda **kw: rk.cuda_gru_forward(xp, wh, h0, reverse=reverse,
+                                                **kw),
+               lambda: rk.gru_forward_reference(xp, wh, h0,
+                                                reverse=reverse))
+        hs, gates, un = fwd[1]()
+        hprev = (torch.cat([hs[1:], h0[None]]) if reverse
+                 else torch.cat([h0[None], hs[:-1]]))
+        args = (gt, hprev, gates, un, wh.T)
+        bwd = (lambda **kw: rk.cuda_gru_backward(*args, reverse=reverse,
+                                                 **kw),
+               lambda: rk.gru_backward_reference(*args, reverse=reverse))
+    return {"%s_forward" % cell: fwd, "%s_backward" % cell: bwd}
+
+
+def rnn_costs(cell, b, t, h):
+    """FLOPs and bytes of one forward and one backward launch: the hidden
+    products (2 B H G H a step; the gate arithmetic, a few percent more, is
+    left out), each input read once and each output written once."""
+    g = rk.GATES[cell]
+    flops = 2.0 * b * h * g * h * t
+    seq, gates, w, state = t * b * h, t * b * g * h, g * h * h, b * h
+    if cell == "lstm":
+        # xp, wh, h0, c0 -> hs, cs, gates; gt, gates, cs, cprev, whT ->
+        # dzs, dh0, dc0
+        fwd = gates + w + 2 * state + 2 * seq + gates
+        bwd = 3 * seq + gates + w + gates + 2 * state
+    else:
+        # ap, wh, h0 -> hs, gates, un; gt, hprev, gates, un, whT -> das,
+        # dus, dh0
+        fwd = gates + w + state + 2 * seq + gates
+        bwd = 3 * seq + gates + w + 2 * gates + state
+    return {"%s_forward" % cell: (flops, 4.0 * fwd),
+            "%s_backward" % cell: (flops, 4.0 * bwd)}
+
+
+def check_rnn_shape(device, cell, name, reverse):
+    """The forward and backward kernels of ``cell`` against their plain
+    versions at one shape and direction; each rerun bit-identical. Returns
+    each kernel's max abs err."""
+    fns = rnn_fns(cell, *rnn_inputs(device, cell, name), reverse)
+    errs = {}
+    for kname, (kernel, plain) in fns.items():
+        runs = [kernel(), kernel()]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError("%s at %s: two runs differ" % (kname, name))
+        want = plain()
+        err = 0.0
+        for i, (a, b) in enumerate(zip(runs[0], want)):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            tol = (RNN_TOL if kname.endswith("forward") else dict(
+                rtol=GRAD_RTOL, atol=GRAD_ATOL * float(np.abs(b).max())))
+            np.testing.assert_allclose(a, b, err_msg="%s at %s, output %d"
+                                       % (kname, name, i), **tol)
+            err = max(err, float(np.max(np.abs(a - b))))
+        errs[kname] = err
+    print("  %-4s %-8s %-7s max abs err forward %.3g, backward %.3g; reruns "
+          "bit-identical" % (cell, name, "reverse" if reverse else "forward",
+                             *errs.values()))
+    return errs
+
+
+def cudnn_layer(cell, wx, wh, b):
+    """torch.nn.LSTM/GRU (cuDNN) holding one layer's weights: W_ih = wx^T,
+    W_hh = wh^T, b_ih = b, b_hh = 0; PyTorch's GRU orders its gates r, z,
+    n, so the z and r blocks swap."""
+    d, gh = wx.shape
+    h = wh.shape[0]
+    cls = torch.nn.LSTM if cell == "lstm" else torch.nn.GRU
+    layer = cls(d, h).to(wx.device)
+    order = (list(range(4)) if cell == "lstm" else [1, 0, 2])
+
+    def blocks(m):
+        return torch.cat([m[..., k * h:(k + 1) * h] for k in order], dim=-1)
+
+    with torch.no_grad():
+        layer.weight_ih_l0.copy_(blocks(wx).T)
+        layer.weight_hh_l0.copy_(blocks(wh).T)
+        layer.bias_ih_l0.copy_(blocks(b)[0])
+        layer.bias_hh_l0.zero_()
+    return layer
+
+
+def rnn_layer_times(device, cell):
+    """One layer of config 8's second recurrent layer (D = H = 256, input
+    needing a gradient) as the port runs it (K1's input projection and the
+    forward kernel; the backward kernel and the post-scan products on K1)
+    and as cuDNN does (torch.nn.LSTM/GRU, forward, and backward by
+    autograd.grad): ms of each, and max|cuDNN - plain| of the hidden
+    sequence."""
+    b, t, h = RNN_SHAPES["config8"]
+    g = rk.GATES[cell]
+    rng = np.random.RandomState(3)
+
+    def arr(*shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device)
+
+    x = arr(b, t, h, scale=1.0)
+    wx, wh = arr(h, g * h, scale=0.5 / np.sqrt(h)), arr(
+        h, g * h, scale=1.0 / np.sqrt(h))
+    bias, gt = arr(1, g * h, scale=0.1), arr(b, t, h, scale=1.0)
+    scan = ops.lstm_scan_ if cell == "lstm" else ops.gru_scan_
+    leaves = [Tensor(a, requires_grad=True) for a in (x, wx, wh, bias)]
+
+    def port_fwd():
+        return scan(*leaves)
+
+    def port_fwd_bwd():
+        port_fwd().backward(gt)
+
+    layer = cudnn_layer(cell, wx, wh, bias)
+    xt = x.transpose(0, 1).contiguous()
+    x_leaf = xt.clone().requires_grad_(True)
+    params = [x_leaf] + list(layer.parameters())
+
+    def lib_fwd():
+        with torch.no_grad():
+            return layer(xt)[0]
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(layer(x_leaf)[0], params, gt.transpose(0, 1))
+
+    want = scan(*leaves, impl="plain").data.transpose(0, 1)
+    err = float((lib_fwd() - want).abs().max())
+    for fn in (port_fwd_bwd, lib_fwd_bwd):
+        fn()
+    pf1, pb1, lf1, lb1, lb2, lf2, pb2, pf2 = (
+        epoch_ms(port_fwd, 10), epoch_ms(port_fwd_bwd, 10),
+        epoch_ms(lib_fwd, 10), epoch_ms(lib_fwd_bwd, 10),
+        epoch_ms(lib_fwd_bwd, 10), epoch_ms(lib_fwd, 10),
+        epoch_ms(port_fwd_bwd, 10), epoch_ms(port_fwd, 10))
+    out = dict(port_fwd=(pf1 + pf2) / 2, lib_fwd=(lf1 + lf2) / 2)
+    out["port_bwd"] = (pb1 + pb2) / 2 - out["port_fwd"]
+    out["lib_bwd"] = (lb1 + lb2) / 2 - out["lib_fwd"]
+    print("one %s layer at config 8 (D = H = %d, B %d, T %d): the port "
+          "(K1 projection + the forward kernel) %.4f ms forward, (the "
+          "backward kernel + dx, dWx, dWh on K1 + db) %.4f ms backward; "
+          "cuDNN (torch.nn.%s, f32, TF32 off) %.4f ms forward, %.4f ms "
+          "backward (autograd.grad); max|cuDNN - plain| of hs %.3g"
+          % (cell.upper(), h, b, t, out["port_fwd"], out["port_bwd"],
+             "LSTM" if cell == "lstm" else "GRU", out["lib_fwd"],
+             out["lib_bwd"], err))
+    if not err < 1e-3:
+        raise AssertionError("cuDNN's %s layer is not the port's function: "
+                             "max|cuDNN - plain| %.3g" % (cell, err))
+    return out
+
+
+def check_recurrent(device):
+    """K5, K5b, K5c and K5d against their plain versions at config 8's
+    shape and the ragged one, both directions; then at config 8 each
+    kernel's time (CUDA events, in turns with the plain version), its bound,
+    and cuDNN's layer beside the port's. Returns a dict per kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {}
+    print("  tol: forward rtol 1e-4 atol 1e-5, backward rtol 1e-4 atol 1e-4 "
+          "x max|plain|")
+    for cell in ("lstm", "gru"):
+        for name in RNN_SHAPES:
+            for reverse in (False, True):
+                for kname, err in check_rnn_shape(device, cell, name,
+                                                  reverse).items():
+                    worst[kname] = max(worst.get(kname, 0.0), err)
+    out = {}
+    b, t, h = RNN_SHAPES["config8"]
+    for cell in ("lstm", "gru"):
+        fns = rnn_fns(cell, *rnn_inputs(device, cell, "config8"), False)
+        costs = rnn_costs(cell, b, t, h)
+        layer = rnn_layer_times(device, cell)
+        for kname, (kernel, plain) in fns.items():
+            backward = kname.endswith("backward")
+            cluster, rows = rk.plan_on(cell, backward, b, h, device)
+            print("%s at config 8: clusters of %d blocks, %d rows each; the "
+                  "card holds %d such clusters at once"
+                  % (kname, cluster, rows, rk._max_clusters(
+                      cell, backward, h, cluster, rows, device)))
+            kernel()
+            plain()
+            # in turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (epoch_ms(plain, 2), epoch_ms(kernel, 20),
+                              epoch_ms(kernel, 20), epoch_ms(plain, 2))
+            ms = (k1 + k2) / 2
+            bound_ms, bound_by = bound(*costs[kname])
+            side = "fwd" if kname.endswith("forward") else "bwd"
+            out[kname] = dict(max_abs_err=worst[kname], ms=ms,
+                              plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                              bound_by=bound_by,
+                              library_ms=layer["lib_" + side],
+                              port_layer_ms=layer["port_" + side])
+            print("%s at config 8: %.4f ms a launch by CUDA events (turns "
+                  "%.4f, %.4f), %.2f us a step; %.4f ms device time "
+                  "(profiler); plain %.3f ms (turns %.3f, %.3f); bound %.4f "
+                  "ms (%s-bound: %.4g GFLOP, %.4g MB); kernel at %.2f%% of it"
+                  % (kname, ms, k1, k2, 1e3 * ms / t,
+                     device_us(kernel, reps=5) / 1e3, out[kname]["plain_ms"],
+                     p1, p2, bound_ms, bound_by, costs[kname][0] / 1e9,
+                     costs[kname][1] / 1e6, 100.0 * bound_ms / ms))
+            print_phases(kernel, side, t, device)
+    return out
+
+
+def print_phases(kernel, side, n_steps, device):
+    """Block 0's time in each phase of one launch (the kernel's phase
+    clock), the set-up in us and the others in us a step."""
+    names = rk.PHASES["forward" if side == "fwd" else "backward"]
+    phase_ns = torch.zeros(len(names), dtype=torch.int64, device=device)
+    kernel(phase_ns=phase_ns)
+    torch.cuda.synchronize()
+    us = phase_ns.cpu().numpy() / 1e3
+    print("  by phase (block 0's globaltimer): %s %.2f us; a step: %s; sum "
+          "%.2f us a step" % (names[0], us[0], ", ".join(
+              "%s %.2f" % (n, v / n_steps) for n, v in zip(names[1:], us[1:])),
+              us[1:].sum() / n_steps))
+
+
+def rnn_data():
+    """Config 8's data as bench_all.py makes it: 2,048 sequences of 128 x 64
+    standard-normal features and labels of 16 classes from numpy seed 0; and
+    64 held-out sequences from seed 1."""
+    rng = np.random.RandomState(0)
+    tx = rng.randn(RNN_SAMPLES, RNN_T, RNN["num_in"]).astype(np.float32)
+    ty = one_hot(rng.randint(0, RNN["num_out"], RNN_SAMPLES), RNN["num_out"])
+    held = np.random.RandomState(1)
+    ex = held.randn(RNN_BATCH, RNN_T, RNN["num_in"]).astype(np.float32)
+    return tx, ty, ex, held.randint(0, RNN["num_out"], RNN_BATCH)
+
+
+def rnn_model(device, net=None, seed=0):
+    """Config 8 (or ``net``) in a Model with Adam 1e-3 on ``device``, after
+    seeding the global stream with ``seed`` as bench_all.py does."""
+    seeder.random_seed(seed)
+    if net is None:
+        net = build_rnn_classifier(**RNN)
+    return Model(net, SoftmaxCrossEntropyLoss(), Adam(1e-3), device=device)
+
+
+def bi_lstm_net():
+    """A two-layer Bidirectional LSTM classifier at config 8's widths: each
+    layer a forward cell of 256 and its reverse twin, then the 512 -> 16
+    head."""
+    h, d, nout = RNN["hidden"][0], RNN["num_in"], RNN["num_out"]
+    return Net([Bidirectional(LSTM(h, num_in=d, return_sequences=True,
+                                   seed=11)),
+                Bidirectional(LSTM(h, num_in=2 * h, seed=12)),
+                Dense(nout, num_in=2 * h, seed=13)])
+
+
+def run_rnn_epochs(model, x_dev, y_dev, n_epochs, what):
+    """``n_epochs`` epochs of ``model`` (``fused="auto"``) with the launch
+    counts set to 0 before them: the first timed alone (the kernels' first
+    loads), the rest together. Returns the losses, the counts and the rate
+    of the epochs after the first (of the first when it is the only one)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    first = model.train_epoch(x_dev, y_dev, batch_size=RNN_BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rest = first[None][:0]
+    if n_epochs > 1:
+        t0 = time.perf_counter()
+        rest = model.train_epochs(x_dev, y_dev, n_epochs=n_epochs - 1,
+                                  batch_size=RNN_BATCH)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = torch.cat([first[None], rest]).cpu().numpy()
+    n_steps = losses.shape[1]
+    rate = (n_steps * (n_epochs - 1) / timed_s if n_epochs > 1
+            else n_steps / first_s)
+    print("%s: %d epoch(s) of %d steps (batch %d, T %d); epoch 1 %.3f s; "
+          "%s %.2f steps/s = %.3f ms/step; epoch-mean losses %s"
+          % (what, n_epochs, n_steps, RNN_BATCH, RNN_T, first_s,
+             "then" if n_epochs > 1 else "that is", rate, 1e3 / rate,
+             np.array2string(losses.mean(axis=1), precision=5)))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("%s: non-finite loss" % what)
+    return losses, counts, rate
+
+
+def run_rnn_slice(device):
+    """Config 8's main path: ``Model(build_rnn_classifier(**config8), ...,
+    device="cuda").train_epochs(fused="auto")``, 3 epochs of 32 steps, an
+    evaluate_batch on 64 held-out sequences; 5 Adam steps against the same
+    steps through impl="plain"; a timed impl="plain" epoch; one GRU epoch
+    and one Bidirectional LSTM epoch at the same widths. Returns the config-8
+    model with its data, the summed launch counts and the rates."""
+    tx, ty, ex, ey = rnn_data()
+    model = rnn_model(device)
+    x_dev, y_dev = model.stage(tx, ty)
+    _, counts, rate = run_rnn_epochs(model, x_dev, y_dev, 3,
+                                     "config 8, fused='auto'")
+    steps = 3 * (RNN_SAMPLES // RNN_BATCH)
+    res = model.evaluate_batch(ex, ey, AccEvaluator)
+    logits = model.predict(ex)
+    counts = launch_counts()
+    # per step: each layer's forward and backward kernel; on K1 the two
+    # input projections, dWx and dWh of both layers, the second layer's dx
+    # (the first layer's input needs no gradient) and the head Dense's
+    # forward, dW and dx. Each of the two eval forwards: 2 forward kernels,
+    # 2 projections and the head.
+    want = only(lstm_forward=2 * steps + 4, lstm_backward=2 * steps,
+                matmul=10 * steps + 6)
+    print("launches over the %d train steps and two eval forwards: %s; "
+          "evaluate_batch accuracy %.4f (random labels: chance 1/16)"
+          % (steps, counts, res["accuracy"]))
+    if counts != want:
+        raise AssertionError("launch counts %s, expected %s (K5 and K5b "
+                             "twice a step, K1 10 a step)" % (counts, want))
+    if tuple(logits.shape) != (RNN_BATCH, RNN["num_out"]) or \
+            not torch.isfinite(logits.data).all():
+        raise AssertionError("bad eval logits")
+    total = dict(counts)
+
+    # the same 5 steps through the kernels and through the plain versions
+    models = [rnn_model(device) for _ in range(2)]
+    for layer in models[1].net.layers[:-1]:
+        layer.impl = "plain"
+    losses = np.array([[float(m.train_step(tx[i * RNN_BATCH:
+                                              (i + 1) * RNN_BATCH],
+                                           ty[i * RNN_BATCH:
+                                              (i + 1) * RNN_BATCH]))
+                        for i in range(RNN_PARITY_STEPS)] for m in models])
+    rel = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    print("%d Adam steps from the same weights, kernels %s, impl='plain' %s:"
+          " largest relative difference %.3g (tol rtol %g)"
+          % (RNN_PARITY_STEPS, np.array2string(losses[0], precision=6),
+             np.array2string(losses[1], precision=6), rel.max(),
+             PARITY_RTOL))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=PARITY_RTOL,
+                               err_msg="kernels vs plain losses")
+    plain = models[1]
+    del models
+    _, plain_counts, plain_rate = run_rnn_epochs(
+        plain, x_dev, y_dev, 1, "config 8, impl='plain'")
+    if plain_counts != only(matmul=10 * (RNN_SAMPLES // RNN_BATCH)):
+        raise AssertionError("the plain epoch launched %s" % plain_counts)
+    print("same call, config 8: the kernels %.2f steps/s, impl='plain' %.2f "
+          "steps/s (its first epoch), kernels/plain %.2f"
+          % (rate, plain_rate, rate / plain_rate))
+    for k in total:
+        total[k] += plain_counts[k]
+
+    n_steps = RNN_SAMPLES // RNN_BATCH
+    gru = rnn_model(device, build_rnn_classifier(**dict(RNN, cell="gru")))
+    _, counts, gru_rate = run_rnn_epochs(gru, x_dev, y_dev, 1,
+                                         "config 8 as a GRU")
+    if counts != only(gru_forward=2 * n_steps, gru_backward=2 * n_steps,
+                      matmul=10 * n_steps):
+        raise AssertionError("GRU launch counts %s" % counts)
+    for k in total:
+        total[k] += counts[k]
+    bi = rnn_model(device, bi_lstm_net())
+    _, counts, bi_rate = run_rnn_epochs(
+        bi, x_dev, y_dev, 1, "Bidirectional LSTM, 2 layers of %d + %d units"
+        % (RNN["hidden"][0], RNN["hidden"][0]))
+    # per step: 4 cells' forward and backward; on K1 4 projections, 4 dWx,
+    # 4 dWh, the second layer's two dx and the head's 3
+    if counts != only(lstm_forward=4 * n_steps, lstm_backward=4 * n_steps,
+                      matmul=17 * n_steps):
+        raise AssertionError("Bidirectional launch counts %s" % counts)
+    for k in total:
+        total[k] += counts[k]
+    print("launches over the recurrent slice: %s; steps/s: LSTM %.2f, GRU "
+          "%.2f (its first epoch), Bidirectional LSTM %.2f (its first epoch)"
+          % (total, rate, gru_rate, bi_rate))
+    return model, x_dev, y_dev, total, rate
+
+
+def run_rnn_trace(model, x_dev, y_dev, steps=10):
+    """Device busy share and the recurrent kernels' device time a step over
+    ``steps`` config-8 train steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = x_dev[:steps * RNN_BATCH].reshape(steps, RNN_BATCH, RNN_T, -1)
+    ys = y_dev[:steps * RNN_BATCH].reshape(steps, RNN_BATCH, -1)
+    model.train_step(xs[0], ys[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.train_step(xs[i], ys[i])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(device_kernels(prof), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print("trace, config 8: %d steps, wall %.1f us/step under the profiler, "
+          "%d kernel launches/step" % (steps, wall_us / steps,
+                                       sum(r[1] for r in rows) // steps))
+    if busy_us == 0:
+        print("trace, config 8: device time not measured (the profiler saw "
+              "no device kernels)")
+        return
+    rec = {kind: sum(r[0] for r in rows if "recurrent_%s_kernel" % kind
+                     in r[2]) / steps for kind in ("forward", "backward")}
+    k1 = sum(r[0] for r in rows if "matmul" in r[2]) / steps
+    print("trace, config 8: device busy %.1f us/step = %.1f%% of wall (idle "
+          "%.1f%%); K5 %.1f, K5b %.1f us/step (%.1f%% of the device time), "
+          "K1 %.1f us/step, the rest %.1f us/step"
+          % (busy_us / steps, 100.0 * busy_us / wall_us,
+             100.0 - 100.0 * busy_us / wall_us, rec["forward"],
+             rec["backward"], 100.0 * sum(rec.values()) * steps / busy_us,
+             k1, busy_us / steps - sum(rec.values()) - k1))
+    for dev_us, count, key in rows[:10]:
+        print("  %9.2f us/step  %3d launches/step  %s"
+              % (dev_us / steps, count // steps, key[:80]))
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -1528,7 +2026,8 @@ def main():
                                           torch.version.cuda))
 
     phase("build")
-    names = ("matmul", "fused_epoch", "streaming_epoch", "attention")
+    names = ("matmul", "fused_epoch", "streaming_epoch", "attention",
+             "recurrent")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
@@ -1591,11 +2090,18 @@ def main():
           "attn='tape' %.2f steps/s, fused/tape %.2f"
           % (t_rate, tape_rate, t_rate / tape_rate))
 
+    phase("recurrent kernels vs plain")
+    rec = check_recurrent(device)
+
+    phase("recurrent slice")
+    rmodel, rx_dev, ry_dev, r_launches, _ = run_rnn_slice(device)
+
     phase("trace")
     run_trace(smodel, sx, sy)
     run_fused_trace(fmodel, fx, fy)
     run_stream_trace(dmodel, dx, dy)
     run_transformer_trace(tmodel, tx_dev, ty_dev)
+    run_rnn_trace(rmodel, rx_dev, ry_dev)
 
     phase("parity gpu vs cpu")
     run_parity(device)
@@ -1606,7 +2112,8 @@ def main():
          "source": "tinynn_autograd_tpu_torch/csrc/matmul.cu",
          "replaces": "tinynn_autograd_tpu/ops/kernels.py:122",
          "launches": (f_launches["matmul"] + s_launches["matmul"]
-                      + deep_launches["matmul"] + t_launches["matmul"]),
+                      + deep_launches["matmul"] + t_launches["matmul"]
+                      + r_launches["matmul"]),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
          "library_ms": k1_plain_ms},
@@ -1632,7 +2139,15 @@ def main():
               "launches": t_launches[name]}, **attn[name])
         for name, line in (("attention_forward", 250),
                            ("attention_backward_dq", 650),
-                           ("attention_backward_dkv", 690))]}))
+                           ("attention_backward_dkv", 690))] + [
+        dict({"name": name, "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/recurrent.cu",
+              "replaces": "tinynn_autograd_tpu/ops/recurrent_kernel.py:%d"
+                          % line,
+              "launches": r_launches[name]},
+             **{k: v for k, v in rec[name].items() if k != "port_layer_ms"})
+        for name, line in (("lstm_forward", 71), ("lstm_backward", 137),
+                           ("gru_forward", 226), ("gru_backward", 288))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -497,3 +497,156 @@ def test_cuda_transformer_step_launches_the_attention_kernels():
     assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 4, 6, 0,
                                                              0, 0]
     assert losses.shape == (2,) and torch.isfinite(losses).all()
+
+
+# the recurrent kernels: (B, T, H) at config 8's widths (K5/K5b's main
+# path, and the GRU's at the same widths), the example's (B=128, H=64), a
+# ragged B and H, an H that splits unevenly over a cluster of 2, and each
+# cell's widest H
+RNN_SHAPES = {"config8": (64, 128, 256), "example": (128, 32, 64),
+              "ragged": (3, 7, 100), "uneven_units": (5, 9, 129),
+              "widest": (2, 5, None)}
+# the forward's outputs at rtol 1e-4/atol 1e-5 (128 steps of sums in another
+# order); the backward's each at rtol 1e-4 and an atol of 1e-4 of its own
+# largest plain value
+RNN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _rnn_inputs(dev, cell, name, states, seed=0):
+    """The forward's inputs (projected inputs, wh, initial states) and an
+    output cotangent, from numpy; wh scaled by 1/sqrt(H), so the gates stay
+    out of saturation."""
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+
+    b, t, h = RNN_SHAPES[name]
+    h = h or rk.max_hidden(cell)
+    g = rk.GATES[cell]
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(dev)
+
+    xp = arr(t, b, g * h, scale=0.5)
+    wh = arr(h, g * h, scale=1.0 / np.sqrt(h))
+    zeros = torch.zeros((b, h), device=dev)
+    h0 = arr(b, h, scale=0.5) if states else zeros
+    c0 = arr(b, h, scale=0.5) if states else zeros
+    return xp, wh, h0, c0, arr(t, b, h)
+
+
+def _rnn_forward(cell, fn_kind, xp, wh, h0, c0, reverse):
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+
+    if cell == "lstm":
+        fn = (rk.cuda_lstm_forward if fn_kind == "kernel"
+              else rk.lstm_forward_reference)
+        return fn(xp, wh, h0, c0, reverse=reverse)
+    fn = (rk.cuda_gru_forward if fn_kind == "kernel"
+          else rk.gru_forward_reference)
+    return fn(xp, wh, h0, reverse=reverse)
+
+
+def _rnn_backward(cell, fn_kind, fwd, h0, c0, gt, wh, reverse):
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+
+    def shifted(seq, first):
+        if reverse:
+            return torch.cat([seq[1:], first[None]])
+        return torch.cat([first[None], seq[:-1]])
+
+    if cell == "lstm":
+        hs, cs, gates = fwd
+        fn = (rk.cuda_lstm_backward if fn_kind == "kernel"
+              else rk.lstm_backward_reference)
+        return fn(gt, gates, cs, shifted(cs, c0), wh.T, reverse=reverse)
+    hs, gates, un = fwd
+    fn = (rk.cuda_gru_backward if fn_kind == "kernel"
+          else rk.gru_backward_reference)
+    return fn(gt, shifted(hs, h0), gates, un, wh.T, reverse=reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name", sorted(RNN_SHAPES))
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_recurrent_kernels_match_reference(cell, name, reverse, states):
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xp, wh, h0, c0, gt = _rnn_inputs(dev, cell, name, states)
+    fwd_fn = getattr(rk, "cuda_%s_forward" % cell)
+    bwd_fn = getattr(rk, "cuda_%s_backward" % cell)
+    before = (fwd_fn.launches, bwd_fn.launches)
+    runs = [_rnn_forward(cell, "kernel", xp, wh, h0, c0, reverse)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = _rnn_forward(cell, "plain", xp, wh, h0, c0, reverse)
+    for i, (a, b) in enumerate(zip(runs[0], want)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   err_msg="forward output %d" % i,
+                                   **RNN_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # both backwards from the plain forward's outputs
+    runs = [_rnn_backward(cell, "kernel", want, h0, c0, gt, wh, reverse)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fwd_fn.launches, bwd_fn.launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    plain = _rnn_backward(cell, "plain", want, h0, c0, gt, wh, reverse)
+    for i, (a, b) in enumerate(zip(runs[0], plain)):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b, rtol=1e-4,
+            atol=1e-4 * float(np.abs(b).max()),
+            err_msg="backward output %d" % i)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_cuda_recurrent_kernels_refuse_an_h_beyond_the_rule():
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+
+    dev = _cuda()
+    h = rk.max_hidden("lstm") + 1
+    xp = torch.zeros((2, 2, 4 * h), device=dev)
+    states = torch.zeros((2, h), device=dev)
+    with pytest.raises(ValueError, match="H <= %d" % (h - 1)):
+        rk.cuda_lstm_forward(xp, torch.zeros((h, 4 * h), device=dev),
+                             states, states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_rnn_step_launches_the_recurrent_kernels(cell):
+    from tinynn_autograd_tpu_torch.models import build_rnn_classifier
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk
+    from tinynn_autograd_tpu_torch.ops import streaming_epoch as se
+
+    dev = _cuda()
+    model = Model(build_rnn_classifier(num_in=64, num_out=16,
+                                       hidden=(256, 256), cell=cell, seed=77),
+                  SoftmaxCrossEntropyLoss(), Adam(1e-3), device=dev)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2 * 64, 128, 64).astype(np.float32)
+    y = np.eye(16, dtype=np.float32)[rng.randint(0, 16, 2 * 64)]
+    fns = (getattr(rk, "cuda_%s_forward" % cell),
+           getattr(rk, "cuda_%s_backward" % cell), kernels.cuda_matmul,
+           fused_epoch.cuda_fused_epoch, se.cuda_stream_forward,
+           se.cuda_stream_backward)
+    before = [f.launches for f in fns]
+    losses = model.train_epoch(x, y, batch_size=64)
+    torch.cuda.synchronize()
+    # per step: each of the two layers' forward and backward kernels; on K1
+    # the two input projections, dWx and dWh of both layers, dx of the
+    # second (the first layer's input needs no gradient), and the head
+    # Dense's forward, dW and dx
+    assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 20, 0, 0,
+                                                             0]
+    assert losses.shape == (2,) and torch.isfinite(losses).all()

@@ -1,7 +1,8 @@
-"""Network layers and activations: the MLP trainers' and the transformer
-classifier's subset of the JAX package's nn/layers.py (Layer, Dense,
-DenseStack, LayerNorm, Embedding, PositionalEmbedding, TransformerBlock,
-GlobalAvgPool1D, Flatten, Activation, ReLU, Sigmoid, Tanh, GELU).
+"""Network layers and activations: the MLP trainers', the transformer
+classifier's and the recurrent classifier's subset of the JAX package's
+nn/layers.py (Layer, Dense, DenseStack, LayerNorm, Embedding,
+PositionalEmbedding, TransformerBlock, GlobalAvgPool1D, LSTM, GRU,
+Bidirectional, Flatten, Activation, ReLU, Sigmoid, Tanh, GELU).
 
 Every layer's forward is Tensor algebra over the tape primitives. Layers own
 their parameters as tape Tensors (so they are the framework's own classes,
@@ -387,6 +388,246 @@ class GlobalAvgPool1D(Layer):
 
     def forward(self, inputs):
         return ops.mean_(inputs, axis=1)
+
+
+class _RecurrentBase(Layer):
+    """Shared plumbing of LSTM and GRU: the fused-gate weights wx [D, G*H],
+    wh [H, G*H] and b [1, G*H], lazy initialization from the first input's
+    feature size, and the full-sequence or last-step output.
+
+    ``impl`` is the scan's: None runs the recurrent kernels on a GPU and
+    their plain versions on the CPU; "plain" runs the plain versions on the
+    GPU too (to compare a model with its kernels leaf by leaf)."""
+
+    _GATES = None  # subclass: the number of fused gates G
+
+    def __init__(self, name, num_hidden, num_in=None, return_sequences=False,
+                 w_init=None, u_init=None, seed=None, reverse=False,
+                 impl=None):
+        super().__init__(name)
+        self.num_hidden = int(num_hidden)
+        self.return_sequences = return_sequences
+        self.reverse = reverse
+        self.impl = impl
+        self._seed = seed
+        self.initializers = {
+            "wx": w_init if w_init is not None else XavierUniformInit(),
+            "wh": u_init if u_init is not None else XavierUniformInit(),
+        }
+        g = self._GATES
+        self.shapes = {"wx": [num_in, g * self.num_hidden],
+                       "wh": [self.num_hidden, g * self.num_hidden],
+                       "b": [1, g * self.num_hidden]}
+        self.params = {"wx": None, "wh": None, "b": None}
+        self._is_init = False
+        if num_in is not None:
+            self._init_parameters(num_in)
+
+    @property
+    def is_init(self):
+        return self._is_init
+
+    def _bias_data(self):
+        return torch.zeros(tuple(self.shapes["b"]), dtype=torch.float32)
+
+    def _init_parameters(self, input_size):
+        self.shapes["wx"][0] = int(input_size)
+        with _init_scope(self._seed):
+            self.params["wx"] = self.initializers["wx"](self.shapes["wx"])
+            self.params["wh"] = self.initializers["wh"](self.shapes["wh"])
+        self.params["b"] = Tensor(self._bias_data(), requires_grad=True)
+        self._is_init = True
+
+    def init_params(self, input_shape):
+        if not self._is_init:
+            self._init_parameters(input_shape[-1])
+        if self.return_sequences:
+            return (input_shape[0], input_shape[1], self.num_hidden)
+        return (input_shape[0], self.num_hidden)
+
+    def _scan(self, inputs):
+        raise NotImplementedError
+
+    def forward(self, inputs):
+        if not self._is_init:
+            self._init_parameters(inputs.shape[-1])
+        hs = self._scan(inputs)
+        if self.return_sequences:
+            return hs
+        # a reverse cell's final state sits at position 0 (outputs stay
+        # aligned to their input positions)
+        return hs[:, 0] if self.reverse else hs[:, -1]
+
+
+class LSTM(_RecurrentBase):
+    """LSTM over [B, T, D] -> [B, H] (the last hidden state) or [B, T, H]
+    (``return_sequences=True``): one ``ops.lstm_scan_`` primitive, whose
+    forward and backward are one recurrent kernel launch each on a GPU.
+    The forget-gate bias starts at 1.0; gates fused in i, f, g, o order."""
+
+    _GATES = 4
+
+    def __init__(self, num_hidden, num_in=None, return_sequences=False,
+                 w_init=None, u_init=None, seed=None, reverse=False,
+                 impl=None):
+        super().__init__("LSTM", num_hidden, num_in=num_in,
+                         return_sequences=return_sequences,
+                         w_init=w_init, u_init=u_init, seed=seed,
+                         reverse=reverse, impl=impl)
+
+    def _bias_data(self):
+        h = self.num_hidden
+        b = torch.zeros((1, 4 * h), dtype=torch.float32)
+        b[:, h:2 * h] = 1.0
+        return b
+
+    def _scan(self, inputs):
+        return ops.lstm_scan_(inputs, self.params["wx"], self.params["wh"],
+                              self.params["b"], reverse=self.reverse,
+                              impl=self.impl)
+
+
+class GRU(_RecurrentBase):
+    """GRU over [B, T, D] -> [B, H] or [B, T, H] (``return_sequences``):
+    one ``ops.gru_scan_`` primitive (single-bias Cho et al. form, gates
+    fused in z, r, n order)."""
+
+    _GATES = 3
+
+    def __init__(self, num_hidden, num_in=None, return_sequences=False,
+                 w_init=None, u_init=None, seed=None, reverse=False,
+                 impl=None):
+        super().__init__("GRU", num_hidden, num_in=num_in,
+                         return_sequences=return_sequences,
+                         w_init=w_init, u_init=u_init, seed=seed,
+                         reverse=reverse, impl=impl)
+
+    def _scan(self, inputs):
+        return ops.gru_scan_(inputs, self.params["wx"], self.params["wh"],
+                             self.params["b"], reverse=self.reverse,
+                             impl=self.impl)
+
+
+class _TwoWayParams:
+    """Write-through merged view of the two direction layers' parameter
+    dicts, keys ``f_<name>`` and ``b_<name>``. Net and Model use only the
+    mapping surface below, and ``params_tree`` copies it into plain dicts,
+    so checkpoints and the optimizers see ordinary trees."""
+
+    def __init__(self, fwd, bwd):
+        self._fwd, self._bwd = fwd, bwd
+
+    def _route(self, key):
+        side, name = key.split("_", 1)
+        return (self._fwd if side == "f" else self._bwd).params, name
+
+    def keys(self):
+        # dict_keys, not a list: Net.set_parameters compares with the
+        # checkpoint dict's .keys() (set semantics)
+        return dict.fromkeys(
+            ["f_%s" % k for k in self._fwd.params]
+            + ["b_%s" % k for k in self._bwd.params]).keys()
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __getitem__(self, key):
+        inner, name = self._route(key)
+        return inner[name]
+
+    def __setitem__(self, key, value):
+        inner, name = self._route(key)
+        inner[name] = value
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+    def values(self):
+        return [self[k] for k in self.keys()]
+
+    def __eq__(self, other):
+        return dict(self.items()) == dict(
+            other.items() if hasattr(other, "items") else other)
+
+
+class Bidirectional(Layer):
+    """A recurrent layer (LSTM or GRU) run forward in time and an
+    independent twin run backward in time (``reverse=True``), their outputs
+    concatenated on the feature axis: [B, T, 2H] when the wrapped layer
+    returns sequences, else [B, 2H] (the forward cell's last state and the
+    backward cell's state at position 0).
+
+    ``backward_layer`` defaults to a twin of the wrapped layer (same class,
+    width, return_sequences and impl; its seed is the wrapped layer's +
+    0x9E37).
+    The parameters are one write-through dict (keys ``f_*`` and ``b_*``),
+    so optimizers and checkpoints see one ordinary layer."""
+
+    def __init__(self, forward_layer, backward_layer=None):
+        if forward_layer.reverse:
+            raise ValueError("Bidirectional's wrapped layer must run "
+                             "forward (reverse=False); the wrapper builds "
+                             "the reverse twin itself.")
+        if backward_layer is None:
+            seed = forward_layer._seed
+            num_in = (forward_layer.shapes["wx"][0]
+                      if forward_layer.is_init else None)
+            backward_layer = type(forward_layer)(
+                forward_layer.num_hidden, num_in=num_in,
+                return_sequences=forward_layer.return_sequences,
+                seed=None if seed is None else seed + 0x9E37,
+                reverse=True, impl=forward_layer.impl)
+        else:
+            if not backward_layer.reverse:
+                raise ValueError("backward_layer must have reverse=True")
+            if (backward_layer.return_sequences
+                    != forward_layer.return_sequences):
+                raise ValueError("forward/backward return_sequences differ")
+        # fwd and bwd exist before Layer.__init__ assigns ``self.params``,
+        # which goes through the setter below
+        self.fwd = forward_layer
+        self.bwd = backward_layer
+        super().__init__("Bidirectional(%s)" % forward_layer.name)
+
+    @property
+    def params(self):
+        return _TwoWayParams(self.fwd, self.bwd)
+
+    @params.setter
+    def params(self, value):
+        view = _TwoWayParams(self.fwd, self.bwd)
+        for k in value.keys():
+            view[k] = value[k]
+
+    @property
+    def is_init(self):
+        return self.fwd.is_init and self.bwd.is_init
+
+    # Model.load marks a loaded layer initialized through ``_is_init``:
+    # both direction layers, so that neither redraws over the loaded weights
+    @property
+    def _is_init(self):
+        return self.fwd._is_init and self.bwd._is_init
+
+    @_is_init.setter
+    def _is_init(self, value):
+        self.fwd._is_init = value
+        self.bwd._is_init = value
+
+    def init_params(self, input_shape):
+        self.fwd.init_params(input_shape)
+        out = self.bwd.init_params(input_shape)
+        return tuple(out[:-1]) + (2 * out[-1],)
+
+    def set_phase(self, phase):
+        self.fwd.set_phase(phase)
+        self.bwd.set_phase(phase)
+        super().set_phase(phase)
+
+    def forward(self, inputs):
+        out_f = self.fwd.forward(inputs)
+        out_b = self.bwd.forward(inputs)
+        return ops.concat_([out_f, out_b], axis=-1)
 
 
 class Flatten(Layer):

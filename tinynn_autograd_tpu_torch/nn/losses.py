@@ -1,6 +1,6 @@
-"""Loss functions: ``BaseLoss`` and the per-row, numerically stable
-``SoftmaxCrossEntropyLoss`` with its class-weight path, as in the JAX
-package's nn/losses.py."""
+"""Loss functions: ``BaseLoss``, the per-row, numerically stable
+``SoftmaxCrossEntropyLoss`` with its class-weight path, and ``MSELoss``, as
+in the JAX package's nn/losses.py."""
 
 import torch
 
@@ -41,3 +41,13 @@ class SoftmaxCrossEntropyLoss(BaseLoss):
             per_sample_w = (labels * self._weight).sum(axis=1, keepdims=True)
             nll = nll * per_sample_w
         return nll.sum() / m
+
+
+class MSELoss(BaseLoss):
+    """Mean over the batch of each sample's sum of squared errors."""
+
+    def loss(self, predicted, actual):
+        predicted = as_tensor(predicted)
+        actual = as_tensor(actual, predicted.device)
+        m = predicted.shape[0]
+        return ((predicted - actual) ** 2).sum() / m

@@ -1,8 +1,8 @@
 """Model: net + loss + optimizer facade on one explicit device.
 
-PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainers
-and the transformer sequence classifier (int token ids in, staged and batched
-as they are):
+PyTorch counterpart of the JAX package's nn/model.py, for the MLP trainers,
+the transformer sequence classifier (int token ids in, staged and batched as
+they are) and the recurrent sequence classifier:
 
 1. The eager loop: ``zero_grad -> forward -> loss -> backward -> step``.
 2. ``train_step(x, y)``: forward + tape backward + optimizer update for one
@@ -21,7 +21,9 @@ as they are):
    - the step tier, a loop of train steps (``fused=False``). A transformer
      net always runs here: its attention launches the flash kernels
      (``ops/attention.py``) from the tape, and K2 and the streaming tier
-     refuse the net with their reasons.
+     refuse the net with their reasons. So does a recurrent net: each LSTM
+     or GRU layer launches its recurrent kernel forward and backward
+     (``ops/recurrent.py``) once a step.
    ``fused="auto"``, the default, takes the first of K2, the streaming tier
    and the step tier that can run the net, as the JAX package does; the
    kernels' tiers only on a CUDA device. A build or launch failure of a

@@ -1,6 +1,6 @@
-"""Functional op namespace: the primitives of the MLP trainers and the
-transformer classifier plus coercing wrappers, as in the JAX package's ``ops``
-namespace."""
+"""Functional op namespace: the primitives of the MLP trainers, the
+transformer classifier and the recurrent classifier plus coercing wrappers,
+as in the JAX package's ``ops`` namespace."""
 
 from tinynn_autograd_tpu_torch.core.tensor import as_tensor as _as_tensor
 from tinynn_autograd_tpu_torch.ops import kernels
@@ -11,6 +11,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     build_binary_ops_tensor,
     build_unary_ops_tensor,
     clip_,
+    concat_,
     dense_stack_,
     div_,
     dot_,
@@ -39,6 +40,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     unbroadcast,
     where_,
 )
+from tinynn_autograd_tpu_torch.ops.recurrent import gru_scan_, lstm_scan_
 
 
 def max(obj, axis=None):  # noqa: A001 - parity with reference namespace

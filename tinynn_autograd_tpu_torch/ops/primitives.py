@@ -620,6 +620,24 @@ def _attn_dropout_seed(dropout_rate, dropout_rng):
                     % (dropout_rng,))
 
 
+def concat_(tensors, axis=0):
+    """Concatenate along ``axis``; the VJP slices the gradient back per
+    input."""
+    tensors = [as_tensor(t) for t in tensors]
+    values = torch.cat([t.data for t in tensors], dim=axis)
+    ax = axis % values.ndim
+    dependency = []
+    offset = 0
+    for t in tensors:
+        size = t.shape[ax]
+        if t.requires_grad:
+            dependency.append(
+                (t, lambda grad, start=offset, size=size:
+                 grad.narrow(ax, start, size)))
+        offset += size
+    return tensors[0].__class__(values, bool(dependency), dependency)
+
+
 def where_(cond, ts1, ts2):
     """Elementwise select; gradient flows to the selected branch only."""
     c = to_torch(cond)
