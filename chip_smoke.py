@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch package on one NVIDIA GPU.
 
-Drives the port's four paths at full width through their kernels. The
-flagship MNIST MLP (784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3,
-batch 128, random weights from seed 0, synthetic MNIST at 50,000/10,000)
-runs through K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
-(csrc/fused_epoch.cu). The deep MLP (256-256, a DenseStack of 98 layers of
+Drives the port's paths at full width through their kernels. The flagship
+MNIST MLP (784-200-100-70-30-10 Dense+ReLU, softmax-CE, Adam 1e-3, batch
+128, random weights from seed 0, synthetic MNIST at 50,000/10,000) runs
+through K1, the matmul (csrc/matmul.cu), and K2, the whole-epoch kernel
+(csrc/fused_epoch.cu); with Dropout(0.3) after its two first ReLUs also
+through P1, the dropout pass (csrc/dropout.cu), on the step loop; with
+each of the seven optimizers (examples/mnist/optimizer_sweep.py's table),
+a schedule and clip_norm through K2. P2, the optimizer-only probe
+(csrc/mega_probe.cu), runs bench_mega_probe_torch.py's timings. The deep
+MLP (256-256, a DenseStack of 98 layers of
 256x256 with ReLU, 256-10; batch 128; 2,560 samples from numpy seed 0,
 labelled by a fixed random linear teacher) runs through K3 and K3b, the
 weight-streaming kernels (csrc/streaming_epoch.cu). The long-context causal
@@ -19,7 +24,7 @@ weights from seed 77, 2,048 sequences from numpy seed 0) runs through the
 recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles the five libraries from csrc/ (one nvcc each, started
+2. build: compiles the seven libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
@@ -34,6 +39,36 @@ recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
    under bf16 matmul precision losses within rtol 1e-3 that differ from the
    f32 run. Then both times at the main path's shape, a 390-step epoch,
    and the kernel's time in each of its phases.
+4a. dropout pass vs plain: P1 against ``dropout_reference`` bit for bit at
+   tpu_check's 256x256 tile (seeds 1 and 2), the flagship's [128, 200] and
+   6b's [4, 2048, 512] (a seed past the int32 wrap); tpu_check's
+   statistics on a tile of ones at rate 0.5 (zero fraction within 0.02 of
+   0.5, survivors 2.0, seeds 1 and 2 differing on over 30% of cells); the
+   kernel's, the plain version's and F.dropout's times at the flagship's
+   and 6b's shapes.
+4b. K2 with Dropout: the flagship with Dropout(0.3) after its two first
+   ReLUs, K2 against ``fused_epoch_reference`` over the 10 pinned steps
+   (Adam from step 0, SGD and Adam from step 3000; the last but at the
+   elements ``sign_margins`` marks), at K2's gates, reruns bit-identical;
+   a 390-step epoch of each timed; the step loop's launches
+   (14 K1 and 2 P1 a step) and its losses against K2's over 5 steps (K2's
+   gates: the masks are the same); tpu_check.py's run, rate 0.0 against
+   0.3 (synthetic_mnist(12800, 2000), Adam 1e-3, 5 epochs, fused="auto"):
+   one K2 launch an epoch and nothing else, finite losses, the last below
+   half the first, the two runs different, the accuracies.
+4c. K2 optimizer sweep: each of the seven rules, a warmup-cosine schedule
+   and clip_norm on the flagship: K2 against its plain version over the 10
+   pinned steps (Lion's state but at the elements ``sign_margins`` marks),
+   reruns bit-identical; two fused="auto" epochs (one K2 launch each,
+   counted over both, the second timed); the first epoch's losses against
+   the plain version's over the same epoch, held over its first 10 steps
+   (K2's loss gate), the gap over the whole epoch printed beside that
+   between the plain version on the card and on the CPU; a fused=False
+   epoch (steps/s of both).
+4d. optimizer probe vs plain: P2 against ``mega_probe_reference`` after
+   100 steps (rtol 1e-5) for each rule; bench_mega_probe_torch.py's four
+   timings with their bounds, beside K2's optimizer phase and
+   torch.optim.Adam(fused=True)'s step.
 5. stream kernels vs plain: the deep MLP from seed-1 weights (the stack's
    times sqrt(2), so that every layer carries values of order 1), batch
    128: one K3 launch against ``stream_forward_reference`` (the acts
@@ -52,7 +87,7 @@ recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
    from seed 7, where no ReLU unit of the five Adam steps has a
    pre-activation within rounding of 0 (``stream_seed_scan.py`` shows what
    such a unit does on other seeds); then each kernel's time a launch
-   (CUDA events, and device time from torch.profiler), its plain
+   (CUDA events, and device time: ``device_us``), its plain
    version's, and its bound.
 6. slice: one epoch with ``fused="auto"``, which must be one K2 launch and
    no K1 launch, test accuracy above 0.9, then a second K2 epoch, timed.
@@ -85,6 +120,10 @@ recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
    of epochs 2-3; an evaluate_batch on 32 held-out sequences. Then 5 Adam
    steps with attn="fused" against 5 with attn="tape" from the same weights
    (losses within rtol 1e-4) and a timed attn="tape" epoch.
+9a. transformer slice with dropout: config 6b with dropout=0.1 and
+   attn_dropout=0.1, one epoch: P1 twice a block a step (the residual
+   sites; the attention probabilities drop inside K4 and K4d), each
+   attention kernel once a block, K1 3 a step; finite losses.
 10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
    versions at config 8's shape (zero initial states) and a ragged one
    (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
@@ -135,17 +174,24 @@ from tinynn_autograd_tpu_torch.models import (  # noqa: E402
 )
 from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.layers import (  # noqa: E402
-    LSTM, Bidirectional, Dense,
+    LSTM, Bidirectional, Dense, Dropout, ReLU,
 )
 from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.net import Net  # noqa: E402
-from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam  # noqa: E402
-from tinynn_autograd_tpu_torch.ops import attention, fused_epoch, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.optimizer import (  # noqa: E402
+    SGD, Adadelta, Adagrad, Adam, Lion, Momentum, RMSProp,
+)
+from tinynn_autograd_tpu_torch.nn.scheduler import WarmupCosineLR  # noqa: E402
+from tinynn_autograd_tpu_torch.ops import (  # noqa: E402
+    attention, dropout, fused_epoch, kernels, mega_probe,
+)
 from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
+
+import bench_mega_probe_torch as probe_bench  # noqa: E402
 
 BATCH = 128
 LAYERS = [(784, 200), (200, 100), (100, 70), (70, 30), (30, 10)]
@@ -165,6 +211,25 @@ STATE_TOL = dict(rtol=1e-4, atol=1e-5)
 # step, so two f32 summation orders can leave a few weights 1e-5 apart; the
 # seed is pinned to data that has no such weight (PERF.md).
 PARITY_DATA_SEED = 5
+# Lion's step is lr sign(u) whatever |u| is, and Adam's from zero slots at a
+# large step count ~3 lr sign(g) until sqrt(v) nears eps: where u (or
+# sqrt(v)) is within rounding of 0, the two summation orders give steps 2 lr
+# apart, and the weights they move change every gradient a little in the
+# steps after. Their holds leave out the elements whose plain-version u (or
+# sqrt(v) s1) came under this share of its leaf's largest (sign_margins):
+# f32 sums of 128 products differ by up to ~2^-17 of their terms' size.
+SIGN_MARGIN = 2.0 ** -16
+# Lion's step-by-step hold runs on data seed 4: over its 10 plain steps no
+# ReLU input of the pinned Dropout flagship comes within 1.8e-6 of its
+# layer's largest. On seed 5 one comes within 2.9e-8 at step 2; on the H100
+# the two summation orders put it on different sides of 0, its column of
+# the first layer's weight gradient differs by 3% of the leaf's largest,
+# and Lion turns that into steps 2 lr apart (every other gradient within
+# 1.4e-6). k2_seed_scan.py shows both seeds.
+LION_DATA_SEED = 4
+# The sweep's epoch on the main path is held to its plain version over its
+# first steps, at K2's loss gate; past them the gap grows with training.
+SWEEP_HELD_STEPS = 10
 EPOCH_STEPS = 390  # a flagship epoch: 50,000 samples at batch 128
 # The deep MLP (the JAX package's deep-graph config): 256 -> 256, ReLU, a
 # DenseStack of 98 layers of 256x256, 256 -> 10; batch 128, 2,560 samples (20
@@ -197,6 +262,9 @@ STEPS_SEED = 7
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# device_us's spin: the H100's top SM clock, 1,980 MHz; a lower clock only
+# makes the spin longer
+SPIN_CYCLES_PER_S = 1.98e9
 # Config 6b of bench_all.py (bench_transformer_long): the long-context causal
 # transformer classifier, 7.49 M parameters, head dim 64; batch 4, Adam 1e-3,
 # 256 sequences of random tokens (64 steps an epoch) and random labels from
@@ -254,6 +322,13 @@ RNN_SHAPES = {"config8": (RNN_BATCH, RNN_T, 256), "ragged": (3, 7, 100)}
 # the forwards' outputs: 128 steps of f32 sums in another order; the
 # backwards' are held as the attention gradients are (GRAD_RTOL, GRAD_ATOL)
 RNN_TOL = dict(rtol=1e-4, atol=1e-5)
+# P1 against its plain version, (shape, seed): tpu_check's tile for seeds 1
+# and 2, the flagship's first Dropout, a 6b residual site with a seed past
+# the int32 wrap (step 3000's second seeded layer)
+DROPOUT_RATE = 0.3
+DROPOUT_SHAPES = {"tile_seed1": ((256, 256), 1), "tile_seed2": ((256, 256), 2),
+                  "flagship": ((BATCH, 200), 7),
+                  "config6b": ((4, 2048, 512), 3000 * 1000003 + 1)}
 
 
 def phase(name):
@@ -278,11 +353,11 @@ def epoch_cost(spec, n_steps, batch):
     (forward, weight gradients, input gradients but the first layer's);
     the elementwise work (activations, loss, optimizer, about 2% more) is
     left out, so the bound is a little low. Bytes: the batches, the losses,
-    and the parameters and Adam slots read once and written once."""
-    macs = [d_in * d_out for d_in, d_out, _ in spec.layers]
+    and the parameters and the rule's slots read once and written once."""
+    macs = [d_in * d_out for d_in, d_out, *_ in spec.layers]
     flops = 2.0 * batch * (2 * sum(macs) + sum(macs[1:])) * n_steps
-    leaves = sum(d_in * d_out + d_out for d_in, d_out, _ in spec.layers)
-    n_state = 3 if spec.optimizer == fused_epoch.OPT_ADAM else 1
+    leaves = sum(d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)
+    n_state = 1 + len(spec.slot_names)
     n_bytes = 4.0 * (n_steps * batch * (spec.layers[0][0] + spec.layers[-1][1])
                      + n_steps + 2 * n_state * leaves)
     return flops, n_bytes
@@ -347,24 +422,48 @@ def device_kernels(prof):
             if ev.device_type == DeviceType.CUDA]
 
 
-def device_us(fn, reps=50, attempts=3):
-    """Device time per call: the summed time of the kernels the call ran,
-    from torch.profiler. A profile that saw no device kernel is taken
-    again; after ``attempts`` such profiles the measurement fails."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_us(fn, reps=50, attempts=4):
+    """Device time per call: CUDA events around groups of calls, each group
+    queued behind a spin kernel (``torch.cuda._sleep``) that lasts until
+    the host has queued it all, so the card runs the calls back to back
+    with no wait for the host between them. If the card reached a group's
+    first call before the host had queued its last (the host waits when
+    the card's launch queue is full), the groups are cut to a quarter
+    and all ``reps`` calls taken again; after ``attempts`` such runs the
+    measurement fails. (torch.profiler, used here before, missed whole
+    kernels on the H100 machine: over 5 calls its device time read 19-99%
+    of the events' time, near whole fifths, and in one run it saw no kernel
+    at all.)"""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    call_s = (time.perf_counter() - t0) / reps
+    group = reps
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        total_ms, done = 0.0, 0
+        while done < reps:
+            n = min(group, reps - done)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int((2.0 * n * call_s + 1e-3)
+                                  * SPIN_CYCLES_PER_S))
+            start.record()
+            for _ in range(n):
                 fn()
+            end.record()
+            caught_up = start.query()
             torch.cuda.synchronize()
-        total = sum(row[0] for row in device_kernels(prof))
-        if total > 0:
-            return total / reps
-    raise AssertionError("the profiler saw no device kernel in %d tries"
+            if caught_up:
+                break
+            total_ms += start.elapsed_time(end)
+            done += n
+        if done == reps:
+            return total_ms * 1000.0 / reps
+        group = max(1, group // 4)
+    raise AssertionError("the card caught up with the host in %d runs"
                          % attempts)
 
 
@@ -426,9 +525,18 @@ def check_kernel(device):
 
 
 def fresh_state(net, opt):
-    """Copies of the net's parameters and zero Adam slots, as trees."""
+    """Copies of the net's parameters and the optimizer's zero slots, as
+    trees."""
     params = [{k: v.clone() for k, v in d.items()} for d in net.params_tree()]
     return params, opt.init_state(params)["slots"]
+
+
+def clone_state(params, slots):
+    """Copies of a (params, slots) pair of trees."""
+    def copy(tree):
+        return [{k: v.clone() for k, v in d.items()} for d in tree]
+
+    return copy(params), {k: copy(v) for k, v in slots.items()}
 
 
 def leaves_of(params, slots):
@@ -552,7 +660,7 @@ def check_fused_epoch(device):
           + ", ".join("%s %.2f" % (name, t) for name, t in
                       zip(fused_epoch.phase_names(spec), per_step))
           + "; sum %.2f" % per_step.sum())
-    return worst, ms, plain_ms, spec
+    return worst, ms, plain_ms, spec, per_step[-1]
 
 
 def eager_step(model, xb, yb):
@@ -576,7 +684,9 @@ def _wrappers():
             "lstm_forward": rk.cuda_lstm_forward,
             "lstm_backward": rk.cuda_lstm_backward,
             "gru_forward": rk.cuda_gru_forward,
-            "gru_backward": rk.cuda_gru_backward}
+            "gru_backward": rk.cuda_gru_backward,
+            "dropout": dropout.cuda_dropout,
+            "mega_probe": mega_probe.cuda_mega_probe}
 
 
 def launch_counts():
@@ -1022,7 +1132,7 @@ def check_stream_kernels(device):
                          else k3b_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                          bound_ms=bound_ms, bound_by=bound_by)
         print("%s (Adam for K3b): %.4f ms a launch by CUDA events (turns "
-              "%.4f, %.4f), %.4f ms device time (profiler); plain %.3f ms "
+              "%.4f, %.4f), %.4f ms device time (queued); plain %.3f ms "
               "(turns %.3f, %.3f); bound %.4f ms (%s-bound: %.4g GFLOP, "
               "%.4g MB); kernel at %.2f%% of it"
               % (name, out[name]["ms"], k1, k2, dev_ms, out[name]["plain_ms"],
@@ -1373,7 +1483,7 @@ def time_attention(device, name, detail=False):
                                       else sdpa_bwd))
         extra = ""
         if detail:
-            extra = ("; %.4f ms device time (profiler); under 300 "
+            extra = ("; %.4f ms device time (queued); under 300 "
                      "back-to-back launches the card read (SM clock, max SM "
                      "clock, power) %s" % (device_us(kernel, reps=5) / 1e3,
                                            clock_under(kernel, 300)))
@@ -1796,7 +1906,7 @@ def check_recurrent(device):
                               port_layer_ms=layer["port_" + side])
             print("%s at config 8: %.4f ms a launch by CUDA events (turns "
                   "%.4f, %.4f), %.2f us a step; %.4f ms device time "
-                  "(profiler); plain %.3f ms (turns %.3f, %.3f); bound %.4f "
+                  "(queued); plain %.3f ms (turns %.3f, %.3f); bound %.4f "
                   "ms (%s-bound: %.4g GFLOP, %.4g MB); kernel at %.2f%% of it"
                   % (kname, ms, k1, k2, 1e3 * ms / t,
                      device_us(kernel, reps=5) / 1e3, out[kname]["plain_ms"],
@@ -2014,6 +2124,568 @@ def run_rnn_trace(model, x_dev, y_dev, steps=10):
               % (dev_us / steps, count // steps, key[:80]))
 
 
+# --------------------------------------------------------------------------
+# P1 (the dropout pass), K2 with Dropout and the seven rules, P2 (the
+# optimizer-only probe), 6b with dropout
+# --------------------------------------------------------------------------
+
+def dropout_flagship(rate):
+    """The flagship widths (784-200-100-70-30-10, ReLU) with Dropout(rate)
+    after the two first ReLUs: tpu_check.py's megakernel-dropout net with
+    the flagship's depth."""
+    widths = [784, 200, 100, 70, 30, 10]
+    layer_list = []
+    for i, (d_in, d_out) in enumerate(zip(widths, widths[1:])):
+        layer_list.append(Dense(d_out, num_in=d_in))
+        if i < len(widths) - 2:
+            layer_list.append(ReLU())
+        if i < 2:
+            layer_list.append(Dropout(rate))
+    return Net(layer_list)
+
+
+def dropout_cost(n):
+    """(FLOPs, bytes) of P1 on n elements: the survivors' scale product (the
+    hash's integer operations have no peak in the H100's table and are left
+    out); x read once, the output and the uint8 mask written once."""
+    return float(n), 9.0 * n
+
+
+def check_dropout(device):
+    """P1 against ``dropout_reference`` on the card, bit for bit, at every
+    DROPOUT_SHAPES shape; tpu_check's statistics on the kernel's output;
+    then at the flagship's and 6b's shapes the kernel's, the plain
+    version's and torch.nn.functional.dropout's times (different masks,
+    the same work), back to back and in device time (``device_us``).
+    Returns the kernels-line numbers at 6b's shape, in device time."""
+    gen = torch.Generator().manual_seed(0)
+    for name, (shape, seed) in sorted(DROPOUT_SHAPES.items()):
+        x = torch.randn(shape, generator=gen).to(device)
+        out, mask = dropout.cuda_dropout(x, DROPOUT_RATE, seed)
+        torch.cuda.synchronize()
+        ref, ref_mask = dropout.dropout_reference(x, DROPOUT_RATE, seed)
+        if not (torch.equal(mask.bool(), ref_mask) and torch.equal(out, ref)):
+            raise AssertionError("%s: P1 differs from its plain version"
+                                 % name)
+        print("  %-11s %-16s seed %10d: bit-identical to the plain version "
+              "(kept %.4f)" % (name, tuple(shape), seed,
+                               float(ref_mask.float().mean())))
+    masks = {}
+    for seed in (1, 2):
+        out = dropout.cuda_dropout(torch.ones(256, 256, device=device), 0.5,
+                                   seed)[0].cpu().numpy()
+        zero_frac = float((out == 0.0).mean())
+        if abs(zero_frac - 0.5) >= 0.02 or not np.all(out[out != 0.0] == 2.0):
+            raise AssertionError("seed %d: zero fraction %.4f, survivors %s"
+                                 % (seed, zero_frac, np.unique(out)))
+        masks[seed] = out != 0.0
+        print("tpu_check tile, seed %d: zero fraction %.5f (within 0.02 of "
+              "0.5), survivors all 2.0" % (seed, zero_frac))
+    differ = float((masks[1] != masks[2]).mean())
+    print("seeds 1 and 2 differ on %.4f of the cells (> 0.3)" % differ)
+    if not differ > 0.3:
+        raise AssertionError("seed divergence %.4f" % differ)
+    result = None
+    for name in ("flagship", "config6b"):
+        shape, seed = DROPOUT_SHAPES[name]
+        x = torch.randn(shape, generator=gen).to(device)
+
+        def kernel():
+            return dropout.cuda_dropout(x, DROPOUT_RATE, seed)
+
+        def plain():
+            return dropout.dropout_reference(x, DROPOUT_RATE, seed)
+
+        def library():
+            return torch.nn.functional.dropout(x, DROPOUT_RATE, training=True)
+
+        reps = 200 if name == "flagship" else 50
+        p1, k1, k2, p2 = (launch_us(f, reps) for f in (plain, kernel, kernel,
+                                                        plain))
+        lib = launch_us(library, reps)
+        dev = [device_us(f) for f in (kernel, plain, library)]
+        bound_ms, bound_by = bound(*dropout_cost(x.numel()))
+        print("P1 at %s %s: launch us (host dispatch included) kernel %.2f "
+              "(turns %.2f, %.2f), plain %.2f, F.dropout %.2f; device us "
+              "kernel %.2f, plain %.2f, F.dropout %.2f; bound %.2f us "
+              "(%s-bound), kernel's device time at %.1f%% of it"
+              % (name, tuple(shape), (k1 + k2) / 2, k1, k2, (p1 + p2) / 2,
+                 lib, dev[0], dev[1], dev[2], 1e3 * bound_ms, bound_by,
+                 100.0 * 1e3 * bound_ms / dev[0]))
+        result = dict(max_abs_err=0.0, ms=dev[0] / 1e3, plain_ms=dev[1] / 1e3,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=dev[2] / 1e3)
+    return result
+
+
+def k2_state_run(fn, net, opt, spec, xb, yb, t0=0, state=None):
+    """One epoch of ``fn`` (the kernel's wrapper or its plain version) from
+    ``state`` ((params, slots) trees, updated in place), or from fresh
+    copies of the net's weights and zero slots: (losses, leaves)."""
+    params, slots = fresh_state(net, opt) if state is None else state
+    scalars = torch.from_numpy(opt.step_scalars(t0, xb.shape[0])).to(
+        xb.device)
+    losses = fn(spec, fused_epoch.dense_leaves(net, params),
+                {k: fused_epoch.dense_leaves(net, v) for k, v in slots.items()},
+                xb, yb, scalars, t0=t0)
+    return losses.cpu().numpy(), [t.cpu().numpy().copy()
+                                  for t in leaves_of(params, slots)]
+
+
+def sign_margins(spec, run):
+    """``run()`` (a run of ``fused_epoch_reference``) with, for each
+    element, how near its rule's step came to a sign decided by rounding:
+    Lion's step is lr sign(u), u = b1 m + (1 - b1) g, and Adam's, from zero
+    slots at a large step count, ~3 lr sign(g) until sqrt(v) nears eps. An
+    element's margin is the least, over the steps, of the plain version's
+    |u| (Lion) or sqrt(v) s1 (Adam's denominator less eps) as a share of
+    the largest in its leaf at that step; a step where it is exactly 0 (no
+    gradient at all) does not count. Returns run()'s result and the margins
+    of each Dense's w and b, as trees: [{"w": ..., "b": ...}]."""
+    rule, name = fused_epoch.apply_rule, fused_epoch.OPTIMIZERS[spec.optimizer]
+    c0, c1 = spec.consts[:2]
+    shares = []
+
+    def apply(spec_, p, g, slots, s0, s1):
+        if name == "Lion":
+            size = torch.abs(c0 * slots[0] + c1 * g)
+        else:  # Adam's v as the rule updates it
+            size = torch.sqrt(slots[1] + c1 * (g * g - slots[1])) * s1
+        share = size / size.max()
+        shares.append(torch.where(size > 0, share, torch.inf))
+        rule(spec_, p, g, slots, s0, s1)
+
+    fused_epoch.apply_rule = apply
+    try:
+        out = run()
+    finally:
+        fused_epoch.apply_rule = rule
+    n = 2 * len(spec.layers)  # the rule's calls a step: each Dense's w, b
+    least = [torch.stack(shares[j::n]).amin(0).cpu().numpy()
+             for j in range(n)]
+    return out, [{"w": least[j], "b": least[j + 1]} for j in range(0, n, 2)]
+
+
+def hold_k2(what, net, opt, xb, yb, t0=0, marked=False, stepwise=False):
+    """K2 against its plain version over the batches of xb: losses and the
+    state at K2's gates, and a rerun bit-identical. With ``marked`` (Lion,
+    Adam from zero slots at a large step count) the state is held but at
+    the elements whose ``sign_margins`` margin is under SIGN_MARGIN: there
+    the kernel's and cuBLAS's summation orders can give a step of the other
+    sign. With ``stepwise`` each step is held on its own, the kernel and
+    the plain version both starting from the plain version's state after
+    the step before (Lion: a weight moved 2 lr changes every later
+    gradient, and the losses part after a few steps). Printed with
+    ``marked``: how many were left out, their largest difference, and the
+    largest margin of an element past STATE_TOL. Returns the max abs
+    error."""
+    spec = fused_epoch.epoch_spec(net, opt)
+    plain_state = fresh_state(net, opt) if stepwise else None
+    spans = ([(t0 + i, xb[i:i + 1], yb[i:i + 1]) for i in range(len(xb))]
+             if stepwise else [(t0, xb, yb)])
+    worst, left, left_diff, n_past, past_margin = 0.0, 0, 0.0, 0, 0.0
+    checks = []
+    for t, x, y in spans:
+        got, got_state = k2_state_run(
+            fused_epoch.cuda_fused_epoch, net, opt, spec, x, y, t,
+            None if plain_state is None else clone_state(*plain_state))
+
+        def plain():
+            return k2_state_run(fused_epoch.fused_epoch_reference, net, opt,
+                                spec, x, y, t, plain_state)
+
+        if marked:
+            (want, want_state), margins = sign_margins(spec, plain)
+            margins = leaves_of(margins, {k: margins for k in opt.slot_names})
+        else:
+            want, want_state = plain()
+            margins = [np.full(a.shape, np.inf) for a in got_state]
+        masks = [m < SIGN_MARGIN for m in margins]
+        past = [np.abs(a - b) > STATE_TOL["atol"] + STATE_TOL["rtol"]
+                * np.abs(b) for a, b in zip(got_state, want_state)]
+        left += sum(int(m.sum()) for m in masks[:2 * len(spec.layers)])
+        left_diff = max([left_diff] + [
+            float(np.max(np.abs(a - b)[m], initial=0.0))
+            for a, b, m in zip(got_state, want_state, masks)])
+        n_past += sum(int(p.sum()) for p in past)
+        past_margin = max([past_margin] + [
+            float(np.max(m[p], initial=0.0)) for m, p in zip(margins, past)])
+        checks.append((" at step %d" % t if stepwise else "", got, want,
+                       got_state, want_state, masks))
+    if marked:
+        print("  %s: %d of %d parameters%s (and their slots) left out of "
+              "the state hold (margin under %.3g), their largest difference "
+              "%.3g; %d elements past the state gate, their margins %.3g at "
+              "most" % (what, left, len(spans) * sum(
+                  int(np.prod(w.shape)) + int(np.prod(b.shape))
+                  for w, b in fused_epoch.dense_leaves(
+                      net, net.params_tree())),
+                        " x steps" if stepwise else "", SIGN_MARGIN,
+                        left_diff, n_past, past_margin))
+    for at, got, want, got_state, want_state, masks in checks:
+        np.testing.assert_allclose(got, want, err_msg=what + " losses" + at,
+                                   **LOSS_TOL)
+        worst = max(worst, float(np.max(np.abs(got - want))))
+        for i, (a, b, mask) in enumerate(zip(got_state, want_state, masks)):
+            np.testing.assert_allclose(
+                a[~mask], b[~mask], err_msg="%s state leaf %d%s"
+                % (what, i, at), **STATE_TOL)
+            worst = max(worst, float(np.max(np.abs(a - b)[~mask])))
+    first, again = (k2_state_run(fused_epoch.cuda_fused_epoch, net, opt,
+                                 spec, xb, yb, t0) for _ in range(2))
+    if not (np.array_equal(first[0], again[0]) and all(
+            np.array_equal(a, b) for a, b in zip(first[1], again[1]))):
+        raise AssertionError("%s: two runs from the same state differ" % what)
+    return worst
+
+
+def parity_batches(device, n, seed=PARITY_DATA_SEED):
+    (x, y), _ = synthetic_mnist(n * BATCH, 10, seed=seed)
+    return (torch.from_numpy(x).to(device).reshape(n, BATCH, 784),
+            torch.from_numpy(one_hot(y)).to(device).reshape(n, BATCH, 10))
+
+
+def check_k2_dropout(device):
+    """K2 on the flagship with Dropout(0.3) after the two first ReLUs: against
+    its plain version over a 10-step epoch from pinned seed-1 weights (from
+    step 0 and from step 3000, where the seeds pass the int32 wrap), reruns
+    bit-identical; both timed over a 390-step epoch; the step loop's launches
+    and its losses against K2's over 5 steps; then tpu_check.py's run, rate
+    0.0 against 0.3 through fused="auto". Returns the max abs error, the
+    kernel's ms per epoch, and the launch counts of the main-path runs."""
+    with seeder.scope(1):
+        net = dropout_flagship(DROPOUT_RATE).to(device)
+    opt = Adam(1e-3)
+    xb, yb = parity_batches(device, 10)
+    worst = 0.0
+    # from step 3000 the seeds pass the int32 wrap; there, from zero slots,
+    # Adam's steps are ~3 lr signs of the gradients (the bias corrections
+    # are ~1): its hold leaves out the elements sign_margins marks
+    for t0, step_opt in ((0, opt), (3000, SGD(0.03)), (3000, Adam(1e-3))):
+        name = "K2 with Dropout, 10 steps from step %d (%s)" % (
+            t0, type(step_opt).__name__)
+        err = hold_k2(name, net, step_opt, xb, yb, t0,
+                      marked=t0 > 0 and isinstance(step_opt, Adam))
+        worst = max(worst, err)
+        print("%s: max abs err over losses and state %.3g (tol losses rtol "
+              "1e-5 atol 1e-6, state rtol 1e-4 atol 1e-5); rerun "
+              "bit-identical" % (name, err))
+    spec = fused_epoch.epoch_spec(net, opt)
+    (x, y), _ = synthetic_mnist(EPOCH_STEPS * BATCH, 10)
+    xe = torch.from_numpy(x).to(device).reshape(EPOCH_STEPS, BATCH, 784)
+    ye = torch.from_numpy(one_hot(y)).to(device).reshape(EPOCH_STEPS, BATCH,
+                                                           10)
+    se_ = torch.from_numpy(opt.step_scalars(0, EPOCH_STEPS)).to(device)
+    params, slots = fresh_state(net, opt)
+    pairs = (fused_epoch.dense_leaves(net, params),
+             {k: fused_epoch.dense_leaves(net, v) for k, v in slots.items()})
+
+    def kernel():
+        fused_epoch.cuda_fused_epoch(spec, *pairs, xe, ye, se_)
+
+    def plain():
+        fused_epoch.fused_epoch_reference(spec, *pairs, xe, ye, se_)
+
+    kernel()
+    p1, k1, k2, p2 = (epoch_ms(plain, 1), epoch_ms(kernel, 3),
+                      epoch_ms(kernel, 3), epoch_ms(plain, 1))
+    ms = (k1 + k2) / 2
+    print("a %d-step epoch with Dropout: kernel %.3f ms (%.2f us/step; turns "
+          "%.3f, %.3f), plain %.1f ms (turns %.1f, %.1f)"
+          % (EPOCH_STEPS, ms, 1e3 * ms / EPOCH_STEPS, k1, k2,
+             (p1 + p2) / 2, p1, p2))
+
+    # the step loop: 14 K1 and 2 P1 launches a step, the losses of K2's
+    # steps, since the masks are the same
+    n = 5
+    xs = xb[:n].reshape(n * BATCH, 784)
+    ys = yb[:n].reshape(n * BATCH, 10)
+    models = []
+    for _ in range(2):
+        model = Model(dropout_flagship(DROPOUT_RATE), SoftmaxCrossEntropyLoss(),
+                      Adam(1e-3), device=device)
+        model.net.set_parameters([{k: v.clone() for k, v in d.items()}
+                                  for d in net.params_tree()])
+        models.append(model)
+    l_k2 = models[0].train_epoch(xs, ys, batch_size=BATCH, shuffle=False,
+                                 fused=True).cpu().numpy()
+    zero_counts()
+    l_loop = models[1].train_epoch(xs, ys, batch_size=BATCH, shuffle=False,
+                                   fused=False).cpu().numpy()
+    loop_counts = launch_counts()
+    print("step loop, %d steps: launches %s (expected 14 K1 and 2 P1 a step); "
+          "losses %s, K2's %s, max abs difference %.3g (tol rtol 1e-5 atol "
+          "1e-6)" % (n, {k: v for k, v in loop_counts.items() if v},
+                     np.array2string(l_loop, precision=6),
+                     np.array2string(l_k2, precision=6),
+                     float(np.max(np.abs(l_loop - l_k2)))))
+    if loop_counts != only(matmul=14 * n, dropout=2 * n):
+        raise AssertionError("step loop launches %s" % loop_counts)
+    np.testing.assert_allclose(l_loop, l_k2, err_msg="step loop vs K2",
+                               **LOSS_TOL)
+
+    # tpu_check.py:74-120: rate 0.0 against 0.3, 5 epochs through
+    # fused="auto", synthetic_mnist(12800, 2000), Adam 1e-3
+    (tx, ty), (ex, ey) = synthetic_mnist(12800, 2000)
+    traces, k2_counts = {}, None
+    for rate in (0.0, 0.3):
+        seeder.random_seed(0)
+        net_r = Net([Dense(200, num_in=784), ReLU(), Dropout(rate),
+                     Dense(100, num_in=200), ReLU(), Dropout(rate),
+                     Dense(10, num_in=100)])
+        model = Model(net_r, SoftmaxCrossEntropyLoss(), Adam(1e-3),
+                      device=device)
+        x_dev, y_dev = model.stage(tx, one_hot(ty))
+        torch.cuda.synchronize()
+        zero_counts()
+        trace = model.train_epochs(x_dev, y_dev, n_epochs=5,
+                                   batch_size=BATCH).cpu().numpy()
+        counts = launch_counts()
+        if rate:
+            k2_counts = counts
+        acc = model.evaluate_batch(ex, ey, AccEvaluator)["accuracy"]
+        print("tpu_check run, rate %.1f: loss %.4f -> %.4f over 5 epochs of "
+              "%d steps; accuracy %.4f; launches %s"
+              % (rate, trace[0, 0], trace[-1, -1], trace.shape[1], acc,
+                 {k: v for k, v in counts.items() if v}))
+        if counts != only(fused_epoch=5):
+            raise AssertionError("rate %.1f: launches %s, expected 1 K2 an "
+                                 "epoch and nothing else" % (rate, counts))
+        if not (np.all(np.isfinite(trace))
+                and trace[-1, -1] < 0.5 * trace[0, 0]):
+            raise AssertionError("rate %.1f: losses %s -> %s"
+                                 % (rate, trace[0, 0], trace[-1, -1]))
+        traces[rate] = trace
+    if np.allclose(traces[0.0], traces[0.3]):
+        raise AssertionError("dropout had no effect inside K2")
+    print("rate 0.3 trains differently from rate 0.0 (max abs loss "
+          "difference %.3g)" % float(np.max(np.abs(traces[0.3]
+                                                     - traces[0.0]))))
+    return worst, ms, loop_counts, k2_counts
+
+
+def sweep_optimizers():
+    """examples/mnist/optimizer_sweep.py's table at lr 1e-3, a schedule and
+    clip_norm."""
+    return {"sgd": SGD(lr=0.03), "momentum": Momentum(lr=0.01, momentum=0.9),
+            "adam": Adam(lr=1e-3), "rmsprop": RMSProp(lr=1e-3),
+            "adagrad": Adagrad(lr=3e-3), "adadelta": Adadelta(lr=1.0),
+            "lion": Lion(lr=1e-4),
+            "adam_warmup_cosine": Adam(lr=WarmupCosineLR(
+                1e-3, warmup_steps=100, decay_steps=EPOCH_STEPS)),
+            "adam_clip_norm": Adam(lr=1e-3, clip_norm=1.0)}
+
+
+def check_sweep(device):
+    """Each rule of the sweep: K2 against its plain version over the 10
+    pinned parity steps of the flagship with Dropout (K2's gates, Lion's
+    state but at the elements ``sign_margins`` marks, rerun bit-identical);
+    then, on the flagship, one epoch through ``fused="auto"`` and a second
+    timed by CUDA events, one K2 launch each (counted over both). The first
+    epoch's losses are held to the plain version's over the same epoch for
+    SWEEP_HELD_STEPS steps at K2's loss gate; its gap over the whole epoch
+    is printed beside the gap between two runs of the plain version, on the
+    card and on the CPU (two other summation orders). Last, one
+    ``fused=False`` epoch from the same weights. Returns the max abs error,
+    the K2 launch count, and each rule's (K2 steps/s, step-loop steps/s, K2
+    ms an epoch by events)."""
+    # the pinned parity weights, with the two Dropout layers: where a ReLU
+    # unit's input is within rounding of 0 the two summation orders can
+    # leave it active in one run only, and the larger steps of SGD 0.03 and
+    # Momentum move units near 0 more often than Adam 1e-3 does; these
+    # weights and data have no such unit over the 10 steps for any rule
+    with seeder.scope(1):
+        pinned = dropout_flagship(DROPOUT_RATE).to(device)
+    xb, yb = parity_batches(device, 10)
+    lion_batches = parity_batches(device, 10, LION_DATA_SEED)
+    seeder.random_seed(0)
+    (train_x, train_y), _ = synthetic_mnist()
+    with seeder.scope(0):
+        start = build_mnist_mlp()
+    worst, k2_launches, rates = 0.0, 0, {}
+    for name, opt in sweep_optimizers().items():
+        lion = name == "lion"
+        batches = lion_batches if lion else (xb, yb)
+        err = hold_k2(name, pinned, opt, *batches, marked=lion, stepwise=lion)
+        worst = max(worst, err)
+        models = []
+        for _ in range(2):
+            model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(),
+                          sweep_optimizers()[name], device=device)
+            model.net.set_parameters([{k: v.clone() for k, v in d.items()}
+                                      for d in start.params_tree()])
+            models.append(model)
+        x_dev, y_dev = models[0].stage(train_x, one_hot(train_y))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        l_k2 = models[0].train_epoch(x_dev, y_dev, batch_size=BATCH,
+                                     shuffle=False).cpu().numpy()
+        k2_s = time.perf_counter() - t0
+        # a second epoch, between CUDA events: K2's time an epoch
+        k2_ms = epoch_ms(lambda: models[0].train_epoch(
+            x_dev, y_dev, batch_size=BATCH, shuffle=False), 1)
+        counts = launch_counts()
+        if counts != only(fused_epoch=2):
+            raise AssertionError("%s: two fused='auto' epochs launched %s"
+                                 % (name, counts))
+        k2_launches += counts["fused_epoch"]
+        n_steps = len(l_k2)
+        xe = x_dev[:n_steps * BATCH].reshape(n_steps, BATCH, 784)
+        ye = y_dev[:n_steps * BATCH].reshape(n_steps, BATCH, 10)
+        # the plain version over the same epoch from the same weights, on
+        # the card and on the CPU
+        l_plain = {}
+        for where in (device, torch.device("cpu")):
+            net_p = build_mnist_mlp().to(where)
+            net_p.set_parameters([{k: v.clone().to(where)
+                                   for k, v in d.items()}
+                                  for d in start.params_tree()])
+            opt_p = sweep_optimizers()[name]
+            l_plain[where.type] = k2_state_run(
+                fused_epoch.fused_epoch_reference, net_p, opt_p,
+                fused_epoch.epoch_spec(net_p, opt_p),
+                xe.to(where).contiguous(), ye.to(where).contiguous())[0]
+        np.testing.assert_allclose(
+            l_k2[:SWEEP_HELD_STEPS], l_plain["cuda"][:SWEEP_HELD_STEPS],
+            err_msg="%s: the main path's epoch against the plain version"
+            % name, **LOSS_TOL)
+        gap = np.abs(l_k2 - l_plain["cuda"])
+        witness = np.abs(l_plain["cpu"] - l_plain["cuda"])
+        worst = max(worst, float(gap[:SWEEP_HELD_STEPS].max()))
+        t0 = time.perf_counter()
+        l_loop = models[1].train_epoch(x_dev, y_dev, batch_size=BATCH,
+                                       shuffle=False, fused=False)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        rates[name] = (n_steps / k2_s, n_steps / loop_s, k2_ms)
+        print("  %-19s pinned steps: max abs err %.3g; epoch of %d steps: K2 "
+              "%.1f steps/s (epoch 2 %.3f ms by events), fused=False %.1f "
+              "steps/s (%.1fx); losses over the epoch, max abs diff over "
+              "steps 0-%d (held, rtol 1e-5 atol 1e-6) / 0-99 / all: K2 vs "
+              "plain %.3g / %.3g / %.3g, plain on the card vs on the CPU "
+              "%.3g / %.3g / %.3g; last losses K2 %.5f, plain %.5f, plain "
+              "on the CPU %.5f, step loop %.5f"
+              % (name, err, n_steps, rates[name][0], k2_ms,
+                 rates[name][1], rates[name][0] / rates[name][1],
+                 SWEEP_HELD_STEPS - 1, gap[:SWEEP_HELD_STEPS].max(),
+                 gap[:100].max(), gap.max(),
+                 witness[:SWEEP_HELD_STEPS].max(), witness[:100].max(),
+                 witness.max(), l_k2[-1], l_plain["cuda"][-1],
+                 l_plain["cpu"][-1], float(l_loop[-1])))
+        if not (np.isfinite(l_k2).all() and torch.isfinite(l_loop).all()):
+            raise AssertionError("%s: non-finite loss" % name)
+    return worst, k2_launches, rates
+
+
+def check_mega_probe(device, k2_optimizer_us):
+    """P2 against ``mega_probe_reference`` after 100 steps (rtol 1e-5) for
+    each of the seven rules; then bench_mega_probe_torch.py's four timings
+    (N_STEPS steps a launch, the median of three) with their bounds, beside
+    K2's optimizer phase and torch.optim.Adam(fused=True)'s step. Returns
+    the launch counts of the timed runs and the kernels-line numbers (Adam,
+    per step)."""
+    worst = 0.0
+    for name in ("SGD", "Momentum", "RMSProp", "Adam", "Adagrad", "Adadelta",
+                 "Lion"):
+        opt = {"SGD": SGD, "Momentum": Momentum, "RMSProp": RMSProp,
+               "Adam": Adam, "Adagrad": Adagrad, "Adadelta": Adadelta,
+               "Lion": Lion}[name](lr=1e-3)
+        (kp, ks), (rp, rs) = (probe_bench.start_state(opt, device)
+                              for _ in range(2))
+        mega_probe.cuda_mega_probe(opt, kp, ks, 1, 100)
+        torch.cuda.synchronize()
+        mega_probe.mega_probe_reference(opt, rp, rs, 1, 100)
+        pairs = list(zip(kp, rp)) + [pair for n in opt.slot_names
+                                     for pair in zip(ks[n], rs[n])]
+        err = 0.0
+        for i, (a, b) in enumerate(pairs):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9,
+                                       err_msg="%s leaf %d" % (name, i))
+            err = max(err, float(np.max(np.abs(a - b))))
+        worst = max(worst, err)
+        print("  %-9s 100 steps: max abs err %.3g (tol rtol 1e-5 atol 1e-9)"
+              % (name, err))
+    zero_counts()
+    out, adam = {}, None
+    for name, make in probe_bench.PROBES:
+        opt = make()
+        us = probe_bench.time_probe(opt, device, probe_bench.N_STEPS,
+                                    probe_bench.REPEATS)
+        n_bytes = probe_bench.bytes_per_step(opt)
+        # at most 12 f32 operations an element (Adam's rule)
+        bound_ms, bound_by = bound(12.0 * n_bytes / 8, n_bytes)
+        out[name] = us
+        print("  mega_opt_%s_us_per_step %.4f; bound %.4f us (%s-bound, %.2f "
+              "MB a step); at %.1f%% of it"
+              % (name, us, 1e3 * bound_ms, bound_by, n_bytes / 1e6,
+                 100.0 * 1e3 * bound_ms / us))
+        if name == "adam":
+            adam = (us, bound_ms, bound_by, opt)
+    counts = launch_counts()
+    for name in ("momentum", "rmsprop", "adam"):
+        print("  mega_opt_%s_delta_vs_sgd_us %.4f"
+              % (name, out[name] - out["sgd"]))
+    print("K2's optimizer phase with Adam (block 0's clock, barrier "
+          "included): %.2f us/step; the probe's Adam step %.2f us"
+          % (k2_optimizer_us, out["adam"]))
+    # the plain version's step, and torch.optim.Adam(fused=True)'s: one call
+    # that computes the same update (gradients set to 1e-3 p beforehand)
+    us, bound_ms, bound_by, opt = adam
+    params, slots = probe_bench.start_state(opt, device)
+    plain_us = launch_us(lambda: mega_probe.mega_probe_reference(
+        opt, params, slots, 1, 1), reps=50)
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    for p in leaves:
+        p.grad = 1e-3 * p.detach()
+    torch_adam = torch.optim.Adam(leaves, lr=1e-3, fused=True)
+    lib_us = launch_us(torch_adam.step, reps=200)
+    print("Adam step: probe kernel %.3f us (CUDA events over %d steps in one "
+          "launch), plain version %.1f us and "
+          "torch.optim.Adam(fused=True).step %.2f us (back to back, host "
+          "dispatch included)" % (us, probe_bench.N_STEPS, plain_us, lib_us))
+    return counts, dict(max_abs_err=worst, ms=us / 1e3, plain_ms=plain_us / 1e3,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=lib_us / 1e3)
+
+
+def run_transformer_dropout(device):
+    """Config 6b with dropout=0.1 and attn_dropout=0.1 for one epoch from
+    seed 0: per step P1 twice a block (the residual sites; the attention
+    probabilities drop inside K4 and K4d), each attention kernel once a
+    block, K1 three times. Returns the launch counts and the steps/s."""
+    tx, ty, _, _ = transformer_data()
+    with seeder.scope(0):
+        net = build_tiny_transformer(dropout=0.1, attn_dropout=0.1,
+                                     **TRANSFORMER)
+    model = Model(net, SoftmaxCrossEntropyLoss(), Adam(1e-3), device=device)
+    x_dev, y_dev = model.stage(tx, ty)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = model.train_epoch(x_dev, y_dev, batch_size=T_BATCH)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = int(losses.shape[0])
+    depth = TRANSFORMER["depth"]
+    print("6b with dropout 0.1 and attn_dropout 0.1: %d steps in %.3f s = "
+          "%.2f steps/s; losses %.5f -> %.5f; "
+          "launches %s" % (steps, epoch_s, steps / epoch_s, float(losses[0]),
+                           float(losses[-1]),
+                           {k: v for k, v in counts.items() if v}))
+    want = only(attention_forward=depth * steps,
+                attention_backward_dq=depth * steps,
+                attention_backward_dkv=depth * steps,
+                matmul=3 * steps, dropout=2 * depth * steps)
+    if counts != want:
+        raise AssertionError("launch counts %s, expected %s" % (counts, want))
+    if not torch.isfinite(losses).all():
+        raise AssertionError("non-finite loss")
+    return counts, steps / epoch_s
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -2027,7 +2699,7 @@ def main():
 
     phase("build")
     names = ("matmul", "fused_epoch", "streaming_epoch", "attention",
-             "recurrent")
+             "recurrent", "dropout", "mega_probe")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
@@ -2055,8 +2727,20 @@ def main():
              100.0 * k1_bound_ms / k1_ms))
 
     phase("fused epoch vs plain")
-    k2_err, k2_ms, k2_plain_ms, spec = check_fused_epoch(device)
+    k2_err, k2_ms, k2_plain_ms, spec, k2_opt_us = check_fused_epoch(device)
     k2_bound_ms, k2_bound_by = bound(*epoch_cost(spec, EPOCH_STEPS, BATCH))
+
+    phase("dropout pass vs plain")
+    p1 = check_dropout(device)
+
+    phase("K2 with Dropout")
+    k2d_err, _, loop_counts, k2d_counts = check_k2_dropout(device)
+
+    phase("K2 optimizer sweep")
+    sweep_err, sweep_launches, _ = check_sweep(device)
+
+    phase("optimizer probe vs plain")
+    probe_counts, p2 = check_mega_probe(device, k2_opt_us)
 
     phase("stream kernels vs plain")
     stream = check_stream_kernels(device)
@@ -2090,6 +2774,9 @@ def main():
           "attn='tape' %.2f steps/s, fused/tape %.2f"
           % (t_rate, tape_rate, t_rate / tape_rate))
 
+    phase("transformer slice with dropout")
+    td_counts, _ = run_transformer_dropout(device)
+
     phase("recurrent kernels vs plain")
     rec = check_recurrent(device)
 
@@ -2113,7 +2800,8 @@ def main():
          "replaces": "tinynn_autograd_tpu/ops/kernels.py:122",
          "launches": (f_launches["matmul"] + s_launches["matmul"]
                       + deep_launches["matmul"] + t_launches["matmul"]
-                      + r_launches["matmul"]),
+                      + r_launches["matmul"] + loop_counts["matmul"]
+                      + td_counts["matmul"]),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
          "library_ms": k1_plain_ms},
@@ -2121,8 +2809,10 @@ def main():
          "source": "tinynn_autograd_tpu_torch/csrc/fused_epoch.cu",
          "replaces": "tinynn_autograd_tpu/ops/fused_epoch.py:159",
          "launches": (f_launches["fused_epoch"] + s_launches["fused_epoch"]
-                      + deep_launches["fused_epoch"]),
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+                      + deep_launches["fused_epoch"]
+                      + k2d_counts["fused_epoch"] + sweep_launches),
+         "max_abs_err": max(k2_err, k2d_err, sweep_err), "ms": k2_ms,
+         "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound_ms, "bound_by": k2_bound_by,
          "library_ms": None}] + [
         dict({"name": name, "route": "cuda",
@@ -2136,7 +2826,7 @@ def main():
         dict({"name": name, "route": "cuda",
               "source": "tinynn_autograd_tpu_torch/csrc/attention.cu",
               "replaces": "tinynn_autograd_tpu/ops/attention.py:%d" % line,
-              "launches": t_launches[name]}, **attn[name])
+              "launches": t_launches[name] + td_counts[name]}, **attn[name])
         for name, line in (("attention_forward", 250),
                            ("attention_backward_dq", 650),
                            ("attention_backward_dkv", 690))] + [
@@ -2147,7 +2837,16 @@ def main():
               "launches": r_launches[name]},
              **{k: v for k, v in rec[name].items() if k != "port_layer_ms"})
         for name, line in (("lstm_forward", 71), ("lstm_backward", 137),
-                           ("gru_forward", 226), ("gru_backward", 288))]}))
+                           ("gru_forward", 226), ("gru_backward", 288))] + [
+        dict({"name": "dropout", "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/dropout.cu",
+              "replaces": "tpu_check.py:30",
+              "launches": loop_counts["dropout"] + td_counts["dropout"]},
+             **p1),
+        dict({"name": "mega_probe", "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/mega_probe.cu",
+              "replaces": "bench_mega_probe.py:36",
+              "launches": probe_counts["mega_probe"]}, **p2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: the matmul (K1), the whole-epoch kernel
-(K2), the weight-streaming kernels (K3, K3b) and the flash-attention kernels
-(K4's forward, K4b-d's dq and dk/dv). Tests marked ``cuda``; they skip
-without a CUDA device, since the kernels have no CPU mode.
+(K2, with Dropout and the seven optimizer rules), the weight-streaming
+kernels (K3, K3b), the flash-attention kernels (K4's forward, K4b-d's dq and
+dk/dv), the recurrent kernels (K5-K5d), the dropout pass (P1) and the
+optimizer-only probe (P2). Tests marked ``cuda``; they skip without a CUDA
+device, since the kernels have no CPU mode.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -650,3 +652,262 @@ def test_cuda_rnn_step_launches_the_recurrent_kernels(cell):
     assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 20, 0, 0,
                                                              0]
     assert losses.shape == (2,) and torch.isfinite(losses).all()
+
+
+# --------------------------------------------------------------------------
+# P1 (the dropout pass), K2 with Dropout and the seven rules, P2 (the
+# optimizer-only probe)
+# --------------------------------------------------------------------------
+
+# (shape, seed): tpu_check's tile for seeds 1 and 2, the flagship's first
+# Dropout, a 6b residual site with a seed past the int32 wrap, a ragged one
+DROPOUT_SHAPES = {"tile_seed1": ((256, 256), 1), "tile_seed2": ((256, 256), 2),
+                  "flagship": ((128, 200), 7),
+                  "config6b": ((4, 2048, 512), 3000 * 1000003 + 1),
+                  "ragged": ((3, 7, 5), -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DROPOUT_SHAPES))
+def test_cuda_dropout_matches_reference_bit_for_bit(name):
+    from tinynn_autograd_tpu_torch.ops import dropout
+
+    dev = _cuda()
+    shape, seed = DROPOUT_SHAPES[name]
+    x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(
+        np.float32)).to(dev)
+    before = dropout.cuda_dropout.launches
+    out, mask = dropout.cuda_dropout(x, 0.3, seed)
+    torch.cuda.synchronize()
+    assert dropout.cuda_dropout.launches == before + 1
+    ref, ref_mask = dropout.dropout_reference(x, 0.3, seed)
+    assert mask.dtype == torch.uint8
+    assert torch.equal(mask.bool(), ref_mask)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_dropout_meets_the_tpu_check_statistics():
+    from tinynn_autograd_tpu_torch.ops import dropout
+
+    dev = _cuda()
+    masks = {}
+    for seed in (1, 2):
+        out = dropout.cuda_dropout(torch.ones(256, 256, device=dev), 0.5,
+                                   seed)[0].cpu().numpy()
+        assert abs(float((out == 0.0).mean()) - 0.5) < 0.02
+        assert np.all(out[out != 0.0] == 2.0)
+        masks[seed] = out != 0.0
+    assert float((masks[1] != masks[2]).mean()) > 0.3
+
+
+def _dropout_flagship(rate=0.3):
+    """The flagship widths with Dropout(rate) after the two first ReLUs."""
+    from tinynn_autograd_tpu_torch.nn.layers import Dense, Dropout, ReLU
+    from tinynn_autograd_tpu_torch.nn.net import Net
+
+    widths = [784, 200, 100, 70, 30, 10]
+    layer_list = []
+    for i, (d_in, d_out) in enumerate(zip(widths, widths[1:])):
+        layer_list.append(Dense(d_out, num_in=d_in))
+        if i < 4:
+            layer_list.append(ReLU())
+        if i < 2:
+            layer_list.append(Dropout(rate))
+    return Net(layer_list)
+
+
+# the sweep's rules (examples/mnist/optimizer_sweep.py's lrs at 1e-3), a
+# schedule, clip_norm, and SGD and Adam from step 3000, where the Dropout
+# seeds pass the int32 wrap
+RULE_CASES = {
+    "sgd": lambda o, s: o.SGD(lr=0.03),
+    "momentum": lambda o, s: o.Momentum(lr=0.01, momentum=0.9),
+    "adam": lambda o, s: o.Adam(lr=1e-3),
+    "rmsprop": lambda o, s: o.RMSProp(lr=1e-3),
+    "adagrad": lambda o, s: o.Adagrad(lr=3e-3),
+    "adadelta": lambda o, s: o.Adadelta(lr=1.0),
+    "lion": lambda o, s: o.Lion(lr=1e-4, weight_decay=1e-2),
+    "adam_schedule": lambda o, s: o.Adam(lr=s.WarmupCosineLR(
+        1e-3, warmup_steps=3, decay_steps=10)),
+    "adam_clip_norm": lambda o, s: o.Adam(lr=1e-3, clip_norm=0.5),
+    "sgd_t0_3000": lambda o, s: o.SGD(lr=0.03),
+    "adam_t0_3000": lambda o, s: o.Adam(lr=1e-3)}
+# Lion's step is lr sign(u) whatever |u| is, and Adam's from zero slots at
+# t = 3000 ~3 lr sign(g) until sqrt(v) nears eps: where u (or sqrt(v)) is
+# within rounding of 0, the kernel's and cuBLAS's summation orders give steps
+# 2 lr apart. Their state is held but at the elements whose plain-version u
+# (or sqrt(v) s1) came, at some step, under this share of its leaf's largest
+# (chip_smoke.py's SIGN_MARGIN and sign_margins).
+SIGN_MARGIN = 2.0 ** -16
+SIGN_MARKED = ("lion", "adam_t0_3000")
+
+
+def _sign_marked(monkeypatch, spec, run):
+    """``run()`` (a run of the plain version) and, for each Dense's w and b
+    in order, the elements whose step its rule decided by a sign within
+    rounding (see SIGN_MARGIN)."""
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    rule, name = fused_epoch.apply_rule, fused_epoch.OPTIMIZERS[spec.optimizer]
+    c0, c1 = spec.consts[:2]
+    marked = []
+
+    def apply(spec_, p, g, slots, s0, s1):
+        size = (torch.abs(c0 * slots[0] + c1 * g) if name == "Lion" else
+                torch.sqrt(slots[1] + c1 * (g * g - slots[1])) * s1)
+        marked.append((size > 0) & (size < SIGN_MARGIN * size.max()))
+        rule(spec_, p, g, slots, s0, s1)
+
+    with monkeypatch.context() as m:
+        m.setattr(fused_epoch, "apply_rule", apply)
+        out = run()
+    n = 2 * len(spec.layers)
+    return out, [torch.stack(marked[j::n]).any(0).cpu().numpy()
+                 for j in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RULE_CASES))
+def test_cuda_fused_epoch_dropout_and_rules_match_reference(case,
+                                                            monkeypatch):
+    from tinynn_autograd_tpu_torch.nn import optimizer, scheduler
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.utils import datasets, seeder
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with seeder.scope(1):
+        net = _dropout_flagship()
+    net.to(dev)
+    opt = RULE_CASES[case](optimizer, scheduler)
+    t0 = 3000 if case.endswith("t0_3000") else 0
+    n_steps = 10
+    # Lion runs on data seed 4 (chip_smoke.py's LION_DATA_SEED: no ReLU
+    # input within rounding of 0 over the 10 steps)
+    (x, y), _ = datasets.synthetic_mnist(n_steps * 128, 10,
+                                         seed=4 if case == "lion" else 5)
+    xb = torch.from_numpy(x).to(dev).reshape(n_steps, 128, 784)
+    yb = torch.from_numpy(datasets.one_hot(y)).to(dev).reshape(n_steps, 128,
+                                                               10)
+    spec = fused_epoch.epoch_spec(net, opt)
+    scalars = torch.from_numpy(opt.step_scalars(t0, n_steps)).to(dev)
+
+    def fresh():
+        params = [{k: v.clone() for k, v in d.items()}
+                  for d in net.params_tree()]
+        return params, opt.init_state(params)["slots"]
+
+    def run(fn, state=None, step=None):
+        """fn over the 10 steps from fresh state, or over one step from
+        ``state`` (updated in place)"""
+        params, slots = fresh() if state is None else state
+        pairs = (fused_epoch.dense_leaves(net, params),
+                 {k: fused_epoch.dense_leaves(net, v)
+                  for k, v in slots.items()})
+        span = slice(None) if step is None else slice(step, step + 1)
+        losses = fn(spec, *pairs, xb[span], yb[span], scalars[span],
+                    t0=t0 + (step or 0))
+        torch.cuda.synchronize()
+        leaves = [t for pair in pairs[0] for t in pair] + [
+            t for k in sorted(pairs[1]) for pair in pairs[1][k] for t in pair]
+        return losses.cpu().numpy(), [t.cpu().numpy() for t in leaves]
+
+    def copy(state):
+        params, slots = state
+        return ([{k: v.clone() for k, v in d.items()} for d in params],
+                {n: [{k: v.clone() for k, v in d.items()} for d in tree]
+                 for n, tree in slots.items()})
+
+    before = fused_epoch.cuda_fused_epoch.launches
+    got, got_state = run(fused_epoch.cuda_fused_epoch)
+    assert fused_epoch.cuda_fused_epoch.launches == before + 1
+    if case == "lion":
+        # a weight moved 2 lr changes every later gradient and the losses
+        # part after a few steps: each step is held on its own, from the
+        # plain version's state after the step before
+        plain = fresh()
+        spans = []
+        for step in range(n_steps):
+            kernel_out = run(fused_epoch.cuda_fused_epoch, copy(plain), step)
+            plain_out, masks = _sign_marked(monkeypatch, spec, lambda: run(
+                fused_epoch.fused_epoch_reference, plain, step))
+            spans.append((kernel_out, plain_out, masks))
+    elif case in SIGN_MARKED:
+        plain_out, masks = _sign_marked(
+            monkeypatch, spec, lambda: run(fused_epoch.fused_epoch_reference))
+        spans = [((got, got_state), plain_out, masks)]
+    else:
+        spans = [((got, got_state), run(fused_epoch.fused_epoch_reference),
+                  [np.zeros(a.shape, bool) for a in got_state])]
+    n_params = sum(a.size for a in got_state[:2 * len(spec.layers)])
+    n_left = 0
+    for step, ((k_loss, k_state), (p_loss, p_state), masks) in enumerate(
+            spans):
+        np.testing.assert_allclose(k_loss, p_loss, rtol=1e-5, atol=1e-6)
+        if len(masks) < len(k_state):  # a mask for each Dense's w and b
+            n_left += sum(int(m.sum()) for m in masks)
+            masks = masks * (1 + len(opt.slot_names))
+        for i, (a, b, mask) in enumerate(zip(k_state, p_state, masks)):
+            np.testing.assert_allclose(a[~mask], b[~mask], rtol=1e-4,
+                                       atol=1e-5, err_msg="state leaf %d, "
+                                       "span %d" % (i, step))
+    # the left-out elements are few: under 1% of the parameters a span
+    assert n_left < 0.01 * len(spans) * n_params
+    again, again_state = run(fused_epoch.cuda_fused_epoch)
+    assert np.array_equal(got, again)
+    assert all(np.array_equal(a, b) for a, b in zip(got_state, again_state))
+
+
+@pytest.mark.cuda
+def test_cuda_dropout_mlp_launches_per_path():
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import dropout, fused_epoch
+
+    dev = _cuda()
+    rng = np.random.RandomState(0)
+    x = rng.rand(4 * 128, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 4 * 128)]
+    fns = (kernels.cuda_matmul, dropout.cuda_dropout,
+           fused_epoch.cuda_fused_epoch)
+    for fused, per_epoch in (("auto", [0, 0, 1]), (False, [4 * 14, 4 * 2, 0])):
+        model = Model(_dropout_flagship(), SoftmaxCrossEntropyLoss(),
+                      Adam(1e-3), device=dev)
+        before = [f.launches for f in fns]
+        losses = model.train_epoch(x, y, batch_size=128, fused=fused)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(fns, before)] == per_epoch
+        assert losses.shape == (4,) and torch.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SGD", "Momentum", "RMSProp", "Adam",
+                                  "Adagrad", "Adadelta", "Lion"])
+def test_cuda_mega_probe_matches_reference(name):
+    from tinynn_autograd_tpu_torch.nn import optimizer
+    from tinynn_autograd_tpu_torch.ops import mega_probe
+
+    dev = _cuda()
+    opt = getattr(optimizer, name)(lr=1e-3)
+    rng = np.random.RandomState(0)
+    start = [rng.randn(*s).astype(np.float32) * 0.05
+             for s in mega_probe.LEAF_SHAPES]
+
+    def state():
+        params = [torch.from_numpy(p).to(dev) for p in start]
+        return params, {n: [torch.zeros_like(p) for p in params]
+                        for n in opt.slot_names}
+
+    (kp, ks), (rp, rs) = state(), state()
+    before = mega_probe.cuda_mega_probe.launches
+    mega_probe.cuda_mega_probe(opt, kp, ks, 1, 100)
+    torch.cuda.synchronize()
+    assert mega_probe.cuda_mega_probe.launches == before + 1
+    mega_probe.mega_probe_reference(opt, rp, rs, 1, 100)
+    pairs = list(zip(kp, rp)) + [pair for n in opt.slot_names
+                                 for pair in zip(ks[n], rs[n])]
+    for i, (a, b) in enumerate(pairs):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-9, err_msg="leaf %d" % i)

@@ -274,12 +274,12 @@ def _mixed_precision_dense():
 UNSUPPORTED = {
     "budget": (lambda: [layers.Dense(4096, num_in=4096)],
                lambda: optimizer.Adam(), SoftmaxCrossEntropyLoss, "budget"),
-    "callable_lr": (lambda: [layers.Dense(4, num_in=8)],
-                    lambda: optimizer.Adam(lr=lambda t: 1e-3),
-                    SoftmaxCrossEntropyLoss, "learning rate"),
-    "clip_norm": (lambda: [layers.Dense(4, num_in=8)],
-                  lambda: optimizer.Adam(clip_norm=1.0),
-                  SoftmaxCrossEntropyLoss, "clip_norm"),
+    "lr_not_a_number": (lambda: [layers.Dense(4, num_in=8)],
+                        lambda: optimizer.Adam(lr="1e-3"),
+                        SoftmaxCrossEntropyLoss, "learning rate"),
+    "clip_norm_not_positive": (lambda: [layers.Dense(4, num_in=8)],
+                               lambda: optimizer.Adam(clip_norm=0.0),
+                               SoftmaxCrossEntropyLoss, "clip_norm"),
     "loss": (lambda: [layers.Dense(4, num_in=8)], lambda: optimizer.Adam(),
              _OtherLoss, "loss"),
     "layer": (lambda: [layers.Dense(4, num_in=8), _OtherLayer()],
@@ -317,9 +317,9 @@ def test_unflattened_image_input_is_rejected():
 
 def test_forced_fused_epoch_on_an_unsupported_model_raises():
     x, y = _toy_data()
-    model = Model(Net([layers.Dense(4, num_in=8)]), SoftmaxCrossEntropyLoss(),
-                  optimizer.Adam(clip_norm=1.0), device="cpu")
-    with pytest.raises(ValueError, match="clip_norm"):
+    model = Model(Net([layers.Dropout(0.1), layers.Dense(4, num_in=8)]),
+                  SoftmaxCrossEntropyLoss(), optimizer.Adam(), device="cpu")
+    with pytest.raises(ValueError, match="Dropout 0 is on the inputs"):
         model.train_epoch(x, y, batch_size=16, fused=True)
     with pytest.raises(ValueError, match="fused must be"):
         model.train_epoch(x, y, batch_size=16, fused="always")
@@ -390,16 +390,24 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
 
 
 def test_layer_descriptor():
+    relu, none = fused_epoch.ACT_RELU, fused_epoch.ACT_NONE
     assert fused_epoch.layer_descriptor(build_mnist_mlp()) == [
-        (784, 200, fused_epoch.ACT_RELU), (200, 100, fused_epoch.ACT_RELU),
-        (100, 70, fused_epoch.ACT_RELU), (70, 30, fused_epoch.ACT_RELU),
-        (30, 10, fused_epoch.ACT_NONE)]
+        (784, 200, relu, 0.0, -1), (200, 100, relu, 0.0, -1),
+        (100, 70, relu, 0.0, -1), (70, 30, relu, 0.0, -1),
+        (30, 10, none, 0.0, -1)]
     net = Net([layers.Flatten(), layers.Dense(6, num_in=12),
                layers.Sigmoid(), layers.Dense(5, num_in=6), layers.Tanh(),
                layers.Dense(3, num_in=5)])
     assert fused_epoch.layer_descriptor(net) == [
-        (12, 6, fused_epoch.ACT_SIGMOID), (6, 5, fused_epoch.ACT_TANH),
-        (5, 3, fused_epoch.ACT_NONE)]
+        (12, 6, fused_epoch.ACT_SIGMOID, 0.0, -1),
+        (6, 5, fused_epoch.ACT_TANH, 0.0, -1), (5, 3, none, 0.0, -1)]
+    # a Dropout after an activation or after a Dense without one; its seed
+    # index counts every Dropout before it, rate 0 included
+    net = Net([layers.Dense(6, num_in=12), layers.ReLU(), layers.Dropout(0.0),
+               layers.Dense(5, num_in=6), layers.Dropout(0.25),
+               layers.Dense(3, num_in=5)])
+    assert fused_epoch.layer_descriptor(net) == [
+        (12, 6, relu, 0.0, 0), (6, 5, none, 0.25, 1), (5, 3, none, 0.0, -1)]
 
 
 def test_step_scalars_match_the_jax_optimizers():

@@ -173,10 +173,11 @@ def test_transformer_block_options():
         layers.TransformerBlock(16, 4, attn="flash")
     with pytest.raises(ValueError, match="multiple"):
         layers.TransformerBlock(18, 4)
-    for kw in (dict(dropout=0.1), dict(attn="tape", attn_dropout=0.1),
-               dict(compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.TransformerBlock(16, 4, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layers.TransformerBlock(16, 4, compute_dtype=torch.bfloat16)
+    for kw in (dict(dropout=0.1), dict(attn="tape", attn_dropout=0.1)):
+        assert hasattr(layers.TransformerBlock(16, 4, **kw), "set_rng")
+    assert not hasattr(layers.TransformerBlock(16, 4), "set_rng")
     # attention dropout runs in TRAIN and is off in TEST
     blk = layers.TransformerBlock(16, 4, causal=True, attn_dropout=0.5,
                                   seed=1)

@@ -8,9 +8,11 @@
 // sit in VMEM scratch across the grid steps and each step streams in one
 // (x, y) batch block. Its body is traced from the tape. Here the body is
 // written out for the layers it takes: Dense, each followed by at most one
-// ReLU, Sigmoid or Tanh (Flatten is a reshape done by the caller), softmax
-// cross-entropy with optional class weights, and SGD or Adam with weight
-// decay.
+// ReLU, Sigmoid or Tanh and at most one Dropout (Flatten is a reshape done
+// by the caller), softmax cross-entropy with optional class weights, and the
+// seven optimizer rules of nn/optimizer.py (csrc/optim_rules.cuh, shared
+// with K3b) with weight decay, any learning-rate schedule (the per-step
+// scalars come from the host) and global-norm gradient clipping.
 //
 // How the TPU design translates:
 // - The sequential grid becomes a loop over the steps inside ONE persistent
@@ -20,7 +22,8 @@
 //   this_grid().sync()). Per step: one phase per Dense forward, one for the
 //   loss, one per Dense backward (dW, db and the previous layer's dz
 //   together), one for the optimizer: 2 x layers + 2 barriers, 12 for the
-//   flagship MLP. Every gradient is taken before any weight changes.
+//   flagship MLP (one more with clip_norm). Every gradient is taken
+//   before any weight changes.
 // - The state does not fit on an SM: the flagship's parameters and Adam
 //   moments are 2.24 MB against 227 KB of shared memory per SM. They stay in
 //   device memory, updated in place, with the gradients (0.75 MB) and the
@@ -33,6 +36,22 @@
 //   the loss and the bias gradients are summed by one thread each, in row
 //   order. No float atomics, so two runs on the same inputs give
 //   bit-identical results, whatever the grid size.
+// - Dropout: the TPU kernel draws its masks from the core's generator, in
+//   interpret mode from a counter hash. Here the hash (csrc/hash.cuh, the
+//   same as P1's) gives each element of a Dense's output its bits from the
+//   element's row-major index in [batch, dout] and the seed of (step, layer),
+//   (t0 + i) * 1000003 + idx in wrapping 32-bit arithmetic: the JAX
+//   megakernel's seeds, so the masks are its masks. The forward's epilogue
+//   writes the dropped output beside the activation's (the next layer reads
+//   it; the activation's derivative needs the one before dropout), and the
+//   backward recomputes the same bits in the epilogue that forms the
+//   previous layer's dz: cheaper than storing a mask, and each thread
+//   hashes the index of its own element.
+// - clip_norm: one more phase a step after the backward: each block sums
+//   g^2 over a fixed share of the gradients and reduces it in a fixed order
+//   in shared memory; after a grid barrier every block sums the per-block
+//   partial sums in one fixed order. No float atomics, so it keeps the
+//   promise below.
 // - f32 everywhere. With `bf16` set (set_matmul_precision("bf16")), each
 //   product operand is rounded to bf16 on load and widened again, and the
 //   products accumulate in f32, as the TPU kernel's bf16 operands with f32
@@ -54,6 +73,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "hash.cuh"
+#include "optim_rules.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -63,38 +87,48 @@ constexpr int THREADS = 256;
 constexpr int TILE = 32;         // output tile edge
 constexpr int BK = 32;           // depth of one shared-memory stage
 constexpr int PER = TILE / 16;   // outputs per thread along each tile edge
-constexpr int PTRS_PER_LAYER = 11;
+constexpr int PTRS_PER_LAYER = 12;
 
 enum Act { kNone = 0, kReLU = 1, kSigmoid = 2, kTanh = 3 };
-enum Opt { kSGD = 0, kAdam = 1 };
 
 struct Layer {
   int din, dout, act;
-  float* w;   // [din, dout], updated in place
-  float* b;   // [1, dout], updated in place
-  float* gw;  // gradients, same shapes
+  int drop;             // 1 when a Dropout follows the layer (rate > 0)
+  uint32_t seed_index;  // the Dropout's position among the seeded layers
+  uint32_t threshold;   // keep where the hash's bits are below it
+  float scale;          // 1 / (1 - rate), as f32
+  float* w;    // [din, dout], updated in place
+  float* b;    // [1, dout], updated in place
+  float* gw;   // gradients, same shapes
   float* gb;
-  float* mw;  // Adam first moments (null for SGD)
-  float* mb;
-  float* vw;  // Adam second moments (null for SGD)
-  float* vb;
-  float* z;   // pre-activation [batch, dout]
-  float* h;   // activation output [batch, dout]; == z without activation
-  float* dz;  // loss gradient with respect to z [batch, dout]
+  float* s0w;  // the rule's first slot (null when it has none)
+  float* s0b;
+  float* s1w;  // its second slot (null when it has none)
+  float* s1b;
+  float* z;    // pre-activation [batch, dout]
+  float* h;    // activation output [batch, dout]; == z without activation
+  float* d;    // the Dropout's output [batch, dout] (null without one)
+  float* dz;   // loss gradient with respect to z [batch, dout]
+  const float* out;  // what the next layer reads: d with a Dropout, else h
 };
 
 struct Args {
-  int n_layers, batch, n_steps, opt, bf16;
-  float b1c, b2c, eps, wd;  // 1 - beta1, 1 - beta2, epsilon, weight decay
+  int n_layers, batch, n_steps, bf16;
+  uint32_t t0;           // the optimizer's step count before the epoch
+  float clip_norm;       // global-norm clipping of the gradients; 0 is off
+  tinynn::Rule rule;     // the rule, its constants and weight decay; the
+                         // scalars s0, s1 are set each step
   const float* xb;       // [n_steps, batch, layer[0].din]
   const float* yb;       // [n_steps, batch, layer[n_layers - 1].dout]
   const float* cw;       // class weights [dout of the last layer] or null
-  const float* scalars;  // [n_steps, 2]: Adam (-lr/c1, rsqrt(c2)); SGD (-lr, 0)
+  const float* scalars;  // [n_steps, 2]: each step's (s0, s1)
   float* losses;         // [n_steps]
   float* row_loss;       // [batch] scratch
-  // [2 * n_layers + 2] or null: block 0's time (ns) from one barrier to the
-  // next, summed over the steps, for each phase: the forwards, the loss,
-  // the backwards (last layer first), the optimizer
+  float* partial;        // [gridDim.x] scratch: clip_norm's partial sums
+  // [2 * n_layers + 2, one more with clip_norm] or null: block 0's time
+  // (ns) from one barrier to the next, summed over the steps, for each
+  // phase: the forwards, the loss, the backwards (last layer first), the
+  // clipping norm, the optimizer
   unsigned long long* phase_ns;
   Layer layer[MAX_LAYERS];
 };
@@ -231,20 +265,40 @@ __device__ __forceinline__ float activation_grad(int act, float g, float z,
   }
 }
 
-// z = h_in @ w + b and h = act(z), for one Dense layer.
+// The seed of layer L's Dropout in the step whose counter is `t`.
+__device__ __forceinline__ uint32_t drop_seed(const Layer& L, uint32_t t) {
+  return tinynn::layer_seed(t, L.seed_index);
+}
+
+// Layer L's Dropout on element o (its row-major index in [batch, dout]).
+__device__ __forceinline__ float drop(const Layer& L, uint32_t seed,
+                                      long long o, float v) {
+  return tinynn::keeps(static_cast<uint32_t>(o), seed, L.threshold)
+             ? __fmul_rn(v, L.scale)
+             : 0.0f;
+}
+
+// z = h_in @ w + b, h = act(z) and, with a Dropout, d = dropout(h), for one
+// Dense layer in the step whose counter is `t`.
 __device__ void forward_layer(const Args& a, int l, const float* x,
-                              Smem& sm) {
+                              uint32_t t, Smem& sm) {
   const Layer& L = a.layer[l];
-  const View in = {l == 0 ? x : a.layer[l - 1].h, L.din, 1};
+  const View in = {l == 0 ? x : a.layer[l - 1].out, L.din, 1};
   const View w = {L.w, L.dout, 1};
+  const uint32_t seed = drop_seed(L, t);
   const int tiles = tiles_of(a.batch, L.dout);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    product_tile(in, w, a.batch, L.dout, L.din, t, a.bf16, sm,
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    product_tile(in, w, a.batch, L.dout, L.din, tile, a.bf16, sm,
                  [&](int r, int c, float v) {
                    const float z = __fadd_rn(v, ld_cg(L.b + c));
                    const long long o = static_cast<long long>(r) * L.dout + c;
                    L.z[o] = z;
-                   if (L.act != kNone) L.h[o] = activate(L.act, z);
+                   float h = z;
+                   if (L.act != kNone) {
+                     h = activate(L.act, z);
+                     L.h[o] = h;
+                   }
+                   if (L.drop) L.d[o] = drop(L, seed, o, h);
                  });
   }
 }
@@ -308,32 +362,36 @@ __device__ void loss_phase(const Args& a, int s) {
 }
 
 // dW = h_in^T @ dz, db = sum over rows of dz, and (but for the first layer)
-// the previous layer's dz = act'(dz @ W^T), as one phase of work items.
+// the previous layer's dz = act'(dropout'(dz @ W^T)), as one phase of work
+// items; the Dropout's VJP replays the forward's mask of the same step.
 __device__ void backward_layer(const Args& a, int l, const float* x,
-                               Smem& sm) {
+                               uint32_t t, Smem& sm) {
   const Layer& L = a.layer[l];
-  const View h_t = {l == 0 ? x : a.layer[l - 1].h, 1, L.din};  // [din, batch]
+  const View h_t = {l == 0 ? x : a.layer[l - 1].out, 1, L.din};  // [din, B]
   const View dz = {L.dz, L.dout, 1};                           // [batch, dout]
   const View w_t = {L.w, 1, L.dout};                           // [dout, din]
   const int n_dw = tiles_of(L.din, L.dout);
   const int n_dh = l > 0 ? tiles_of(a.batch, L.din) : 0;
   const int n_db = (L.dout + THREADS - 1) / THREADS;
-  for (int t = blockIdx.x; t < n_dw + n_dh + n_db; t += gridDim.x) {
-    if (t < n_dw) {
-      product_tile(h_t, dz, L.din, L.dout, a.batch, t, a.bf16, sm,
+  for (int item = blockIdx.x; item < n_dw + n_dh + n_db;
+       item += gridDim.x) {
+    if (item < n_dw) {
+      product_tile(h_t, dz, L.din, L.dout, a.batch, item, a.bf16, sm,
                    [&](int r, int c, float v) {
                      L.gw[static_cast<long long>(r) * L.dout + c] = v;
                    });
-    } else if (t < n_dw + n_dh) {
+    } else if (item < n_dw + n_dh) {
       const Layer& P = a.layer[l - 1];
-      product_tile(dz, w_t, a.batch, L.din, L.dout, t - n_dw, a.bf16, sm,
+      const uint32_t seed = drop_seed(P, t);
+      product_tile(dz, w_t, a.batch, L.din, L.dout, item - n_dw, a.bf16, sm,
                    [&](int r, int c, float v) {
                      const long long o = static_cast<long long>(r) * P.dout + c;
-                     P.dz[o] = activation_grad(P.act, v, ld_cg(P.z + o),
+                     const float g = P.drop ? drop(P, seed, o, v) : v;
+                     P.dz[o] = activation_grad(P.act, g, ld_cg(P.z + o),
                                                ld_cg(P.h + o));
                    });
     } else {
-      const int c = (t - n_dw - n_dh) * THREADS + threadIdx.x;
+      const int c = (item - n_dw - n_dh) * THREADS + threadIdx.x;
       if (c < L.dout) {
         float sum = 0.0f;
         for (int r = 0; r < a.batch; ++r)
@@ -344,42 +402,91 @@ __device__ void backward_layer(const Args& a, int l, const float* x,
   }
 }
 
-// One optimizer update of one parameter element, as nn/optimizer.py's.
-__device__ __forceinline__ void update(const Args& a, float* p,
-                                       const float* g, float* m, float* v,
-                                       long long i, float scale,
-                                       float rsqrt_c2) {
-  const float gi = ld_cg(g + i);
-  const float pi = ld_cg(p + i);
-  float step;
-  if (a.opt == kAdam) {
-    float mi = ld_cg(m + i);
-    float vi = ld_cg(v + i);
-    mi = __fadd_rn(mi, __fmul_rn(a.b1c, __fsub_rn(gi, mi)));
-    vi = __fadd_rn(vi, __fmul_rn(a.b2c, __fsub_rn(__fmul_rn(gi, gi), vi)));
-    m[i] = mi;
-    v[i] = vi;
-    step = __fdiv_rn(__fmul_rn(scale, mi),
-                     __fadd_rn(__fmul_rn(__fsqrt_rn(vi), rsqrt_c2), a.eps));
-  } else {
-    step = __fmul_rn(scale, gi);
+// clip_norm's first half: this block's sum of g^2 over its share of the
+// gradients (the optimizer phase's grid-stride share, layer by layer),
+// reduced over the block's threads in a fixed order into partial[block].
+__device__ void clip_phase(const Args& a, Smem& sm) {
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  float acc = 0.0f;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const Layer& L = a.layer[l];
+    const long long nw = static_cast<long long>(L.din) * L.dout;
+    for (long long i = first; i < nw; i += stride) {
+      const float g = ld_cg(L.gw + i);
+      acc = __fmaf_rn(g, g, acc);
+    }
+    for (long long i = first; i < L.dout; i += stride) {
+      const float g = ld_cg(L.gb + i);
+      acc = __fmaf_rn(g, g, acc);
+    }
   }
-  if (a.wd != 0.0f) step = __fsub_rn(step, __fmul_rn(a.wd, pi));
-  p[i] = __fadd_rn(pi, step);
+  float* red = &sm.a[0][0];  // the product tiles' stage, free between phases
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int half = THREADS / 2; half > 0; half /= 2) {
+    if (threadIdx.x < half)
+      red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + half]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) a.partial[blockIdx.x] = red[0];
 }
 
-__device__ void optimizer_phase(const Args& a, int s) {
-  const float scale = __ldg(a.scalars + 2 * s);
-  const float rsqrt_c2 = __ldg(a.scalars + 2 * s + 1);
+// clip_norm's second half, in every block: the first warp sums the partial
+// sums, lane j those of blocks j, j + 32, ... in order, then the lanes in a
+// fixed butterfly; lane 0's total, the same in every block, gives
+// min(1, clip_norm / (sqrt(total) + 1e-6)) rounded as the plain version
+// rounds it (a reciprocal, then the product).
+__device__ float clip_scale(const Args& a, Smem& sm) {
+  float* red = &sm.a[0][0];
+  if (threadIdx.x < 32) {
+    float total = 0.0f;
+    for (unsigned int i = threadIdx.x; i < gridDim.x; i += 32)
+      total = __fadd_rn(total, ld_cg(a.partial + i));
+    for (int lane = 16; lane > 0; lane /= 2)
+      total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, lane));
+    if (threadIdx.x == 0) {
+      const float scale = __fmul_rn(
+          __frcp_rn(__fadd_rn(__fsqrt_rn(total), 1e-6f)), a.clip_norm);
+      red[0] = fminf(scale, 1.0f);
+    }
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// One element's update through the shared rule; the parameter and the
+// slots the rule has are read through L2 (other blocks wrote them in
+// earlier steps).
+__device__ __forceinline__ void update(const tinynn::Rule& r, int n_slots,
+                                       float* p, const float* g, float* s0,
+                                       float* s1, long long i, bool clip,
+                                       float clip_by) {
+  float gi = ld_cg(g + i);
+  if (clip) gi = __fmul_rn(gi, clip_by);
+  float v0 = n_slots > 0 ? ld_cg(s0 + i) : 0.0f;
+  float v1 = n_slots > 1 ? ld_cg(s1 + i) : 0.0f;
+  p[i] = tinynn::apply_rule(r, ld_cg(p + i), gi, v0, v1);
+  if (n_slots > 0) s0[i] = v0;
+  if (n_slots > 1) s1[i] = v1;
+}
+
+__device__ void optimizer_phase(const Args& a, int s, Smem& sm) {
+  tinynn::Rule r = a.rule;
+  r.s0 = __ldg(a.scalars + 2 * s);
+  r.s1 = __ldg(a.scalars + 2 * s + 1);
+  const int n_slots = tinynn::rule_slots(r.opt);
+  const bool clip = a.clip_norm > 0.0f;
+  const float clip_by = clip ? clip_scale(a, sm) : 1.0f;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (int l = 0; l < a.n_layers; ++l) {
     const Layer& L = a.layer[l];
     const long long nw = static_cast<long long>(L.din) * L.dout;
     for (long long i = first; i < nw; i += stride)
-      update(a, L.w, L.gw, L.mw, L.vw, i, scale, rsqrt_c2);
+      update(r, n_slots, L.w, L.gw, L.s0w, L.s1w, i, clip, clip_by);
     for (long long i = first; i < L.dout; i += stride)
-      update(a, L.b, L.gb, L.mb, L.vb, i, scale, rsqrt_c2);
+      update(r, n_slots, L.b, L.gb, L.s0b, L.s1b, i, clip, clip_by);
   }
 }
 
@@ -398,20 +505,27 @@ fused_epoch_kernel(const __grid_constant__ Args a) {
     }
   };
   const int L = a.n_layers;
+  const bool clip = a.clip_norm > 0.0f;
   for (int s = 0; s < a.n_steps; ++s) {
     const float* x = a.xb + static_cast<long long>(s) * a.batch * a.layer[0].din;
+    // the step's counter before its update: the Dropout seeds' step
+    const uint32_t t = a.t0 + static_cast<uint32_t>(s);
     for (int l = 0; l < L; ++l) {
-      forward_layer(a, l, x, sm);
+      forward_layer(a, l, x, t, sm);
       barrier(l);
     }
     loss_phase(a, s);
     barrier(L);
     for (int l = L - 1; l >= 0; --l) {
-      backward_layer(a, l, x, sm);
+      backward_layer(a, l, x, t, sm);
       barrier(2 * L - l);
     }
-    optimizer_phase(a, s);
-    barrier(2 * L + 1);
+    if (clip) {
+      clip_phase(a, sm);
+      barrier(2 * L + 1);
+    }
+    optimizer_phase(a, s, sm);
+    barrier(2 * L + 1 + (clip ? 1 : 0));
   }
 }
 
@@ -428,20 +542,29 @@ extern "C" int tinynn_fused_epoch_grid(int* blocks_per_sm, int* sms) {
       blocks_per_sm, fused_epoch_kernel, THREADS, 0));
 }
 
-// One epoch of `n_steps` train steps. `dims` holds (din, dout, activation)
-// for each of the `n_layers` Dense layers, `layer_ptrs` the 11 device
-// pointers of each (w, b, gw, gb, mw, mb, vw, vb, z, h, dz; the moments are
-// null for SGD). `phase_ns`, where not null, accumulates each phase's time
-// (see Args). Launches on `stream` and does not synchronise. Returns the
-// CUDA error of the launch (0 when it was accepted); cudaErrorNotSupported
-// when the device cannot launch cooperatively.
+// One epoch of `n_steps` train steps. `dims` holds (din, dout, activation,
+// dropout) for each of the `n_layers` Dense layers, `drops` (seed index,
+// keep threshold) and `drop_scales` the scale of each layer's Dropout (read
+// where dropout is 1), `layer_ptrs` the 12 device pointers of each (w, b,
+// gw, gb, s0w, s0b, s1w, s1b, z, h, d, dz; a slot the rule does not have,
+// and d without a Dropout, are null). `opt`, `c0`-`c3` and `wd` are the
+// rule (csrc/optim_rules.cuh), `scalars` [n_steps, 2] its per-step scalars,
+// `t0` the step count before the epoch, `clip_norm` the clipping norm (0:
+// off), `partial` a scratch of `partial_len` floats (at least the grid's
+// blocks). `phase_ns`, where not null, accumulates each phase's time (see
+// Args). Launches on `stream` and does not synchronise. Returns the CUDA
+// error of the launch (0 when it was accepted); cudaErrorNotSupported when
+// the device cannot launch cooperatively.
 extern "C" int tinynn_fused_epoch(
-    int n_layers, const int* dims, void* const* layer_ptrs, const float* xb,
+    int n_layers, const int* dims, const unsigned int* drops,
+    const float* drop_scales, void* const* layer_ptrs, const float* xb,
     const float* yb, const float* class_weight, const float* scalars,
-    float* losses, float* row_loss, int batch, int n_steps, int opt,
-    float b1c, float b2c, float eps, float wd, int bf16,
+    float* losses, float* row_loss, float* partial, int partial_len,
+    int batch, int n_steps, unsigned int t0, int opt, float c0, float c1,
+    float c2, float c3, float wd, float clip_norm, int bf16,
     unsigned long long* phase_ns, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || batch < 1 || n_steps < 1)
+  if (n_layers < 1 || n_layers > MAX_LAYERS || batch < 1 || n_steps < 1 ||
+      opt < tinynn::kSGD || opt > tinynn::kAdadelta)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -455,43 +578,50 @@ extern "C" int tinynn_fused_epoch(
   a.n_layers = n_layers;
   a.batch = batch;
   a.n_steps = n_steps;
-  a.opt = opt;
   a.bf16 = bf16;
-  a.b1c = b1c;
-  a.b2c = b2c;
-  a.eps = eps;
-  a.wd = wd;
+  a.t0 = t0;
+  a.clip_norm = clip_norm;
+  a.rule = {opt, 0.0f, 0.0f, c0, c1, c2, c3, wd};
   a.xb = xb;
   a.yb = yb;
   a.cw = class_weight;
   a.scalars = scalars;
   a.losses = losses;
   a.row_loss = row_loss;
+  a.partial = partial;
   a.phase_ns = phase_ns;
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = a.layer[l];
-    L.din = dims[3 * l];
-    L.dout = dims[3 * l + 1];
-    L.act = dims[3 * l + 2];
+    L.din = dims[4 * l];
+    L.dout = dims[4 * l + 1];
+    L.act = dims[4 * l + 2];
+    L.drop = dims[4 * l + 3];
+    L.seed_index = drops[2 * l];
+    L.threshold = drops[2 * l + 1];
+    L.scale = drop_scales[l];
     float* const* p =
         reinterpret_cast<float* const*>(layer_ptrs + PTRS_PER_LAYER * l);
     L.w = p[0];
     L.b = p[1];
     L.gw = p[2];
     L.gb = p[3];
-    L.mw = p[4];
-    L.mb = p[5];
-    L.vw = p[6];
-    L.vb = p[7];
+    L.s0w = p[4];
+    L.s0b = p[5];
+    L.s1w = p[6];
+    L.s1b = p[7];
     L.z = p[8];
     L.h = p[9];
-    L.dz = p[10];
+    L.d = p[10];
+    L.dz = p[11];
+    L.out = L.drop ? L.d : L.h;
   }
 
   int blocks_per_sm = 0, sms = 0;
   const int grid_err = tinynn_fused_epoch_grid(&blocks_per_sm, &sms);
   if (grid_err != 0) return grid_err;
   if (blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (clip_norm > 0.0f && partial_len < blocks_per_sm * sms)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_epoch_kernel),

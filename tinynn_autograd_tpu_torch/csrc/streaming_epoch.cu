@@ -47,9 +47,10 @@
 //   TPU kernel: ReLU passes where a > 0 (the tape's ReLU passes where
 //   z >= 0; the two differ only where z == 0).
 // - The optimizer: one switch over the seven rules of nn/optimizer.py, in
-//   their algebraic form, with weight decay. The per-step scalars (learning
-//   rate, bias corrections) are computed on the host, as `update` computes
-//   them, and passed as launch arguments, so a schedule costs nothing here.
+//   their algebraic form, with weight decay (csrc/optim_rules.cuh, shared
+//   with K2 and P2). The per-step scalars (learning rate, bias
+//   corrections) are computed on the host, as `update` computes them, and
+//   passed as launch arguments, so a schedule costs nothing here.
 //   The _rn intrinsics keep the compiler from contracting the rules into
 //   FMAs: they round where the plain PyTorch version rounds.
 //
@@ -70,6 +71,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "optim_rules.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -89,10 +92,8 @@ constexpr int TN = 4;
 constexpr int PAD = 4;
 
 enum Act { kLinear = 0, kReLU = 1, kSigmoid = 2, kTanh = 3 };
-enum Opt {
-  kSGD = 0, kAdam = 1, kMomentum = 2, kLion = 3, kRMSProp = 4, kAdagrad = 5,
-  kAdadelta = 6
-};
+using tinynn::kAdadelta;
+using tinynn::kSGD;
 
 struct ForwardArgs {
   const float* h0;  // [B, W]
@@ -112,10 +113,8 @@ struct BackwardArgs {
   float* db;           // [L, 1, W]
   float* dh0;          // [B, W], the loss gradient at the body's input
   float* dz;           // [L, B, W] scratch
-  int depth, batch, width, act, opt;
-  float s0, s1;          // the step's scalars (BaseOptimizer.scalars)
-  float c0, c1, c2, c3;  // the rule's constants (see update_element)
-  float wd;              // weight decay
+  int depth, batch, width, act;
+  tinynn::Rule rule;  // the optimizer's rule (csrc/optim_rules.cuh)
 };
 
 __device__ __forceinline__ float activate(int act, float z) {
@@ -418,82 +417,16 @@ stream_backward_dh_kernel(const __grid_constant__ BackwardArgs a) {
   }
 }
 
-// One element's optimizer update, as the rules of nn/optimizer.py:
-// p += rule(g) - wd * p, with the slots updated in place. The constants:
-//   SGD      -
-//   Momentum c0 = momentum
-//   Adam     c0 = 1 - beta1, c1 = 1 - beta2, c2 = eps (s0 = -lr/c1,
-//            s1 = rsqrt(c2) of the bias corrections)
-//   Lion     c0 = beta1, c1 = 1 - beta1, c2 = beta2, c3 = 1 - beta2
-//   RMSProp  c0 = 1 - decay, c1 = momentum, c2 = eps (s0 = +lr)
-//   Adagrad  c0 = eps
-//   Adadelta c0 = 1 - decay, c1 = eps
-// and s0 = -lr where not said otherwise.
+// One element's optimizer update: the shared rule (csrc/optim_rules.cuh) on
+// w and the slots the rule has, in place.
 __device__ __forceinline__ void update_element(const BackwardArgs& a,
                                                long long i, float g) {
-  const float p = a.w[i];
-  float step;
-  switch (a.opt) {
-    case kMomentum: {
-      const float acc = __fadd_rn(__fmul_rn(a.slot0[i], a.c0), g);
-      a.slot0[i] = acc;
-      step = __fmul_rn(a.s0, acc);
-      break;
-    }
-    case kAdam: {
-      float m = a.slot0[i];
-      float v = a.slot1[i];
-      m = __fadd_rn(m, __fmul_rn(a.c0, __fsub_rn(g, m)));
-      v = __fadd_rn(v, __fmul_rn(a.c1, __fsub_rn(__fmul_rn(g, g), v)));
-      a.slot0[i] = m;
-      a.slot1[i] = v;
-      step = __fdiv_rn(__fmul_rn(a.s0, m),
-                       __fadd_rn(__fmul_rn(__fsqrt_rn(v), a.s1), a.c2));
-      break;
-    }
-    case kLion: {
-      const float m = a.slot0[i];
-      const float u = __fadd_rn(__fmul_rn(a.c0, m), __fmul_rn(a.c1, g));
-      a.slot0[i] = __fadd_rn(__fmul_rn(m, a.c2), __fmul_rn(a.c3, g));
-      const float sign = u > 0.0f ? 1.0f : (u < 0.0f ? -1.0f : u);
-      step = __fmul_rn(a.s0, sign);
-      break;
-    }
-    case kRMSProp: {
-      float ms = a.slot0[i];
-      ms = __fadd_rn(ms, __fmul_rn(a.c0, __fsub_rn(__fmul_rn(g, g), ms)));
-      const float mom =
-          __fadd_rn(__fmul_rn(a.slot1[i], a.c1),
-                    __fmul_rn(__fmul_rn(a.s0, g), rsqrtf(__fadd_rn(ms, a.c2))));
-      a.slot0[i] = ms;
-      a.slot1[i] = mom;
-      step = -mom;
-      break;
-    }
-    case kAdagrad: {
-      const float G = __fadd_rn(a.slot0[i], __fmul_rn(g, g));
-      a.slot0[i] = G;
-      step = __fmul_rn(__fmul_rn(a.s0, g), rsqrtf(__fadd_rn(G, a.c0)));
-      break;
-    }
-    case kAdadelta: {
-      float Eg = a.slot0[i];
-      const float d = a.slot1[i];
-      Eg = __fadd_rn(Eg, __fmul_rn(a.c0, __fsub_rn(__fmul_rn(g, g), Eg)));
-      const float delta =
-          __fmul_rn(__fmul_rn(g, __fsqrt_rn(__fadd_rn(d, a.c1))),
-                    rsqrtf(__fadd_rn(Eg, a.c1)));
-      a.slot0[i] = Eg;
-      a.slot1[i] =
-          __fadd_rn(d, __fmul_rn(a.c0, __fsub_rn(__fmul_rn(delta, delta), d)));
-      step = __fmul_rn(a.s0, delta);
-      break;
-    }
-    default:  // kSGD
-      step = __fmul_rn(a.s0, g);
-  }
-  if (a.wd != 0.0f) step = __fsub_rn(step, __fmul_rn(a.wd, p));
-  a.w[i] = __fadd_rn(p, step);
+  const int n_slots = tinynn::rule_slots(a.rule.opt);
+  float s0 = n_slots > 0 ? a.slot0[i] : 0.0f;
+  float s1 = n_slots > 1 ? a.slot1[i] : 0.0f;
+  a.w[i] = tinynn::apply_rule(a.rule, a.w[i], g, s0, s1);
+  if (n_slots > 0) a.slot0[i] = s0;
+  if (n_slots > 1) a.slot1[i] = s1;
 }
 
 // ---------------------------------------------------------------------------
@@ -660,9 +593,10 @@ extern "C" int tinynn_stream_backward(
     float c1, float c2, float c3, float wd, void* stream) {
   if (!valid_shape(depth, batch, width) || opt < kSGD || opt > kAdadelta)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BackwardArgs args = {h0,   dlast, acts,  w,     slot0, slot1, db,
-                             dh0,  dz,    depth, batch, width, act,   opt,
-                             s0,   s1,    c0,    c1,    c2,    c3,    wd};
+  const BackwardArgs args = {h0,    dlast, acts,  w,     slot0,
+                             slot1, db,    dh0,   dz,    depth,
+                             batch, width, act,
+                             {opt, s0, s1, c0, c1, c2, c3, wd}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (backward_smem(8, width) <= SMEM_LIMIT)

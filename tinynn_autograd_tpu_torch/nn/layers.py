@@ -2,7 +2,7 @@
 classifier's and the recurrent classifier's subset of the JAX package's
 nn/layers.py (Layer, Dense, DenseStack, LayerNorm, Embedding,
 PositionalEmbedding, TransformerBlock, GlobalAvgPool1D, LSTM, GRU,
-Bidirectional, Flatten, Activation, ReLU, Sigmoid, Tanh, GELU).
+Bidirectional, Flatten, Dropout, Activation, ReLU, Sigmoid, Tanh, GELU).
 
 Every layer's forward is Tensor algebra over the tape primitives. Layers own
 their parameters as tape Tensors (so they are the framework's own classes,
@@ -265,14 +265,21 @@ class TransformerBlock(Layer):
     primitive ``ops.flash_attention_`` (the flash kernels on a GPU); "tape"
     keeps the explicit chain of batched ``dot_``, an additive -1e9 mask,
     ``softmax_`` and ``dot_`` (same numerics, [T, T] scores materialised;
-    the cross-check path). ``causal`` masks the future, ``attn_window``
-    (causal only) bands attention to the keys in (p - window, p], and
-    ``attn_dropout`` drops attention probabilities inside the fused kernels
-    in the TRAIN phase (seeded from the seeder's generator).
+    the cross-check path). ``causal`` masks the future and ``attn_window``
+    (causal only) bands attention to the keys in (p - window, p].
 
-    Not ported yet, each raising ``NotImplementedError``: residual
-    ``dropout`` (it needs ``dropout_``), attention dropout under
-    ``attn="tape"`` (likewise), and ``compute_dtype``."""
+    ``dropout``: inverted dropout (``ops.dropout_``) on the attention
+    projection's and the MLP's outputs, the residual sites; ``attn_dropout``
+    on the attention probabilities: inside the flash kernels under
+    ``attn="fused"`` (their own hash of the (head, query, key) index), a
+    ``dropout_`` on the materialised probabilities under ``attn="tape"``.
+    Both only in the TRAIN phase. A block with either takes a seed from the
+    Net (``set_rng``, an int; else one draw from the seeder's generator)
+    and derives its three sites' seeds from it by the JAX megakernel's rule,
+    ``seed * 7919 + k`` mod 2**32 for k = 0 (attention), 1 (attention
+    projection), 2 (MLP).
+
+    Not ported yet: ``compute_dtype``, which raises ``NotImplementedError``."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4, causal=False,
                  w_init=None, eps=1e-5, seed=None, attn="fused",
@@ -288,12 +295,6 @@ class TransformerBlock(Layer):
         if attn_window is not None and not causal:
             raise ValueError("attn_window (sliding-window attention) "
                              "requires causal=True")
-        if dropout:
-            raise _not_ported("TransformerBlock(dropout=...) (residual "
-                              "dropout needs dropout_)")
-        if attn_dropout and attn == "tape":
-            raise _not_ported("attn_dropout under attn='tape' (it needs "
-                              "dropout_)")
         if compute_dtype is not None:
             raise _not_ported("TransformerBlock(compute_dtype=...)")
         self.compute_dtype = None
@@ -307,6 +308,11 @@ class TransformerBlock(Layer):
         self.attn_dropout = attn_dropout
         self.eps = eps
         self._masks = {}
+        self._rng = None
+        if dropout or attn_dropout:
+            # only blocks with dropout take a seed from the Net, as in the
+            # JAX package
+            self.set_rng = self._set_rng
         init = w_init if w_init is not None else XavierUniformInit()
         hidden = int(dim * mlp_ratio)
         self.shapes = {
@@ -327,6 +333,18 @@ class TransformerBlock(Layer):
                     self.params[k] = zeros(shape)
                 else:
                     self.params[k] = init(shape)
+
+    def _set_rng(self, rng):
+        self._rng = rng
+
+    def _drop_seeds(self):
+        """The three sites' seeds (attention probabilities, attention
+        projection, MLP) from the Net's seed, else one seeder draw."""
+        rng = self._rng
+        self._rng = None
+        if rng is None:
+            rng = ops._dropout_seed(None)
+        return [(int(rng) * 7919 + k) % 2 ** 32 for k in range(3)]
 
     def init_params(self, input_shape):
         return tuple(input_shape)
@@ -353,26 +371,39 @@ class TransformerBlock(Layer):
         def split_heads(x):  # [B,T,D] -> [B,H,T,hd], a strided view
             return x.reshape((b, t, h, hd)).transpose((0, 2, 1, 3))
 
+        drop = self.is_training and (self.dropout > 0.0
+                                     or self.attn_dropout > 0.0)
+        seeds = self._drop_seeds() if drop else None
+        attn_rate = self.attn_dropout if drop else 0.0
         xn = ops.layer_norm_(inputs, p["g1"], p["be1"], eps=self.eps)
         q = split_heads(xn @ p["wq"])
         k = split_heads(xn @ p["wk"])
         v = split_heads(xn @ p["wv"])
         scale = 1.0 / np.sqrt(hd)
         if self.attn == "fused":
-            rate = self.attn_dropout if self.is_training else 0.0
-            ctx_h = ops.flash_attention_(q, k, v, causal=self.causal,
-                                         scale=scale, dropout_rate=rate,
-                                         window=self.attn_window)
+            ctx_h = ops.flash_attention_(
+                q, k, v, causal=self.causal, scale=scale,
+                dropout_rate=attn_rate,
+                dropout_rng=seeds[0] if attn_rate > 0.0 else None,
+                window=self.attn_window)
         else:
             scores = (q @ k.transpose((0, 1, 3, 2))) * scale
             mask = self._mask(t, inputs.device)
             if mask is not None:
                 scores = scores + mask
-            ctx_h = ops.softmax_(scores, axis=-1) @ v
+            probs = ops.softmax_(scores, axis=-1)
+            if attn_rate > 0.0:
+                probs = ops.dropout_(probs, attn_rate, seeds[0])
+            ctx_h = probs @ v
         ctx = ctx_h.transpose((0, 2, 1, 3)).reshape((b, t, d))
-        x = inputs + ctx @ p["wo"]
+        attn_out = ctx @ p["wo"]
+        if drop and self.dropout > 0.0:
+            attn_out = ops.dropout_(attn_out, self.dropout, seeds[1])
+        x = inputs + attn_out
         yn = ops.layer_norm_(x, p["g2"], p["be2"], eps=self.eps)
         y = ops.gelu_(yn @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+        if drop and self.dropout > 0.0:
+            y = ops.dropout_(y, self.dropout, seeds[2])
         return x + y
 
 
@@ -642,6 +673,31 @@ class Flatten(Layer):
     def forward(self, inputs):
         n = inputs.shape[0]
         return inputs.reshape((n, int(np.prod(inputs.shape[1:]))))
+
+
+class Dropout(Layer):
+    """Inverted dropout (``ops.dropout_``); the identity in the TEST phase
+    and at rate 0.
+
+    Its seed comes from the Net (``set_rng``, an int, see ``Net.forward``):
+    the step tier and K2 derive it from the optimizer's step counter, so
+    both draw the masks the JAX package's megakernel draws in interpret
+    mode. Without one (the eager facade) it draws from the seeder's
+    generator."""
+
+    def __init__(self, rate=0.5):
+        super().__init__("Dropout")
+        self.rate = rate
+        self._rng = None
+
+    def set_rng(self, rng):
+        self._rng = rng
+
+    def forward(self, inputs):
+        rng, self._rng = self._rng, None
+        if not self.is_training or self.rate == 0.0:
+            return inputs
+        return ops.dropout_(inputs, self.rate, rng)
 
 
 class Activation(Layer):

@@ -5,8 +5,10 @@ the transformer sequence classifier (int token ids in, staged and batched as
 they are) and the recurrent sequence classifier:
 
 1. The eager loop: ``zero_grad -> forward -> loss -> backward -> step``.
+   Dropout draws its masks from the seeder's generator there.
 2. ``train_step(x, y)``: forward + tape backward + optimizer update for one
-   batch, returning the loss as a device scalar (no host sync).
+   batch, returning the loss as a device scalar (no host sync). Dropout
+   masks are seeded with the optimizer's step counter (``_step``).
 3. ``train_epoch``/``train_epochs``: the data staged on the device once, an
    on-device shuffle per epoch (``torch.randperm`` with the model's own
    generator), then one of three tiers over the batches:
@@ -122,10 +124,17 @@ class Model:
                 p.grad = None
 
     def _step(self, xb, yb):
+        """One train step. Its Dropout masks are seeded with the optimizer's
+        step counter before the update, the value the JAX megakernel gives
+        the step, so the step loop and K2 draw the same masks as the JAX
+        megakernel in interpret mode (not the threefry masks of the JAX
+        package's step and scanned tiers)."""
         for param in self.net.get_parameters():
             for p in param.values():
                 p.grad = None
-        pred = self.net.forward(Tensor(xb))
+        state = self.optimizer.state_dict()
+        pred = self.net.forward(Tensor(xb),
+                                rng=0 if state is None else state["t"])
         loss_t = self.loss.loss(pred, Tensor(yb))
         loss_t.backward()
         self._apply_grads(self.net.collect_grads())

@@ -10,6 +10,7 @@ non-trainable buffers yet, so the buffers tree is a list of empty dicts.
 import torch
 
 from tinynn_autograd_tpu_torch.core.tensor import Tensor, as_tensor
+from tinynn_autograd_tpu_torch.ops.dropout import layer_seed
 
 
 class Net:
@@ -18,9 +19,20 @@ class Net:
         self.layers = layers
         self._phase = "TRAIN"
 
-    def forward(self, inputs):
-        """Chain the layer forwards."""
+    def forward(self, inputs, rng=None):
+        """Chain the layer forwards. ``rng``, an int step seed where given,
+        seeds the layers that take one (``set_rng``: Dropout, and a
+        TransformerBlock with dropout): the one at position ``idx`` among
+        them, in net order, gets ``rng * 1000003 + idx`` mod 2**32, the
+        JAX package's rule inside its megakernel (wrapping int32 there; the
+        same bits), which K2 follows too (csrc/hash.cuh). Without it they
+        draw from the seeder's generator."""
         inputs = as_tensor(inputs)
+        if rng is not None:
+            takers = [layer for layer in self.layers
+                      if hasattr(layer, "set_rng")]
+            for idx, layer in enumerate(takers):
+                layer.set_rng(layer_seed(rng, idx))
         for layer in self.layers:
             inputs = layer.forward(inputs)
         return inputs

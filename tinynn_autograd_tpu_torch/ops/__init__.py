@@ -6,6 +6,7 @@ from tinynn_autograd_tpu_torch.core.tensor import as_tensor as _as_tensor
 from tinynn_autograd_tpu_torch.ops import kernels
 from tinynn_autograd_tpu_torch.ops.primitives import (
     _attn_dropout_seed,
+    _dropout_seed,
     add_,
     astype_,
     build_binary_ops_tensor,
@@ -15,6 +16,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     dense_stack_,
     div_,
     dot_,
+    dropout_,
     exp_,
     flash_attention_,
     flatten_,

@@ -7,9 +7,17 @@ written out by hand in ``csrc/fused_epoch.cu``: one persistent cooperative
 CUDA kernel per epoch, with the state resident in device memory (and in the
 50 MB L2) and grid-wide barriers between the phases of a step. It takes the
 nets ``supports`` accepts: Dense layers, each followed by at most one ReLU,
-Sigmoid or Tanh, Flatten, softmax cross-entropy (with or without class
-weights), and SGD or Adam with a constant learning rate and any weight
-decay.
+Sigmoid or Tanh and then at most one Dropout (not after the last Dense),
+Flatten, softmax cross-entropy (with or without class weights), and any of
+the seven optimizers with any weight decay, learning-rate schedule and
+``clip_norm``.
+
+Dropout masks come from the counter hash of ``ops/dropout.py``: the Dropout
+at position ``idx`` among the net's seeded layers draws, in the step whose
+optimizer counter is ``t`` before its update, with seed ``t * 1000003 +
+idx`` mod 2**32 (``Net.forward``'s rule), over the row-major index of its
+[batch, width] input. So K2, its plain version and the step loop draw the
+same masks as the JAX megakernel in interpret mode.
 
 - ``supports``: can the kernel run this (net, optimizer, loss)?
 - ``build_fused_epoch``: ``epoch_fn(params, slots, t0, xb, yb) -> (t,
@@ -17,6 +25,7 @@ decay.
   IN PLACE: that saves a copy of the state (2.2 MB for the flagship with
   Adam) per epoch. On a CUDA device it launches the kernel; on the CPU it
   runs the plain version.
+- ``epoch_spec``: what the kernel is told about the net and the optimizer.
 - ``fused_epoch_reference``: the plain PyTorch version, the same arithmetic
   layer by layer (not through the tape). For CPU tensors and the tests.
 - ``cuda_fused_epoch``: the kernel's wrapper. It launches or raises, never
@@ -29,13 +38,15 @@ import numbers
 import numpy as np
 import torch
 
-from tinynn_autograd_tpu_torch.ops import kernels
+from tinynn_autograd_tpu_torch.ops import dropout, kernels
+from tinynn_autograd_tpu_torch.ops.optim_rules import (
+    OPTIMIZERS, optimizer_constants,
+)
 
 SOURCE = kernels.CSRC_DIR / "fused_epoch.cu"
 
 # Activation codes of the kernel's C interface.
 ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH = 0, 1, 2, 3
-OPT_SGD, OPT_ADAM = 0, 1
 MAX_LAYERS = 16  # MAX_LAYERS in csrc/fused_epoch.cu
 
 # The state the kernel keeps resident from step to step: parameters,
@@ -50,12 +61,15 @@ STATE_BUDGET = 24 * 1024 * 1024
 @dataclasses.dataclass(frozen=True)
 class EpochSpec:
     """What the kernel is told about the net and the optimizer."""
-    layers: tuple       # (d_in, d_out, activation code) for each Dense
-    optimizer: int      # OPT_SGD or OPT_ADAM
-    b1c: float = 0.0    # 1 - beta1, as the f32 the step loop multiplies by
-    b2c: float = 0.0    # 1 - beta2
-    eps: float = 0.0
+    # (d_in, d_out, activation code, dropout rate, seed index) for each
+    # Dense: the rate of the Dropout after it (0.0 without one) and that
+    # Dropout's position among the net's seeded layers (-1 without one)
+    layers: tuple
+    optimizer: int      # the rule's code (OPTIMIZERS' order)
+    slot_names: tuple = ()  # the rule's slots, its slot0 and slot1
+    consts: tuple = (0.0, 0.0, 0.0, 0.0)  # the rule's constants c0-c3, f32
     weight_decay: float = 0.0
+    clip_norm: float = 0.0  # global-norm gradient clipping; 0.0 is off
 
 
 def _activation_code(layer):
@@ -72,14 +86,48 @@ def _dense_indices(net):
             if isinstance(layer, Dense)]
 
 
+def _dropout_reason(net, dense):
+    """Why a Dropout of the net sits where the kernel cannot apply it, or
+    None. It may follow a Dense's activation, or a Dense other than the
+    last that has none."""
+    from tinynn_autograd_tpu_torch.nn.layers import Dense, Dropout
+
+    layers = net.layers
+    for i, layer in enumerate(layers):
+        if not isinstance(layer, Dropout):
+            continue
+        if i < dense[0]:
+            return ("Dropout %d is on the inputs, before the first Dense "
+                    "layer" % i)
+        if i > dense[-1]:
+            return ("Dropout %d follows the last Dense layer (it would "
+                    "drop logits)" % i)
+        prev = layers[i - 1]
+        if isinstance(prev, Dropout):
+            return "Dropout %d directly follows another Dropout" % i
+        if isinstance(prev, Dense) and \
+                _activation_code(layers[i + 1]) is not None:
+            return ("Dropout %d sits between a Dense layer and its "
+                    "activation" % i)
+        if not (isinstance(prev, Dense) or (
+                _activation_code(prev) is not None
+                and isinstance(layers[i - 2], Dense))):
+            return ("Dropout %d does not follow a Dense layer or its "
+                    "activation" % i)
+    return None
+
+
 def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
     """Why the kernel cannot run this (net, optimizer, loss), or None when
     it can. ``batch_shape`` ([batch, *features]), where given, also checks
     the input layout and counts the activations in the state."""
-    from tinynn_autograd_tpu_torch.nn.layers import Dense, Flatten
+    from tinynn_autograd_tpu_torch.nn.layers import Dense, Dropout, Flatten
     from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
-    from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam
 
+    dense = _dense_indices(net)
+    reason = _dropout_reason(net, dense) if dense else None
+    if reason is not None:
+        return reason
     prev_dense = False
     for layer in net.layers:
         if getattr(layer, "compute_dtype", None) is not None:
@@ -92,12 +140,11 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
                 return ("activation %s does not directly follow a Dense "
                         "layer" % layer.name)
             prev_dense = False
-        elif isinstance(layer, Flatten):
+        elif isinstance(layer, (Flatten, Dropout)):
             prev_dense = False
         else:
-            return "layer %s is not Dense, ReLU, Sigmoid, Tanh or Flatten" \
-                % type(layer).__name__
-    dense = _dense_indices(net)
+            return ("layer %s is not Dense, ReLU, Sigmoid, Tanh, Flatten or "
+                    "Dropout" % type(layer).__name__)
     if not dense:
         return "the net has no Dense layer"
     if len(dense) > MAX_LAYERS:
@@ -106,12 +153,14 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
             isinstance(layer, Flatten) for layer in net.layers[:dense[0]]):
         return ("inputs of shape %s reach the first Dense layer without a "
                 "Flatten" % (tuple(batch_shape),))
-    if type(optimizer) not in (SGD, Adam):
-        return "optimizer %s is not SGD or Adam" % type(optimizer).__name__
-    if callable(optimizer.lr) or not isinstance(optimizer.lr, numbers.Real):
-        return "the learning rate is not a number (a schedule?)"
-    if optimizer.clip_norm is not None:
-        return "clip_norm needs a global gradient norm"
+    if type(optimizer).__name__ not in OPTIMIZERS:
+        return "optimizer %s has no rule in the kernel" \
+            % type(optimizer).__name__
+    if not (callable(optimizer.lr) or isinstance(optimizer.lr,
+                                                 numbers.Real)):
+        return "the learning rate is neither a number nor a schedule"
+    if optimizer.clip_norm is not None and not optimizer.clip_norm > 0:
+        return "clip_norm %r is not positive" % (optimizer.clip_norm,)
     if type(loss) is not SoftmaxCrossEntropyLoss:
         return "loss %s is not SoftmaxCrossEntropyLoss" % type(loss).__name__
     for i in dense:
@@ -123,8 +172,9 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
     n_floats = sum(v.numel() for i in dense for v in params_tree[i].values())
     state = n_floats * (2 + len(optimizer.slot_names))  # + grads
     if batch_shape is not None:
-        widths = sum(params_tree[i]["w"].shape[1] for i in dense)
-        state += 3 * batch_shape[0] * widths  # z, h, dz
+        widths = sum((4 if rate else 3) * d_out
+                     for _, d_out, _, rate, _ in layer_descriptor(net))
+        state += batch_shape[0] * widths  # z, h, dz and a Dropout's output
     if 4 * state > STATE_BUDGET:
         return ("the state (%d bytes) exceeds the %d-byte budget"
                 % (4 * state, STATE_BUDGET))
@@ -138,31 +188,37 @@ def supports(net, params_tree, optimizer, loss, batch_shape=None):
 
 
 def layer_descriptor(net):
-    """(d_in, d_out, activation code) for each Dense layer, in order: what
-    the wrapper packs for the C side."""
-    dense = _dense_indices(net)
+    """(d_in, d_out, activation code, dropout rate, seed index) for each
+    Dense layer, in order: what the wrapper packs for the C side. The rate
+    is that of the Dropout after the Dense or its activation (0.0 without
+    one), the seed index its position among the layers ``Net.forward``
+    seeds (-1 without one)."""
+    from tinynn_autograd_tpu_torch.nn.layers import Dropout
+
+    seeded = [layer for layer in net.layers if hasattr(layer, "set_rng")]
     out = []
-    for i in dense:
-        layer = net.layers[i]
-        nxt = net.layers[i + 1] if i + 1 < len(net.layers) else None
-        act = _activation_code(nxt) if nxt is not None else None
-        d_in, d_out = (int(d) for d in layer.params["w"].shape)
-        out.append((d_in, d_out, ACT_NONE if act is None else act))
+    for i in _dense_indices(net):
+        following = net.layers[i + 1:i + 3]
+        act = _activation_code(following[0]) if following else None
+        after = following[1 if act is not None else 0:][:1]
+        rate, seed_index = 0.0, -1
+        if after and isinstance(after[0], Dropout):
+            rate = float(after[0].rate)
+            seed_index = seeded.index(after[0])
+        d_in, d_out = (int(d) for d in net.layers[i].params["w"].shape)
+        out.append((d_in, d_out, ACT_NONE if act is None else act, rate,
+                    seed_index))
     return out
 
 
 def epoch_spec(net, optimizer):
-    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
-
-    if isinstance(optimizer, Adam):
-        return EpochSpec(
-            tuple(layer_descriptor(net)), OPT_ADAM,
-            b1c=float(np.float32(1.0 - optimizer._b1)),
-            b2c=float(np.float32(1.0 - optimizer._b2)),
-            eps=float(np.float32(optimizer._eps)),
-            weight_decay=float(np.float32(optimizer.weight_decay)))
-    return EpochSpec(tuple(layer_descriptor(net)), OPT_SGD,
-                     weight_decay=float(np.float32(optimizer.weight_decay)))
+    code, consts = optimizer_constants(optimizer)
+    clip = optimizer.clip_norm
+    return EpochSpec(
+        tuple(layer_descriptor(net)), code,
+        slot_names=tuple(optimizer.slot_names), consts=consts,
+        weight_decay=float(np.float32(optimizer.weight_decay)),
+        clip_norm=0.0 if clip is None else float(np.float32(clip)))
 
 
 def dense_leaves(net, tree):
@@ -206,7 +262,7 @@ def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
                       for name in optimizer.slot_names},
                      xb, yb, scalars,
                      None if weight is None else weight.to(xb.device),
-                     bf16=kernels.matmul_precision() == "bf16")
+                     bf16=kernels.matmul_precision() == "bf16", t0=t0)
         return t0 + n_steps, losses
 
     return epoch_fn
@@ -238,15 +294,56 @@ def _activation_grad(act, g, z, h):
     return g
 
 
+def apply_rule(spec, p, g, slots, s0, s1):
+    """``csrc/optim_rules.cuh``'s rule in plain PyTorch: the optimizer's
+    step from gradient ``g`` (the rules of nn/optimizer.py, from the spec's
+    constants), weight decay, and ``p`` and ``slots`` (the rule's slot
+    tensors, in ``spec.slot_names`` order) updated in place."""
+    c0, c1, c2, c3 = spec.consts
+    rule = OPTIMIZERS[spec.optimizer]
+    if rule == "Momentum":
+        step = s0 * slots[0].mul_(c0).add_(g)
+    elif rule == "Adam":
+        m, v = slots
+        m.add_(c0 * (g - m))
+        v.add_(c1 * (g * g - v))
+        step = s0 * m / (torch.sqrt(v) * s1 + c2)
+    elif rule == "Lion":
+        m = slots[0]
+        u = torch.sign(c0 * m + c1 * g)
+        m.mul_(c2).add_(c3 * g)
+        step = s0 * u
+    elif rule == "RMSProp":
+        ms, mom = slots
+        ms.add_(c0 * (g * g - ms))
+        mom.mul_(c1).add_(s0 * g * torch.rsqrt(ms + c2))
+        step = -mom
+    elif rule == "Adagrad":
+        step = s0 * g * torch.rsqrt(slots[0].add_(g * g) + c0)
+    elif rule == "Adadelta":
+        eg, d = slots
+        eg.add_(c0 * (g * g - eg))
+        delta = g * torch.sqrt(d + c1) * torch.rsqrt(eg + c1)
+        d.add_(c0 * (delta * delta - d))
+        step = s0 * delta
+    else:
+        step = s0 * g
+    if spec.weight_decay:
+        step = step - spec.weight_decay * p
+    p.add_(step)
+
+
 def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
-                          class_weight=None, bf16=False):
+                          class_weight=None, bf16=False, t0=0):
     """The kernel's function in plain PyTorch: ``params`` ([(w, b)] per
-    Dense) and ``slots`` ({"m": [(w, b)], "v": [(w, b)]} for Adam, {} for
-    SGD) are updated in place over the ``n_steps`` steps of ``xb``
-    [n_steps, B, F] and ``yb`` [n_steps, B, C]; ``scalars`` [n_steps, 2]
-    are the optimizer's per-step scalars (``step_scalars``). Returns the
+    Dense) and ``slots`` ({name: [(w, b)]} for each of the rule's slots)
+    are updated in place over the ``n_steps`` steps of ``xb`` [n_steps, B,
+    F] and ``yb`` [n_steps, B, C]; ``scalars`` [n_steps, 2] are the
+    optimizer's per-step scalars (``step_scalars``), ``t0`` its step count
+    before the epoch (the Dropout seeds' steps start there). Returns the
     losses [n_steps]. With ``bf16`` each product operand is rounded to bf16
-    and the products are summed in f32."""
+    and the products are summed in f32. ``clip_norm`` scales the gradients
+    as ``update`` does, before the rule."""
     if bf16:
         def mm(a, b):
             return kernels.matmul_reference(a.to(torch.bfloat16).float(),
@@ -254,16 +351,25 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
     else:
         mm = kernels.matmul_reference
     n_steps, batch = xb.shape[0], xb.shape[1]
-    acts = [act for _, _, act in spec.layers]
+    acts = [layer[2] for layer in spec.layers]
+    slot_pairs = [slots[name] for name in spec.slot_names]
     losses = torch.empty(n_steps, dtype=torch.float32, device=xb.device)
     for s in range(n_steps):
+        t = t0 + s
         y = yb[s]
-        hs, zs = [xb[s]], []
-        for act, (w, b) in zip(acts, params):
-            zs.append(mm(hs[-1], w) + b)
+        ins, zs, hs, masks = [xb[s]], [], [], []
+        for (_, _, act, rate, idx), (w, b) in zip(spec.layers, params):
+            zs.append(mm(ins[-1], w) + b)
             hs.append(_activate(act, zs[-1]))
+            mask = None
+            out = hs[-1]
+            if rate:
+                out, mask = dropout.dropout_reference(
+                    out, rate, dropout.layer_seed(t, idx))
+            masks.append(mask)
+            ins.append(out)
         # softmax cross-entropy, as nn/losses.py and its tape
-        log_p = torch.log_softmax(hs[-1], dim=-1)
+        log_p = torch.log_softmax(ins[-1], dim=-1)
         nll = -(log_p * y).sum(dim=1, keepdim=True)
         g = torch.full((batch, 1), 1.0 / batch, device=xb.device)
         if class_weight is not None:
@@ -277,24 +383,26 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
         # backward: every gradient before any weight changes
         grads = [None] * len(params)
         for l in reversed(range(len(params))):
-            grads[l] = (mm(hs[l].T, dz), dz.sum(dim=0, keepdim=True))
+            grads[l] = (mm(ins[l].T, dz), dz.sum(dim=0, keepdim=True))
             if l > 0:
-                dz = _activation_grad(acts[l - 1], mm(dz, params[l][0].T),
-                                      zs[l - 1], hs[l])
+                g = mm(dz, params[l][0].T)
+                if masks[l - 1] is not None:
+                    scale = dropout.keep_scale(spec.layers[l - 1][3])[1]
+                    g = torch.where(masks[l - 1], g * scale, 0.0)
+                dz = _activation_grad(acts[l - 1], g, zs[l - 1], hs[l - 1])
+        if spec.clip_norm:
+            # as BaseOptimizer.update: the norm over every leaf, in the
+            # JAX package's leaf order (b before w)
+            total = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                   for gw, gb in grads for g in (gb, gw)))
+            clip = torch.clamp(spec.clip_norm / (total + 1e-6), max=1.0)
+            grads = [(gw * clip, gb * clip) for gw, gb in grads]
         # the optimizer, as nn/optimizer.py
-        scale, rsqrt_c2 = scalars[s, 0], scalars[s, 1]
+        s0, s1 = scalars[s, 0], scalars[s, 1]
         for l, (pair, grad_pair) in enumerate(zip(params, grads)):
             for j, (p, grad) in enumerate(zip(pair, grad_pair)):
-                if spec.optimizer == OPT_ADAM:
-                    m, v = slots["m"][l][j], slots["v"][l][j]
-                    m.add_(spec.b1c * (grad - m))
-                    v.add_(spec.b2c * (grad * grad - v))
-                    step = scale * m / (torch.sqrt(v) * rsqrt_c2 + spec.eps)
-                else:
-                    step = scale * grad
-                if spec.weight_decay:
-                    step = step - spec.weight_decay * p
-                p.add_(step)
+                apply_rule(spec, p, grad, [sp[l][j] for sp in slot_pairs],
+                           s0, s1)
     return losses
 
 
@@ -303,15 +411,15 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
 # --------------------------------------------------------------------------
 
 def _bind(lib, ctypes):
-    ptr = ctypes.c_void_p
+    ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_float)
     lib.tinynn_fused_epoch.argtypes = (
-        [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-         ctypes.POINTER(ctypes.c_void_p)] + [ptr] * 6
-        + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-        + [ctypes.c_int, ptr, ptr])
-    lib.tinynn_fused_epoch.restype = ctypes.c_int
-    lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.tinynn_fused_epoch_grid.restype = ctypes.c_int
+        [i32, ctypes.POINTER(i32), ctypes.POINTER(u32), ctypes.POINTER(f32),
+         ctypes.POINTER(ptr)] + [ptr] * 7 + [i32] * 3 + [u32, i32]
+        + [f32] * 6 + [i32, ptr, ptr])
+    lib.tinynn_fused_epoch.restype = i32
+    lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.tinynn_fused_epoch_grid.restype = i32
 
 
 def kernel_grid():
@@ -344,11 +452,11 @@ def phase_names(spec):
     n = len(spec.layers)
     return (["forward %d" % l for l in range(n)] + ["loss"]
             + ["backward %d" % l for l in reversed(range(n))]
-            + ["optimizer"])
+            + (["clip norm"] if spec.clip_norm else []) + ["optimizer"])
 
 
 def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
-                     class_weight=None, bf16=False, phase_ns=None):
+                     class_weight=None, bf16=False, t0=0, phase_ns=None):
     """``fused_epoch_reference``'s function through the hand-written CUDA
     kernel: one cooperative launch for the whole epoch, ``params`` and
     ``slots`` updated in place. Every tensor is a contiguous float32 CUDA
@@ -365,11 +473,11 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
     if not 1 <= n_layers <= MAX_LAYERS or len(params) != n_layers:
         raise ValueError("%d layers in the spec, %d parameter pairs (at most "
                          "%d)" % (n_layers, len(params), MAX_LAYERS))
-    adam = spec.optimizer == OPT_ADAM
-    if spec.optimizer not in (OPT_SGD, OPT_ADAM) or set(slots) != (
-            {"m", "v"} if adam else set()):
-        raise ValueError("optimizer %d with slots %s"
-                         % (spec.optimizer, sorted(slots)))
+    if not 0 <= spec.optimizer < len(OPTIMIZERS) or set(slots) != set(
+            spec.slot_names) or len(spec.slot_names) > 2:
+        raise ValueError("optimizer %d with slots %s, the spec has %s"
+                         % (spec.optimizer, sorted(slots),
+                            list(spec.slot_names)))
     if xb.ndim != 3 or yb.ndim != 3:
         raise ValueError("xb and yb must be [n_steps, batch, features]")
     n_steps, batch = xb.shape[0], xb.shape[1]
@@ -378,11 +486,12 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
     _check("scalars", scalars, device, (n_steps, 2))
     if class_weight is not None:
         _check("class_weight", class_weight, device, (spec.layers[-1][1],))
+    n_phases = len(phase_names(spec))
     if phase_ns is not None and (
             phase_ns.device != device or phase_ns.dtype != torch.int64
-            or tuple(phase_ns.shape) != (2 * n_layers + 2,)):
+            or tuple(phase_ns.shape) != (n_phases,)):
         raise ValueError("phase_ns must be an int64 [%d] tensor on %s"
-                         % (2 * n_layers + 2, device))
+                         % (n_phases, device))
     if not (0 < n_steps < 2 ** 31 and 0 < batch < 2 ** 31):
         raise ValueError("epoch of %d steps of %d rows is out of range"
                          % (n_steps, batch))
@@ -393,48 +502,62 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
     # queued: freed earlier, the caching allocator would hand one layer's
     # buffers to the next. After the launch it may reuse them: they were
     # allocated on the stream the kernel runs on.
-    dims, ptrs, scratch = [], [], []
+    dims, drops, drop_scales, ptrs, scratch = [], [], [], [], []
     prev_out = spec.layers[0][0]
-    for l, (d_in, d_out, act) in enumerate(spec.layers):
+    for l, (d_in, d_out, act, rate, idx) in enumerate(spec.layers):
         if d_in != prev_out or act not in (ACT_NONE, ACT_RELU, ACT_SIGMOID,
                                            ACT_TANH):
             raise ValueError("layer %d: (%d, %d, %d) does not chain"
                              % (l, d_in, d_out, act))
+        if rate and (l == n_layers - 1 or idx < 0
+                     or batch * d_out > dropout.MAX_ELEMENTS):
+            raise ValueError("layer %d: a Dropout (rate %r, seed index %d) "
+                             "the kernel cannot apply" % (l, rate, idx))
         prev_out = d_out
         w, b = params[l]
         _check("w%d" % l, w, device, (d_in, d_out))
         _check("b%d" % l, b, device, (1, d_out))
         leaves = [w, b, torch.empty_like(w), torch.empty_like(b)]
-        for name in ("m", "v"):
-            if adam:
-                sw, sb = slots[name][l]
-                _check("%s_w%d" % (name, l), sw, device, (d_in, d_out))
-                _check("%s_b%d" % (name, l), sb, device, (1, d_out))
-                leaves += [sw, sb]
-            else:
+        for name in list(spec.slot_names) + [None] * (
+                2 - len(spec.slot_names)):
+            if name is None:
                 leaves += [None, None]
+                continue
+            sw, sb = slots[name][l]
+            _check("%s_w%d" % (name, l), sw, device, (d_in, d_out))
+            _check("%s_b%d" % (name, l), sb, device, (1, d_out))
+            leaves += [sw, sb]
         z = torch.empty((batch, d_out), dtype=torch.float32, device=device)
         h = z if act == ACT_NONE else torch.empty_like(z)
-        leaves += [z, h, torch.empty_like(z)]
+        leaves += [z, h, torch.empty_like(z) if rate else None,
+                   torch.empty_like(z)]
         scratch.append(leaves)
-        dims += [d_in, d_out, act]
+        threshold, scale = dropout.keep_scale(rate)
+        dims += [d_in, d_out, act, int(bool(rate))]
+        drops += [max(idx, 0), threshold]
+        drop_scales.append(scale)
         ptrs += [0 if t is None else t.data_ptr() for t in leaves]
     losses = torch.empty(n_steps, dtype=torch.float32, device=device)
     row_loss = torch.empty(batch, dtype=torch.float32, device=device)
+    per_sm, sms = kernel_grid()
+    partial = torch.empty(per_sm * sms, dtype=torch.float32, device=device)
 
     lib = kernels.load_library("fused_epoch", _bind)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tinynn_fused_epoch(
             n_layers, (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_uint * len(drops))(*drops),
+            (ctypes.c_float * n_layers)(*drop_scales),
             (ctypes.c_void_p * len(ptrs))(*ptrs),
             xb.data_ptr(), yb.data_ptr(),
             0 if class_weight is None else class_weight.data_ptr(),
             scalars.data_ptr(), losses.data_ptr(), row_loss.data_ptr(),
-            batch, n_steps, spec.optimizer, spec.b1c, spec.b2c, spec.eps,
-            spec.weight_decay, int(bool(bf16)),
+            partial.data_ptr(), partial.numel(), batch, n_steps,
+            int(t0) & 0xFFFFFFFF, spec.optimizer, *spec.consts,
+            spec.weight_decay, spec.clip_norm, int(bool(bf16)),
             0 if phase_ns is None else phase_ns.data_ptr(), stream)
-    del scratch
+    del scratch, partial
     if err == 801:  # cudaErrorNotSupported
         raise RuntimeError("the device cannot launch cooperative kernels")
     if err != 0:

@@ -17,9 +17,10 @@ Dispatch policy
   - anything else: ``torch.matmul``, accumulating sub-32-bit floats in f32.
 
 Every kernel of the package (``csrc/<name>.cu``) is compiled with ``nvcc`` at
-first use into ``_build/`` beside this package, keyed by a hash of the source
-and flags, and loaded with ``ctypes`` (``build_library``/``load_library``).
-Nothing here imports ``ctypes`` or calls ``nvcc`` when the module is imported.
+first use into ``_build/`` beside this package, keyed by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``
+(``build_library``/``load_library``). Nothing here imports ``ctypes`` or
+calls ``nvcc`` when the module is imported.
 """
 
 import hashlib
@@ -107,11 +108,12 @@ def _find_nvcc():
 
 def build_library(name):
     """Compile ``csrc/<name>.cu`` unless a library built from the same
-    source and flags is already in ``_build/``. Returns ``(path,
-    compiler_log)``; the log is empty when nothing was compiled. Raises with
-    nvcc's stderr when the compile fails."""
+    source, the same shared headers and flags is already in ``_build/``.
+    Returns ``(path, compiler_log)``; the log is empty when nothing was
+    compiled. Raises with nvcc's stderr when the compile fails."""
     source_path = CSRC_DIR / ("%s.cu" % name)
-    source = source_path.read_bytes()
+    source = source_path.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / ("libtinynn_%s_%s.so" % (name, tag[:16]))
     if out.exists():

@@ -609,15 +609,39 @@ def _attn_dropout_seed(dropout_rate, dropout_rng):
     off."""
     if dropout_rate <= 0.0:
         return None
-    if dropout_rng is None:
+    return _dropout_seed(dropout_rng)
+
+
+def _dropout_seed(rng):
+    """A uint32 dropout seed: ``rng`` mod 2**32 when it is an int, else (for
+    None) a draw from the seeder's generator."""
+    if rng is None:
         from tinynn_autograd_tpu_torch.utils import seeder
 
         return int(torch.randint(0, 2 ** 32, (1,),
                                  generator=seeder.generator()))
-    if isinstance(dropout_rng, (int, np.integer)):
-        return int(dropout_rng) % 2 ** 32
-    raise TypeError("dropout_rng must be an int seed or None, got %r"
-                    % (dropout_rng,))
+    if isinstance(rng, (int, np.integer)):
+        return int(rng) % 2 ** 32
+    raise TypeError("a dropout seed must be an int or None, got %r" % (rng,))
+
+
+def dropout_(ts, rate, rng=None):
+    """Inverted dropout: zero with probability ``rate``, scale survivors by
+    1 / (1 - rate). The mask is the counter hash of ``ops/dropout.py`` over
+    the row-major flat index of ``ts`` (the JAX package's interpret-mode
+    megakernel mask), seeded by ``rng``: an int, or None for a draw from
+    the seeder's generator. On a CUDA tensor the forward is P1's kernel
+    (csrc/dropout.cu), on the CPU its plain version; the VJP is the same
+    select on the gradient."""
+    from tinynn_autograd_tpu_torch.ops import dropout
+
+    values, mask = dropout.dropout_forward(ts.data, rate, _dropout_seed(rng))
+    scale = dropout.keep_scale(rate)[1]
+
+    def grad_fn(grad):
+        return torch.where(mask, grad * scale, 0.0)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
 
 
 def concat_(tensors, axis=0):

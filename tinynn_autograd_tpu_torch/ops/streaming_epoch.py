@@ -36,14 +36,14 @@ import numpy as np
 import torch
 
 from tinynn_autograd_tpu_torch.ops import kernels
+from tinynn_autograd_tpu_torch.ops.optim_rules import (
+    OPTIMIZERS, optimizer_constants,
+)
 
 SOURCE = kernels.CSRC_DIR / "streaming_epoch.cu"
 
 # Activation codes of the kernel's C interface
 ACTIVATIONS = {"linear": 0, "relu": 1, "sigmoid": 2, "tanh": 3}
-# Optimizer codes of the kernel's C interface (Opt in the source)
-OPTIMIZERS = ("SGD", "Adam", "Momentum", "Lion", "RMSProp", "Adagrad",
-              "Adadelta")
 
 # The width rule, from the kernel: a warp's 32 lanes take 32 output columns
 # (or 32 consecutive k) at a time, so the width is a multiple of 32; each
@@ -128,24 +128,6 @@ def unsupported_reason(net, optimizer, batch_shape=None):
 def supports(net, optimizer, batch_shape=None):
     """Can the streaming tier train this (net, optimizer)?"""
     return unsupported_reason(net, optimizer, batch_shape) is None
-
-
-def optimizer_constants(optimizer):
-    """(code, (c0, c1, c2, c3)): the optimizer's code and its rule's
-    constants as the kernel reads them (``update_element`` in the source),
-    as the f32 values the plain rule multiplies by."""
-    o = optimizer
-    consts = {
-        "SGD": lambda: (),
-        "Momentum": lambda: (o._momentum,),
-        "Adam": lambda: (1.0 - o._b1, 1.0 - o._b2, o._eps),
-        "Lion": lambda: (o._b1, 1.0 - o._b1, o._b2, 1.0 - o._b2),
-        "RMSProp": lambda: (1.0 - o._decay, o._momentum, o._eps),
-        "Adagrad": lambda: (o._eps,),
-        "Adadelta": lambda: (1.0 - o._decay, o._eps),
-    }[type(o).__name__]()
-    return (OPTIMIZERS.index(type(o).__name__),
-            tuple(float(np.float32(c)) for c in consts + (0.0,) * 4)[:4])
 
 
 # --------------------------------------------------------------------------
