@@ -22,9 +22,12 @@ stacked-LSTM sequence classifier (bench_all.py's config 8: 64 features,
 two LSTM layers of 256, 16 classes, T=128; batch 64, Adam 1e-3, random
 weights from seed 77, 2,048 sequences from numpy seed 0) runs through the
 recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
+K7, the fused transformer-block forward (csrc/block_fwd.cu), runs
+bench_block_probe_torch.py's probe at config 6's block (B 32, T 128, D
+256, 8 heads, causal or not), a T=512 causal block and 6b's block.
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles the seven libraries from csrc/ (one nvcc each, started
+2. build: compiles the eight libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
@@ -140,6 +143,16 @@ recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
    same weights (losses within rtol 1e-4); a timed impl="plain" epoch; one
    GRU epoch and one two-layer Bidirectional LSTM epoch at the same widths,
    each with its launch counts.
+11a. block forward vs plain: bench_block_probe_torch.py's ``probe_shape``
+   at its four shapes (the launch counts set to 0 before each shape and
+   read after it): K7 against ``block_fwd_reference`` and against the tape
+   block's forward (``attn="fused"``), and ``TransformerEncoderLayer``
+   with the same weights against the plain version, each at rtol 1e-4 and
+   an atol of 1e-4 of the plain output's largest value; at config 6's
+   block and 6b's the times of the kernel, the tape forward, the library
+   call and the plain version (``device_us``, TF32 off) beside the bound,
+   and K7's time in each of its phases. Then at each shape two more
+   launches: bit-identical, one launch each.
 12. trace: torch.profiler over 50 step-loop train steps (device busy share,
    the kernels that take the device time), over one K2 epoch, over one
    stream epoch (busy share, K3 and K3b device time a step), over 10
@@ -184,13 +197,15 @@ from tinynn_autograd_tpu_torch.nn.optimizer import (  # noqa: E402
 )
 from tinynn_autograd_tpu_torch.nn.scheduler import WarmupCosineLR  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import (  # noqa: E402
-    attention, dropout, fused_epoch, kernels, mega_probe,
+    attention, block_kernel, dropout, fused_epoch, kernels, mega_probe,
 )
 from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
+from tinynn_autograd_tpu_torch.utils.timing import device_us  # noqa: E402
 
+import bench_block_probe_torch as block_bench  # noqa: E402
 import bench_mega_probe_torch as probe_bench  # noqa: E402
 
 BATCH = 128
@@ -262,9 +277,6 @@ STEPS_SEED = 7
 # outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# device_us's spin: the H100's top SM clock, 1,980 MHz; a lower clock only
-# makes the spin longer
-SPIN_CYCLES_PER_S = 1.98e9
 # Config 6b of bench_all.py (bench_transformer_long): the long-context causal
 # transformer classifier, 7.49 M parameters, head dim 64; batch 4, Adam 1e-3,
 # 256 sequences of random tokens (64 steps an epoch) and random labels from
@@ -329,6 +341,11 @@ DROPOUT_RATE = 0.3
 DROPOUT_SHAPES = {"tile_seed1": ((256, 256), 1), "tile_seed2": ((256, 256), 2),
                   "flagship": ((BATCH, 200), 7),
                   "config6b": ((4, 2048, 512), 3000 * 1000003 + 1)}
+
+# K7's probe: bench_block_probe_torch.py's shapes; the times at config 6's
+# block and 6b's, the kernels line's numbers at 6b's
+BLOCK_TIMED = ("config6", "config6b")
+BLOCK_MAIN = "config6b"
 
 
 def phase(name):
@@ -420,51 +437,6 @@ def device_kernels(prof):
     return [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA]
-
-
-def device_us(fn, reps=50, attempts=4):
-    """Device time per call: CUDA events around groups of calls, each group
-    queued behind a spin kernel (``torch.cuda._sleep``) that lasts until
-    the host has queued it all, so the card runs the calls back to back
-    with no wait for the host between them. If the card reached a group's
-    first call before the host had queued its last (the host waits when
-    the card's launch queue is full), the groups are cut to a quarter
-    and all ``reps`` calls taken again; after ``attempts`` such runs the
-    measurement fails. (torch.profiler, used here before, missed whole
-    kernels on the H100 machine: over 5 calls its device time read 19-99%
-    of the events' time, near whole fifths, and in one run it saw no kernel
-    at all.)"""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    call_s = (time.perf_counter() - t0) / reps
-    group = reps
-    for _ in range(attempts):
-        total_ms, done = 0.0, 0
-        while done < reps:
-            n = min(group, reps - done)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(int((2.0 * n * call_s + 1e-3)
-                                  * SPIN_CYCLES_PER_S))
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            caught_up = start.query()
-            torch.cuda.synchronize()
-            if caught_up:
-                break
-            total_ms += start.elapsed_time(end)
-            done += n
-        if done == reps:
-            return total_ms * 1000.0 / reps
-        group = max(1, group // 4)
-    raise AssertionError("the card caught up with the host in %d runs"
-                         % attempts)
 
 
 def check_kernel(device):
@@ -686,7 +658,8 @@ def _wrappers():
             "gru_forward": rk.cuda_gru_forward,
             "gru_backward": rk.cuda_gru_backward,
             "dropout": dropout.cuda_dropout,
-            "mega_probe": mega_probe.cuda_mega_probe}
+            "mega_probe": mega_probe.cuda_mega_probe,
+            "block_forward": block_kernel.cuda_block_fwd}
 
 
 def launch_counts():
@@ -2686,6 +2659,78 @@ def run_transformer_dropout(device):
     return counts, steps / epoch_s
 
 
+def check_block(device):
+    """K7 through the probe's entry point, ``probe_shape``, at its four
+    shapes, each shape's launch counts set to 0 before it and read after
+    it: K7 at least once and nothing but K7 and the tape forward's
+    attention kernel; the kernel held to its plain version and to the tape
+    forward, the library call to the plain version (the probe's tolerance);
+    the timed shapes' times beside the bound. Then two more launches at
+    each shape, bit-identical, each counted once. Returns K7's launches in
+    the probe's runs and the kernels-line numbers (at 6b's block)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, launches = {}, 0
+    for name in block_bench.CONFIGS:
+        zero_counts()
+        rows[name] = block_bench.probe_shape(name, device,
+                                             timed=name in BLOCK_TIMED)
+        counts = launch_counts()
+        print("  %s" % json.dumps(rows[name]))
+        others = {k: v for k, v in counts.items()
+                  if v and k not in ("block_forward", "attention_forward")}
+        if counts["block_forward"] < 1 or others:
+            raise AssertionError("%s: launch counts %s" % (name, counts))
+        launches += counts["block_forward"]
+    for name in BLOCK_TIMED:
+        row = rows[name]
+        print("%s (%s): K7 %.2f us, %.1f%% of its %.2f us bound (%s); the "
+              "tape forward %.2f us (vs_tape %.3f), TransformerEncoderLayer "
+              "%.2f us, the plain version %.2f us"
+              % (name, row["shape"], row["kernel_us"],
+                 100.0 * row["bound_us"] / row["kernel_us"], row["bound_us"],
+                 row["bound_by"], row["tape_us"], row["vs_tape"],
+                 row["library_us"], row["plain_us"]))
+    for name, (b, t, d, heads, causal) in block_bench.CONFIGS.items():
+        _, params, x = block_bench.build(b, t, d, heads, causal, device)
+        before = block_kernel.cuda_block_fwd.launches
+        first = block_kernel.cuda_block_fwd(x, params, heads, causal=causal)
+        second = block_kernel.cuda_block_fwd(x, params, heads, causal=causal)
+        torch.cuda.synchronize()
+        if block_kernel.cuda_block_fwd.launches != before + 2:
+            raise AssertionError("%s: two calls, %d launches counted"
+                                 % (name, block_kernel.cuda_block_fwd.launches
+                                    - before))
+        if not torch.equal(first, second):
+            raise AssertionError("%s: a rerun differs" % name)
+    for name in BLOCK_TIMED:
+        b, t, d, heads, causal = block_bench.CONFIGS[name]
+        _, params, x = block_bench.build(b, t, d, heads, causal, device)
+        phase_ns = torch.zeros(len(block_kernel.PHASES), dtype=torch.int64,
+                               device=device)
+        block_kernel.cuda_block_fwd(x, params, heads, causal=causal,
+                                    phase_ns=phase_ns)
+        torch.cuda.synchronize()
+        us = phase_ns.cpu().numpy() / 1e3
+        print("K7 at %s by phase (block 0's globaltimer, one launch): %s; "
+              "sum %.2f us" % (name, ", ".join(
+                  "%s %.2f" % kv for kv in zip(block_kernel.PHASES, us)),
+                  us.sum()))
+    for hd in sorted({d // heads for _, _, d, heads, _
+                      in block_bench.CONFIGS.values()}):
+        per_sm, sms, smem = block_kernel.kernel_grid(hd)
+        print("K7 grid at head dim %d: %d blocks/SM x %d SMs, %d bytes of "
+              "shared memory a block" % (hd, per_sm, sms, smem))
+    print("K7 reruns bit-identical at the four shapes, one launch a call; "
+          "%d launches in the probe's runs" % launches)
+    main = rows[BLOCK_MAIN]
+    return launches, dict(
+        max_abs_err=max(r["max_abs_err_vs_plain"] for r in rows.values()),
+        ms=main["kernel_us"] / 1e3, plain_ms=main["plain_us"] / 1e3,
+        bound_ms=main["bound_us"] / 1e3, bound_by=main["bound_by"],
+        library_ms=main["library_us"] / 1e3)
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -2699,7 +2744,7 @@ def main():
 
     phase("build")
     names = ("matmul", "fused_epoch", "streaming_epoch", "attention",
-             "recurrent", "dropout", "mega_probe")
+             "recurrent", "dropout", "mega_probe", "block_fwd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
@@ -2783,6 +2828,9 @@ def main():
     phase("recurrent slice")
     rmodel, rx_dev, ry_dev, r_launches, _ = run_rnn_slice(device)
 
+    phase("block forward vs plain")
+    block_counts, k7 = check_block(device)
+
     phase("trace")
     run_trace(smodel, sx, sy)
     run_fused_trace(fmodel, fx, fy)
@@ -2846,7 +2894,11 @@ def main():
         dict({"name": "mega_probe", "route": "cuda",
               "source": "tinynn_autograd_tpu_torch/csrc/mega_probe.cu",
               "replaces": "bench_mega_probe.py:36",
-              "launches": probe_counts["mega_probe"]}, **p2)]}))
+              "launches": probe_counts["mega_probe"]}, **p2),
+        dict({"name": "block_forward", "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/block_fwd.cu",
+              "replaces": "tinynn_autograd_tpu/ops/block_kernel.py:51",
+              "launches": block_counts}, **k7)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """The CUDA kernels on the card: the matmul (K1), the whole-epoch kernel
 (K2, with Dropout and the seven optimizer rules), the weight-streaming
 kernels (K3, K3b), the flash-attention kernels (K4's forward, K4b-d's dq and
-dk/dv), the recurrent kernels (K5-K5d), the dropout pass (P1) and the
-optimizer-only probe (P2). Tests marked ``cuda``; they skip without a CUDA
-device, since the kernels have no CPU mode.
+dk/dv), the recurrent kernels (K5-K5d), the dropout pass (P1), the
+optimizer-only probe (P2) and the fused transformer-block forward (K7).
+Tests marked ``cuda``; they skip without a CUDA device, since the kernels
+have no CPU mode.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -911,3 +912,88 @@ def test_cuda_mega_probe_matches_reference(name):
     for i, (a, b) in enumerate(pairs):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-5, atol=1e-9, err_msg="leaf %d" % i)
+
+
+# K7 at bench_block_probe_torch.py's shapes: (B, T, D, heads, causal)
+BLOCK_SHAPES = {"config6": (32, 128, 256, 8, False),
+                "config6_causal": (32, 128, 256, 8, True),
+                "t512_causal": (8, 512, 256, 8, True),
+                "config6b": (4, 2048, 512, 8, True)}
+
+
+def _block_inputs(b, t, d, heads, causal, dev):
+    from tinynn_autograd_tpu_torch.nn.layers import TransformerBlock
+    from tinynn_autograd_tpu_torch.ops import block_kernel
+
+    blk = TransformerBlock(dim=d, num_heads=heads, causal=causal, seed=3)
+    params = {k: v.to(dev) for k, v in block_kernel.block_params(blk).items()}
+    x = np.random.RandomState(0).randn(b, t, d).astype(np.float32) * 0.5
+    return params, torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BLOCK_SHAPES))
+def test_cuda_block_fwd_matches_reference(name):
+    """rtol 1e-4 and an atol of 1e-4 of the plain output's largest value:
+    f32 sums of depth up to 4D = 2048 in another order."""
+    from tinynn_autograd_tpu_torch.ops import block_kernel
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, t, d, heads, causal = BLOCK_SHAPES[name]
+    params, x = _block_inputs(b, t, d, heads, causal, dev)
+    before = block_kernel.cuda_block_fwd.launches
+    got = block_kernel.cuda_block_fwd(x, params, heads, causal=causal)
+    again = block_kernel.block_fwd(x, params, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert block_kernel.cuda_block_fwd.launches == before + 2
+    assert torch.equal(got, again)
+    want = block_kernel.block_fwd_reference(x, params, heads, causal=causal)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+        atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, match", [
+    ("f64", "takes float32"), ("non_contiguous", "contiguous"),
+    ("heads", "not a multiple of heads"), ("head_dim", "exceeds"),
+    ("param_device", "is on cpu")])
+def test_cuda_block_fwd_refuses(case, match):
+    from tinynn_autograd_tpu_torch.ops import block_kernel
+
+    dev = _cuda()
+    d, heads = (264, 2) if case == "head_dim" else (32, 4)
+    params, x = _block_inputs(2, 8, d, heads, False, dev)
+    if case == "f64":
+        x = x.double()
+    elif case == "non_contiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "heads":
+        heads = 3
+    elif case == "param_device":
+        params["wo"] = params["wo"].cpu()
+    before = block_kernel.cuda_block_fwd.launches
+    with pytest.raises(ValueError, match=match):
+        block_kernel.cuda_block_fwd(x, params, heads)
+    assert block_kernel.cuda_block_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_block_fwd_phase_clock():
+    """Block 0's clock adds a positive time to each of the seven phases and
+    changes nothing in the output."""
+    from tinynn_autograd_tpu_torch.ops import block_kernel
+
+    dev = _cuda()
+    b, t, d, heads, causal = BLOCK_SHAPES["config6_causal"]
+    params, x = _block_inputs(b, t, d, heads, causal, dev)
+    phase_ns = torch.zeros(len(block_kernel.PHASES), dtype=torch.int64,
+                           device=dev)
+    timed = block_kernel.cuda_block_fwd(x, params, heads, causal=causal,
+                                        phase_ns=phase_ns)
+    plain = block_kernel.cuda_block_fwd(x, params, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(timed, plain)
+    assert (phase_ns.cpu() > 0).all()
