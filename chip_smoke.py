@@ -24,10 +24,15 @@ weights from seed 77, 2,048 sequences from numpy seed 0) runs through the
 recurrent kernels (csrc/recurrent.cu: K5 and K5b; the GRU's K5c and K5d).
 K7, the fused transformer-block forward (csrc/block_fwd.cu), runs
 bench_block_probe_torch.py's probe at config 6's block (B 32, T 128, D
-256, 8 heads, causal or not), a T=512 causal block and 6b's block.
+256, 8 heads, causal or not), a T=512 causal block and 6b's block. The
+flagship trained data-parallel (BASELINE.json configuration 5: 4 ranks
+sharing the card, global batch 128) runs through K2 with its gradient ring
+(K6, csrc/fused_epoch.cu with csrc/ring.cuh); P3, the ring alone
+(csrc/ring_allreduce.cu), at the JAX test's shape and the flagship's
+gradients.
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build: compiles the eight libraries from csrc/ (one nvcc each, started
+2. build: compiles the nine libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
 3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
@@ -99,6 +104,26 @@ bench_block_probe_torch.py's probe at config 6's block (B 32, T 128, D
    launched 14 times per train step plus 5 per forward, and K2 never.
    Each path's launch counts are set to 0 before it and read after it.
    Both epochs' steps/s; the two accuracies within 0.02.
+6a. data parallel: K6 and P3 vs plain. P3 at tests/test_dp_megakernel.py's
+   8 ranks of [8, 128] (arange) against the sum (rtol 1e-6) and its plain
+   version bit for bit, and at 4 ranks of the flagship's 186,610 gradient
+   floats bit for bit; each rerun with one rank held back 200 us before its
+   first hop, bit-identical; the kernel's, the plain version's and
+   torch.stack(xs).sum(0)'s device times; the main path ``ring_all_reduce``
+   at both shapes, counted. K2 with K6 on 4 ranks of 32 rows over the 10
+   pinned steps (seed-1 weights; data seed 5, and 15 for the Dropout
+   flagship: on seed 5 a ReLU input of a rank lies within rounding of 0):
+   every rank's losses and state at K2's gates, a rerun and a rerun with
+   rank 1 held back bit-identical; one rank through the ranked wrapper
+   bit for bit with K2; the kernel's and the plain version's ms for a
+   390-step epoch of 4 ranks, the time by phase (the ring's us/step) beside
+   its bound. Then the main path: ``DataParallel(Model(build_mnist_mlp(),
+   ...), mesh=make_mesh(devices=[cuda] * 4)).train_epochs(fused="auto")``
+   from seed 0 on synthetic MNIST 50,000/10,000: one ranked K2 launch an
+   epoch, accuracy above 0.9 after the first, the replica spread, two more
+   epochs timed; one fused=False epoch (the step tier: 56 K1 launches a
+   step), its accuracy within 0.02; one epoch of the Dropout flagship
+   through K2 with K6. Steps/s of both tiers beside single-rank K2's.
 7. deep slice: ``Model(build_deep_mlp(stacked=True), ..., Adam(1e-3),
    device="cuda").train_epochs(fused="auto")`` from seed 0, three epochs
    of 20 steps: K3 and K3b once a step, K2 never, K1 5 a step (prefix and
@@ -198,9 +223,11 @@ from tinynn_autograd_tpu_torch.nn.optimizer import (  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.scheduler import WarmupCosineLR  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import (  # noqa: E402
     attention, block_kernel, dropout, fused_epoch, kernels, mega_probe,
+    ring_allreduce,
 )
 from tinynn_autograd_tpu_torch.ops import recurrent_kernel as rk  # noqa: E402
 from tinynn_autograd_tpu_torch.ops import streaming_epoch as se  # noqa: E402
+from tinynn_autograd_tpu_torch.parallel import DataParallel, make_mesh  # noqa: E402
 from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.timing import device_us  # noqa: E402
@@ -346,6 +373,17 @@ DROPOUT_SHAPES = {"tile_seed1": ((256, 256), 1), "tile_seed2": ((256, 256), 2),
 # block and 6b's, the kernels line's numbers at 6b's
 BLOCK_TIMED = ("config6", "config6b")
 BLOCK_MAIN = "config6b"
+# data parallel (BASELINE.json configuration 5): ranks sharing the card, the
+# global batch of 128 split among them; P3 at tests/test_dp_megakernel.py's
+# shape (n ranks, each's [8, 128])
+DP_RANKS = 4
+DP_LOCAL = BATCH // DP_RANKS
+RING_JAX = (8, (8, 128))
+RING_SKEW_US = 200.0  # the hold of one rank before its first hop
+# the Dropout flagship's K6 hold: on data seed 5 a rank's ReLU input comes
+# within rounding of 0 and one weight moves past the state gate
+# (`k2_seed_scan.py --device cpu --ranks` ranks the seeds)
+K6_DROPOUT_DATA_SEED = 15
 
 
 def phase(name):
@@ -659,7 +697,9 @@ def _wrappers():
             "gru_backward": rk.cuda_gru_backward,
             "dropout": dropout.cuda_dropout,
             "mega_probe": mega_probe.cuda_mega_probe,
-            "block_forward": block_kernel.cuda_block_fwd}
+            "block_forward": block_kernel.cuda_block_fwd,
+            "ring_all_reduce": ring_allreduce.cuda_ring_all_reduce,
+            "fused_epoch_ring": fused_epoch.cuda_fused_epoch_ranks}
 
 
 def launch_counts():
@@ -2731,6 +2771,351 @@ def check_block(device):
         library_ms=main["library_us"] / 1e3)
 
 
+# --------------------------------------------------------------------------
+# data parallel: K6 (the ranked K2's gradient ring) and P3 (the ring alone)
+# --------------------------------------------------------------------------
+
+def ring_cost(n, length):
+    """(FLOPs, bytes) of the all-reduce of n buffers of ``length`` floats:
+    each rank's n - 1 adds; each input read once, each output written
+    once."""
+    return float(n * (n - 1) * length), 8.0 * n * length
+
+
+def dp_epoch_cost(spec, n_steps, local_batch, n_ranks):
+    """(FLOPs, bytes) of a ranked whole-epoch launch: the products of a
+    global batch of n_ranks x local_batch (as ``epoch_cost``) and the
+    ring's adds and scaling; the batches, each rank's losses, and each
+    rank's parameters and slots read once and written once."""
+    flops, _ = epoch_cost(spec, n_steps, n_ranks * local_batch)
+    leaves = sum(d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)
+    flops += float(n_steps * n_ranks * n_ranks * leaves)
+    n_state = 1 + len(spec.slot_names)
+    n_bytes = 4.0 * (n_steps * n_ranks * local_batch
+                     * (spec.layers[0][0] + spec.layers[-1][1])
+                     + n_ranks * n_steps + n_ranks * 2 * n_state * leaves)
+    return flops, n_bytes
+
+
+def check_ring(device):
+    """P3: the ring at the JAX test's shape (8 ranks of [8, 128], arange)
+    against the sum (rtol 1e-6) and its plain version bit for bit; at the
+    flagship's gradients (4 ranks of 186,610 floats) against its plain
+    version bit for bit; each rerun with one rank held back RING_SKEW_US
+    before its first hop, bit-identical. Then the kernel's, the plain
+    version's and torch.stack(xs).sum(0)'s device times, and the main path:
+    ``ring_all_reduce`` at both shapes, counted. Returns the launch counts
+    and the kernels-line numbers (flagship shape)."""
+    n, shape = RING_JAX
+    x = torch.arange(n * int(np.prod(shape)), dtype=torch.float32,
+                     device=device).reshape((n,) + shape)
+    jax_xs = list(x.unbind(0))
+    n_grad = sum(d_in * d_out + d_out for d_in, d_out in LAYERS)
+    gen = torch.Generator().manual_seed(0)
+    grad_xs = [(1e-3 * torch.randn(n_grad, generator=gen)).to(device)
+               for _ in range(DP_RANKS)]
+    for what, xs, skew_rank in (("JAX's 8 x [8, 128]", jax_xs, 3),
+                                ("the flagship's 4 x [186610]", grad_xs, 2)):
+        got = ring_allreduce.cuda_ring_all_reduce(xs)
+        skewed = ring_allreduce.cuda_ring_all_reduce(
+            xs, skew=(skew_rank, RING_SKEW_US))
+        torch.cuda.synchronize()
+        want = ring_allreduce.ring_all_reduce_reference(xs)
+        total = torch.stack(xs).sum(0)
+        for r in range(len(xs)):
+            if not torch.equal(got[r], want[r]):
+                raise AssertionError("%s: rank %d differs from the plain "
+                                     "version" % (what, r))
+            if not torch.equal(skewed[r], got[r]):
+                raise AssertionError("%s: rank %d differs with rank %d held "
+                                     "back" % (what, r, skew_rank))
+            np.testing.assert_allclose(got[r].cpu().numpy(),
+                                       total.cpu().numpy(), rtol=1e-6,
+                                       atol=1e-9 * len(xs),
+                                       err_msg="%s rank %d" % (what, r))
+        spread = max(float((g - got[0]).abs().max()) for g in got)
+        print("  %s: bit for bit with the plain version, and with rank %d "
+              "held back %.0f us; largest |rank r - rank 0| %.3g, |rank 0 - "
+              "torch.stack(xs).sum(0)| %.3g (rtol 1e-6)"
+              % (what, skew_rank, RING_SKEW_US, spread,
+                 float((got[0] - total).abs().max())))
+    xs = grad_xs
+    us = [device_us(f) for f in (
+        lambda: ring_allreduce.ring_all_reduce_reference(xs),
+        lambda: ring_allreduce.cuda_ring_all_reduce(xs),
+        lambda: ring_allreduce.cuda_ring_all_reduce(xs),
+        lambda: ring_allreduce.ring_all_reduce_reference(xs))]
+    kernel_us, plain_us = (us[1] + us[2]) / 2, (us[0] + us[3]) / 2
+    lib_us = device_us(lambda: torch.stack(xs).sum(0))
+    bound_ms, bound_by = bound(*ring_cost(DP_RANKS, n_grad))
+    print("  4 x [%d]: kernel %.2f us (turns %.2f, %.2f), plain %.2f us, "
+          "torch.stack(xs).sum(0) %.2f us (device time, CUDA events); bound "
+          "%.3f us (%s-bound), kernel at %.1f%% of it"
+          % (n_grad, kernel_us, us[1], us[2], plain_us, lib_us,
+             1e3 * bound_ms, bound_by, 100.0 * 1e3 * bound_ms / kernel_us))
+    zero_counts()
+    ring_allreduce.ring_all_reduce(jax_xs)
+    ring_allreduce.ring_all_reduce(grad_xs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != only(ring_all_reduce=2):
+        raise AssertionError("ring_all_reduce made %s launches" % counts)
+    return counts, dict(max_abs_err=0.0, ms=kernel_us / 1e3,
+                        plain_ms=plain_us / 1e3, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_us / 1e3)
+
+
+def rank_shards(xb, yb):
+    """Each global batch of [n_steps, 128, ...] split into DP_RANKS shards
+    of DP_LOCAL rows: [DP_RANKS, n_steps, DP_LOCAL, ...]."""
+    def split(t):
+        return t.reshape((t.shape[0], DP_RANKS, DP_LOCAL)
+                         + tuple(t.shape[2:])).transpose(0, 1).contiguous()
+
+    return split(xb), split(yb)
+
+
+def k6_state_run(fn, net, opt, spec, xs, ys, t0=0, **kw):
+    """One ranked epoch of ``fn`` (the kernel's wrapper or its plain
+    version), every rank from fresh copies of the net's weights and zero
+    slots: (losses [R, n_steps], each rank's leaves)."""
+    states = [fresh_state(net, opt) for _ in range(xs.shape[0])]
+    scalars = torch.from_numpy(opt.step_scalars(t0, xs.shape[1])).to(
+        xs.device)
+    losses = fn(spec, [fused_epoch.dense_leaves(net, p) for p, _ in states],
+                [{k: fused_epoch.dense_leaves(net, v) for k, v in s.items()}
+                 for _, s in states], xs, ys, scalars, t0=t0, **kw)
+    return losses.cpu().numpy(), [[t.cpu().numpy().copy()
+                                   for t in leaves_of(*state)]
+                                  for state in states]
+
+
+def hold_k6(what, net, opt, xs, ys):
+    """The ranked kernel against its plain version over the batches of xs
+    (every rank's losses and state at K2's gates), a rerun and a rerun with
+    one rank held back, both bit-identical. Returns the max abs error and
+    the kernel's largest |rank r - rank 0| over the state."""
+    spec = fused_epoch.epoch_spec(net, opt)
+    got, got_state = k6_state_run(fused_epoch.cuda_fused_epoch_ranks, net,
+                                  opt, spec, xs, ys)
+    want, want_state = k6_state_run(fused_epoch.fused_epoch_reference, net,
+                                    opt, spec, xs, ys)
+    np.testing.assert_allclose(got, want, err_msg=what + " losses",
+                               **LOSS_TOL)
+    worst = float(np.max(np.abs(got - want)))
+    for r, (ranks_a, ranks_b) in enumerate(zip(got_state, want_state)):
+        for i, (a, b) in enumerate(zip(ranks_a, ranks_b)):
+            np.testing.assert_allclose(a, b, err_msg="%s rank %d state leaf "
+                                       "%d" % (what, r, i), **STATE_TOL)
+            worst = max(worst, float(np.max(np.abs(a - b))))
+    spread = max(float(np.max(np.abs(a - b))) for state in got_state[1:]
+                 for a, b in zip(state, got_state[0]))
+    for kw in ({}, {"skew": (1, RING_SKEW_US)}):
+        again, again_state = k6_state_run(
+            fused_epoch.cuda_fused_epoch_ranks, net, opt, spec, xs, ys, **kw)
+        if not (np.array_equal(got, again) and all(
+                np.array_equal(a, b) for sa, sb in zip(got_state, again_state)
+                for a, b in zip(sa, sb))):
+            raise AssertionError("%s: a rerun%s differs" % (
+                what, " with rank 1 held back" if kw else ""))
+    print("  %s, %d ranks x %d steps of %d rows: max abs err %.3g over every "
+          "rank's losses, parameters and slots (tol losses rtol 1e-5 atol "
+          "1e-6, state rtol 1e-4 atol 1e-5); reruns bit-identical, also with "
+          "rank 1 held back %.0f us a step; largest |rank r - rank 0| %.3g"
+          % (what, xs.shape[0], xs.shape[1], xs.shape[2], worst,
+             RING_SKEW_US, spread))
+    return worst, spread
+
+
+def check_k6(device, k2_ms):
+    """K2 with the K6 ring on the card: 4 ranks of 32 rows over the 10 pinned
+    parity steps (seed-1 weights, data seed 5), the flagship and the
+    Dropout flagship, against the plain version; one rank through the
+    ranked wrapper equal to K2 bit for bit; then at the main path's shape
+    (4 ranks x 390 steps of 32) the kernel's and the plain version's ms an
+    epoch beside single-rank K2's and the bound, and the time by phase.
+    Returns the max abs error and the kernels-line numbers."""
+    with seeder.scope(1):
+        net = build_mnist_mlp().to(device)
+    with seeder.scope(1):
+        drop_net = dropout_flagship(DROPOUT_RATE).to(device)
+    opt = Adam(1e-3)
+    xb, yb = parity_batches(device, 10)
+    xs, ys = rank_shards(xb, yb)
+    err, spread = hold_k6("flagship", net, opt, xs, ys)
+    drop_err, _ = hold_k6("Dropout flagship", drop_net, opt, *rank_shards(
+        *parity_batches(device, 10, K6_DROPOUT_DATA_SEED)))
+    spec = fused_epoch.epoch_spec(net, opt)
+    one, one_state = k6_state_run(fused_epoch.cuda_fused_epoch_ranks, net,
+                                  opt, spec, xb[None], yb[None])
+    single, single_state = k2_state_run(fused_epoch.cuda_fused_epoch, net,
+                                        opt, spec, xb, yb)
+    if not (np.array_equal(one[0], single) and all(
+            np.array_equal(a, b) for a, b in zip(one_state[0],
+                                                 single_state))):
+        raise AssertionError("one rank through the ranked wrapper differs "
+                             "from K2")
+    print("  one rank of 128 rows through the ranked wrapper: bit for bit "
+          "with K2 over the 10 steps")
+
+    (x, y), _ = synthetic_mnist(EPOCH_STEPS * BATCH, 10)
+    xe, ye = rank_shards(
+        torch.from_numpy(x).to(device).reshape(EPOCH_STEPS, BATCH, 784),
+        torch.from_numpy(one_hot(y)).to(device).reshape(EPOCH_STEPS, BATCH,
+                                                         10))
+    se = torch.from_numpy(opt.step_scalars(0, EPOCH_STEPS)).to(device)
+    states = [fresh_state(net, opt) for _ in range(DP_RANKS)]
+    params = [fused_epoch.dense_leaves(net, p) for p, _ in states]
+    slots = [{k: fused_epoch.dense_leaves(net, v) for k, v in s.items()}
+             for _, s in states]
+
+    def kernel(**kw):
+        fused_epoch.cuda_fused_epoch_ranks(spec, params, slots, xe, ye, se,
+                                           **kw)
+
+    def plain():
+        fused_epoch.fused_epoch_reference(spec, params, slots, xe, ye, se)
+
+    kernel()  # warm-up
+    p1, k1, k2, p2 = (epoch_ms(plain, 1), epoch_ms(kernel, 3),
+                      epoch_ms(kernel, 3), epoch_ms(plain, 1))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bound_ms, bound_by = bound(*dp_epoch_cost(spec, EPOCH_STEPS, DP_LOCAL,
+                                              DP_RANKS))
+    print("  a %d-step epoch on %d ranks of %d rows: kernel %.3f ms (%.2f "
+          "us/step; turns %.3f, %.3f), plain %.1f ms (turns %.1f, %.1f); "
+          "single-rank K2 at batch 128 %.3f ms; bound %.3f ms (%s-bound), "
+          "kernel at %.2f%% of it"
+          % (EPOCH_STEPS, DP_RANKS, DP_LOCAL, ms, 1e3 * ms / EPOCH_STEPS, k1,
+             k2, plain_ms, p1, p2, k2_ms, bound_ms, bound_by,
+             100.0 * bound_ms / ms))
+    names = fused_epoch.phase_names(spec, DP_RANKS)
+    phase_ns = torch.zeros(len(names), dtype=torch.int64, device=device)
+    kernel(phase_ns=phase_ns)
+    per_step = phase_ns.cpu().numpy() / 1e3 / EPOCH_STEPS
+    print("  by phase, us/step (rank 0's block 0, barrier wait included): "
+          + ", ".join("%s %.2f" % (name, t) for name, t in
+                      zip(names, per_step)) + "; sum %.2f" % per_step.sum())
+    ring_us = per_step[names.index("ring all-reduce")]
+    ring_bound_us = 1e3 * bound(*ring_cost(DP_RANKS, sum(
+        d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)))[0]
+    print("  the ring phase: %.2f us/step against the all-reduce's bound of "
+          "%.3f us" % (ring_us, ring_bound_us))
+    return max(err, drop_err), dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=None)
+
+
+def dp_model(device, net=None):
+    """The flagship (or ``net``) from seed 0, Adam 1e-3, wrapped for DP_RANKS
+    ranks that share ``device``."""
+    seeder.random_seed(0)
+    model = Model(build_mnist_mlp() if net is None else net(),
+                  SoftmaxCrossEntropyLoss(), Adam(1e-3), device=device)
+    return DataParallel(model, mesh=make_mesh(devices=[device] * DP_RANKS))
+
+
+def run_dp_slice(device):
+    """The data-parallel main path: ``DataParallel(...).train_epochs(
+    fused="auto")`` on 4 ranks sharing the card, global batch 128, synthetic
+    MNIST 50,000/10,000 (390 steps an epoch): one ranked K2 launch an epoch
+    and nothing else; an evaluate_batch after the first epoch (accuracy
+    above 0.9; 5 K1 launches), the replica spread, then two more epochs,
+    timed. Then, from the same seed, one epoch of the step tier
+    (``fused=False``, 14 K1 launches a rank a step) and one epoch of the
+    Dropout flagship through K2 with K6. Returns the launch counts of the
+    ranked-K2 runs and of the step tier, and the steps/s of both tiers."""
+    (train_x, train_y), (test_x, test_y) = synthetic_mnist()
+    dp = dp_model(device)
+    x_dev, y_dev = dp.stage(train_x, one_hot(train_y))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = dp.train_epoch(x_dev, y_dev, batch_size=BATCH, fused="auto")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    after_epoch = launch_counts()
+    acc = dp.model.evaluate_batch(test_x, test_y, AccEvaluator)["accuracy"]
+    spread = dp.replica_spread()
+    t0 = time.perf_counter()
+    more = dp.train_epochs(x_dev, y_dev, 2, batch_size=BATCH, fused="auto")
+    torch.cuda.synchronize()
+    more_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_steps = int(losses.shape[0])
+    trace = torch.cat([losses, more.reshape(-1)]).cpu().numpy()
+    mega_rate = 2 * n_steps / more_s
+    print("  fused='auto' on %d ranks: epoch 1 %d steps in %.4f s; epochs "
+          "2-3 %.4f s = %.1f steps/s = %.2f us/step (%.1f steps/s over all "
+          "three)" % (DP_RANKS, n_steps, first_s, more_s, mega_rate,
+                      1e6 * more_s / (2 * n_steps),
+                      3 * n_steps / (first_s + more_s)))
+    print("  losses: first %.5f, end of epoch 1 %.5f, end of epoch 3 %.5f; "
+          "accuracy after epoch 1 %.4f; largest |rank r - rank 0| over the "
+          "parameters after epoch 1 %.3g, after epoch 3 %.3g"
+          % (trace[0], trace[n_steps - 1], trace[-1], acc, spread,
+             dp.replica_spread()))
+    if after_epoch != only(fused_epoch_ring=1):
+        raise AssertionError("the first epoch made %s launches" % after_epoch)
+    if counts != only(fused_epoch_ring=3, matmul=5):
+        raise AssertionError("launch counts %s" % counts)
+    if not np.all(np.isfinite(trace)) or not trace[-1] < trace[0]:
+        raise AssertionError("losses %s -> %s" % (trace[0], trace[-1]))
+    if not acc > 0.9:
+        raise AssertionError("test accuracy %.4f <= 0.9" % acc)
+
+    step_dp = dp_model(device)
+    xs_dev, ys_dev = step_dp.stage(train_x, one_hot(train_y))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    step_losses = step_dp.train_epoch(xs_dev, ys_dev, batch_size=BATCH)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts = launch_counts()
+    step_acc = step_dp.model.evaluate_batch(test_x, test_y,
+                                            AccEvaluator)["accuracy"]
+    step_rate = n_steps / step_s
+    gap = np.abs(step_losses.cpu().numpy() - trace[:n_steps])
+    print("  fused=False (the step tier) on %d ranks: %d steps in %.4f s = "
+          "%.1f steps/s; accuracy %.4f; its losses against the megakernel "
+          "tier's (same weights, same shards): max abs difference %.3g over "
+          "steps 0-9, %.3g over all" % (DP_RANKS, n_steps, step_s, step_rate,
+                                        step_acc, gap[:10].max(), gap.max()))
+    expected = 14 * DP_RANKS * n_steps
+    if step_counts != only(matmul=expected):
+        raise AssertionError("the step tier made %s launches, expected "
+                             "matmul %d" % (step_counts, expected))
+    if abs(acc - step_acc) > 0.02:
+        raise AssertionError("accuracies %.4f (K2 with K6) and %.4f (step "
+                             "tier) differ by more than 0.02"
+                             % (acc, step_acc))
+
+    drop_dp = dp_model(device, lambda: dropout_flagship(DROPOUT_RATE))
+    xd, yd = drop_dp.stage(train_x, one_hot(train_y))
+    torch.cuda.synchronize()
+    zero_counts()
+    drop_losses = drop_dp.train_epoch(xd, yd, batch_size=BATCH,
+                                      fused="auto").cpu().numpy()
+    torch.cuda.synchronize()
+    drop_counts = launch_counts()
+    drop_acc = drop_dp.model.evaluate_batch(test_x, test_y,
+                                            AccEvaluator)["accuracy"]
+    print("  the Dropout flagship (rate %.1f) on %d ranks, one fused='auto' "
+          "epoch: losses %.5f -> %.5f, accuracy %.4f, launches %s"
+          % (DROPOUT_RATE, DP_RANKS, drop_losses[0], drop_losses[-1],
+             drop_acc, {k: v for k, v in drop_counts.items() if v}))
+    if drop_counts != only(fused_epoch_ring=1):
+        raise AssertionError("the Dropout epoch made %s launches"
+                             % drop_counts)
+    if not (np.all(np.isfinite(drop_losses))
+            and drop_losses[-1] < drop_losses[0]):
+        raise AssertionError("Dropout losses %s -> %s"
+                             % (drop_losses[0], drop_losses[-1]))
+    ring_counts = {k: counts[k] + drop_counts[k] for k in counts}
+    return ring_counts, step_counts, mega_rate, step_rate
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -2744,7 +3129,8 @@ def main():
 
     phase("build")
     names = ("matmul", "fused_epoch", "streaming_epoch", "attention",
-             "recurrent", "dropout", "mega_probe", "block_fwd")
+             "recurrent", "dropout", "mega_probe", "block_fwd",
+             "ring_allreduce")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(kernels.build_library, names))
@@ -2806,6 +3192,14 @@ def main():
         raise AssertionError("accuracies %.4f (K2) and %.4f (step loop) "
                              "differ by more than 0.02" % (f_acc, s_acc))
 
+    phase("data parallel: K6 and P3 vs plain")
+    p3_counts, p3 = check_ring(device)
+    k6_err, k6 = check_k6(device, k2_ms)
+    dp_counts, dp_step_counts, dp_rate, dp_step_rate = run_dp_slice(device)
+    print("same call, the flagship at global batch 128: %d ranks through K2 "
+          "with K6 %.1f steps/s, the DP step tier %.1f steps/s, single-rank "
+          "K2 %.1f steps/s" % (DP_RANKS, dp_rate, dp_step_rate, f_rate))
+
     phase("deep slice")
     deep_launches, (dmodel, dx, dy, _) = check_deep_slice(device)
 
@@ -2849,7 +3243,8 @@ def main():
          "launches": (f_launches["matmul"] + s_launches["matmul"]
                       + deep_launches["matmul"] + t_launches["matmul"]
                       + r_launches["matmul"] + loop_counts["matmul"]
-                      + td_counts["matmul"]),
+                      + td_counts["matmul"] + dp_counts["matmul"]
+                      + dp_step_counts["matmul"]),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
          "library_ms": k1_plain_ms},
@@ -2898,7 +3293,16 @@ def main():
         dict({"name": "block_forward", "route": "cuda",
               "source": "tinynn_autograd_tpu_torch/csrc/block_fwd.cu",
               "replaces": "tinynn_autograd_tpu/ops/block_kernel.py:51",
-              "launches": block_counts}, **k7)]}))
+              "launches": block_counts}, **k7),
+        dict({"name": "ring_all_reduce", "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/ring_allreduce.cu",
+              "replaces": "tests/test_dp_megakernel.py:60",
+              "launches": p3_counts["ring_all_reduce"]}, **p3),
+        dict({"name": "fused_epoch_ring", "route": "cuda",
+              "source": "tinynn_autograd_tpu_torch/csrc/fused_epoch.cu",
+              "replaces": "tinynn_autograd_tpu/ops/fused_epoch.py:114",
+              "launches": dp_counts["fused_epoch_ring"],
+              "max_abs_err": k6_err}, **k6)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

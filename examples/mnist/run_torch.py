@@ -1,20 +1,27 @@
 """MNIST training with the PyTorch package (the counterpart of run.py).
 
 Same flags as run.py (--num_ep/--data_dir/--lr/--batch_size/--seed/--eager/
---target_acc/--accum/--ckpt) and the same flagship MLP (784-200-100-70-30-10
-Dense+ReLU, Adam, batch 128), plus --device: the card (``cuda``) unless the
-caller asks for the CPU (``--device cpu``). Without a CUDA device,
-``--device cuda`` stops with an error; it never moves to the CPU.
+--dp/--target_acc/--accum/--ckpt) and the same flagship MLP
+(784-200-100-70-30-10 Dense+ReLU, Adam, batch 128), plus --device: the card
+(``cuda``) unless the caller asks for the CPU (``--device cpu``). Without a
+CUDA device, ``--device cuda`` stops with an error; it never moves to the
+CPU.
 
 - default mode stages the dataset on the device once and trains each epoch
   with ``train_epoch``'s default ``fused="auto"`` (on-device shuffle): on
   the card the whole epoch is one launch of the K2 kernel, on the CPU a loop
   of train steps
 - --eager runs the reference-style zero_grad/forward/backward/step loop
+- --dp N trains data-parallel over N ranks that share --device
+  (``parallel.DataParallel``; --batch_size is the global batch): each epoch
+  through ``train_epoch(fused="auto")``, on the card one launch of the
+  whole-epoch kernel with its in-kernel gradient ring, on the CPU the step
+  tier
 - offline: falls back to synthetic pseudo-MNIST when data/mnist.pkl.gz is
   absent
 
 Run:  python examples/mnist/run_torch.py --num_ep 10
+      python examples/mnist/run_torch.py --num_ep 3 --dp 4
 """
 
 import argparse
@@ -34,6 +41,7 @@ from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu_torch.nn.optimizer import Adam  # noqa: E402
+from tinynn_autograd_tpu_torch.parallel import DataParallel, make_mesh  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.data_iterator import BatchIterator  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.datasets import load_mnist, one_hot  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.seeder import random_seed  # noqa: E402
@@ -57,6 +65,12 @@ def main(args):
 
     model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(),
                   Adam(lr=args.lr), device=device)
+    trainer = model
+    if args.dp > 1:
+        trainer = DataParallel(model, mesh=make_mesh(
+            devices=[device] * args.dp))
+        print("data parallel: %d ranks sharing %s, global batch %d"
+              % (args.dp, device, args.batch_size))
 
     if args.eager:
         def step(xb, yb):
@@ -70,9 +84,9 @@ def main(args):
         def step(xb, yb):
             return model.train_step(xb, yb, accum_steps=args.accum)
 
-    epoch_mode = not args.eager and args.accum <= 1
+    epoch_mode = args.dp > 1 or (not args.eager and args.accum <= 1)
     if epoch_mode:
-        x_dev, y_dev = model.stage(train_x, train_y_oh)
+        x_dev, y_dev = trainer.stage(train_x, train_y_oh)
 
     iterator = BatchIterator(batch_size=args.batch_size,
                              drop_last=not args.eager)
@@ -81,8 +95,9 @@ def main(args):
     for epoch in range(args.num_ep):
         t_epoch = time.time()
         if epoch_mode:
-            losses = model.train_epoch(x_dev, y_dev,
-                                       batch_size=args.batch_size)
+            losses = trainer.train_epoch(x_dev, y_dev,
+                                         batch_size=args.batch_size,
+                                         fused="auto")
             n_steps = int(losses.shape[0])
             loss_val = float(losses[-1])
         else:
@@ -119,6 +134,8 @@ if __name__ == "__main__":
     parser.add_argument("--seed", default=-1, type=int)
     parser.add_argument("--eager", action="store_true",
                         help="reference-style per-op eager loop")
+    parser.add_argument("--dp", default=0, type=int,
+                        help="data-parallel over N ranks sharing --device")
     parser.add_argument("--target_acc", default=0.975, type=float)
     parser.add_argument("--accum", default=1, type=int,
                         help="gradient accumulation (not ported yet: >1 "

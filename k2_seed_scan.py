@@ -22,7 +22,12 @@ Along the plain version's Lion trajectory (lr 1e-4, weight decay 1e-2 and
   in the plain forward.
 
 ``--device cpu`` prints only the least share of each seed, over the whole
-trajectory, for the seeds 0 ... N - 1 (``--seeds N``).
+trajectory, for the seeds 0 ... N - 1 (``--seeds N``). With ``--ranks`` it
+takes ``chip_smoke.py``'s hold of K2 over ranks instead (K6: the Dropout
+flagship on ``chip_smoke.DP_RANKS`` shards of each batch, Adam 1e-3, each
+rank seeding its Dropouts with its own step): on the card the hold itself
+on each of ``--data-seeds``, passed or failed; on the CPU every rank's
+least ReLU input along the plain version's trajectory.
 
 Run from the repository root:  python3 k2_seed_scan.py [--data-seeds 5 4]
 """
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Lion
+from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam, Lion
 from tinynn_autograd_tpu_torch.ops import dropout, fused_epoch
 from tinynn_autograd_tpu_torch.utils import seeder
 
@@ -100,12 +105,36 @@ def scan(net, device, data_seed, weight_decay, on_card):
     return least
 
 
+def scan_ranks(net, data_seed):
+    """The least ReLU input share of every rank along the plain version's
+    Adam trajectory of chip_smoke.py's K6 hold, on ``data_seed``."""
+    opt = Adam(1e-3)
+    spec = fused_epoch.epoch_spec(net, opt)
+    xs, ys = cs.rank_shards(*cs.parity_batches(torch.device("cpu"), N_STEPS,
+                                               data_seed))
+    states = [cs.fresh_state(net, opt) for _ in range(len(xs))]
+    params = [fused_epoch.dense_leaves(net, p) for p, _ in states]
+    slots = [{k: fused_epoch.dense_leaves(net, v) for k, v in s.items()}
+             for _, s in states]
+    least = 1.0
+    for t in range(N_STEPS):
+        for r in range(len(xs)):
+            least = min([least] + least_relu_inputs(
+                spec, params[r], xs[r, t], fused_epoch.rank_step(t, r)))
+        fused_epoch.fused_epoch_reference(
+            spec, params, slots, xs[:, t:t + 1], ys[:, t:t + 1],
+            torch.from_numpy(opt.step_scalars(t, 1)), t0=t)
+    return least
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--data-seeds", type=int, nargs="+", default=[5, 4])
     parser.add_argument("--seeds", type=int, default=40,
                         help="with --device cpu: the seeds 0 ... N - 1")
+    parser.add_argument("--ranks", action="store_true",
+                        help="take the K6 hold instead of Lion's")
     args = parser.parse_args()
     device = torch.device(args.device)
     on_card = device.type == "cuda"
@@ -113,6 +142,22 @@ def main():
     with seeder.scope(1):
         net = cs.dropout_flagship(cs.DROPOUT_RATE).to(device)
     seeds = args.data_seeds if on_card else range(args.seeds)
+    if args.ranks and on_card:
+        for seed in seeds:
+            try:
+                cs.hold_k6("data seed %d" % seed, net, Adam(1e-3),
+                           *cs.rank_shards(*cs.parity_batches(
+                               device, N_STEPS, seed)))
+            except AssertionError as err:
+                print("data seed %d fails the hold: %s" % (seed, " ".join(
+                    str(err).split("\n")[1:5])), flush=True)
+        return
+    if args.ranks:
+        for seed in seeds:
+            print("data seed %d: least ReLU input over the %d steps of %d "
+                  "ranks %.2g" % (seed, N_STEPS, cs.DP_RANKS,
+                                  scan_ranks(net, seed)), flush=True)
+        return
     for seed in seeds:
         shares = []
         for wd in (1e-2, 0.0):

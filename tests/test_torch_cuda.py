@@ -2,7 +2,9 @@
 (K2, with Dropout and the seven optimizer rules), the weight-streaming
 kernels (K3, K3b), the flash-attention kernels (K4's forward, K4b-d's dq and
 dk/dv), the recurrent kernels (K5-K5d), the dropout pass (P1), the
-optimizer-only probe (P2) and the fused transformer-block forward (K7).
+optimizer-only probe (P2), the fused transformer-block forward (K7), the
+ring all-reduce (P3) and the whole-epoch kernel over ranks with its gradient
+ring (K6).
 Tests marked ``cuda``; they skip without a CUDA device, since the kernels
 have no CPU mode.
 
@@ -997,3 +999,263 @@ def test_cuda_block_fwd_phase_clock():
     torch.cuda.synchronize()
     assert torch.equal(timed, plain)
     assert (phase_ns.cpu() > 0).all()
+
+
+# the ring (P3): tests/test_dp_megakernel.py's 8 ranks of [8, 128], the
+# flagship's 4 ranks of its 186,610 gradient floats, 3 ranks of a ragged
+# length (1/3 is not exact in f32) and one rank
+RING_SHAPES = {"jax_test": (8, (8, 128)), "flagship_grads": (4, (186610,)),
+               "ragged": (3, (1001,)), "one_rank": (1, (64,))}
+
+
+def _ring_inputs(name, dev):
+    n, shape = RING_SHAPES[name]
+    gen = torch.Generator().manual_seed(0)
+    return [torch.randn(shape, generator=gen).to(dev) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RING_SHAPES))
+def test_cuda_ring_all_reduce_matches_reference_bit_for_bit(name):
+    from tinynn_autograd_tpu_torch.ops import ring_allreduce
+
+    dev = _cuda()
+    xs = _ring_inputs(name, dev)
+    before = ring_allreduce.cuda_ring_all_reduce.launches
+    got = ring_allreduce.cuda_ring_all_reduce(xs)
+    torch.cuda.synchronize()
+    assert ring_allreduce.cuda_ring_all_reduce.launches == before + 1
+    want = ring_allreduce.ring_all_reduce_reference(xs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    np.testing.assert_allclose(got[0].cpu().numpy(),
+                               torch.stack(xs).sum(0).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew_rank", [0, 2])
+def test_cuda_ring_all_reduce_skew_rerun_is_bit_identical(skew_rank):
+    from tinynn_autograd_tpu_torch.ops import ring_allreduce
+
+    dev = _cuda()
+    xs = _ring_inputs("flagship_grads", dev)
+    plain = ring_allreduce.cuda_ring_all_reduce(xs)
+    held = ring_allreduce.cuda_ring_all_reduce(xs, skew=(skew_rank, 500.0))
+    torch.cuda.synchronize()
+    for a, b in zip(plain, held):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, error, match", [
+    ("cpu_rank", ValueError, "CUDA tensors"),
+    ("shapes", ValueError, "shape"),
+    ("dtype", TypeError, "float32"),
+    ("strided", ValueError, "contiguous"),
+    ("too_many", ValueError, "1 to 16")])
+def test_cuda_ring_all_reduce_refuses(case, error, match):
+    from tinynn_autograd_tpu_torch.ops import ring_allreduce
+
+    dev = _cuda()
+    xs = _ring_inputs("ragged", dev)
+    if case == "cpu_rank":
+        xs[1] = xs[1].cpu()
+    elif case == "shapes":
+        xs[2] = xs[2][:-1].contiguous()
+    elif case == "dtype":
+        xs[0] = xs[0].double()
+    elif case == "strided":
+        xs[1] = torch.zeros(2002, device=dev)[::2]
+    else:
+        xs = xs * 6
+    before = ring_allreduce.cuda_ring_all_reduce.launches
+    with pytest.raises(error, match=match):
+        ring_allreduce.cuda_ring_all_reduce(xs)
+    assert ring_allreduce.cuda_ring_all_reduce.launches == before
+
+
+def _rank_inputs(dev, net, opt, n_ranks, n_steps=10, data_seed=5):
+    """``n_steps`` pinned global batches of 128 (their first rows where
+    ``n_ranks`` does not divide 128) split into ``n_ranks`` shards, and a fresh copy of the net's weights and zero slots a rank."""
+    from tinynn_autograd_tpu_torch.ops.fused_epoch import dense_leaves
+    from tinynn_autograd_tpu_torch.utils import datasets
+
+    (x, y), _ = datasets.synthetic_mnist(n_steps * 128, 10, seed=data_seed)
+    local = 128 // n_ranks
+
+    def split(a, width):
+        a = torch.from_numpy(a).to(dev).reshape(n_steps, 128, width)
+        a = a[:, :n_ranks * local].reshape(n_steps, n_ranks, local, width)
+        return a.transpose(0, 1).contiguous()
+
+    states = []
+    for _ in range(n_ranks):
+        params = [{k: v.clone() for k, v in d.items()}
+                  for d in net.params_tree()]
+        slots = opt.init_state(params)["slots"]
+        states.append((dense_leaves(net, params),
+                       {k: dense_leaves(net, v) for k, v in slots.items()}))
+    scalars = torch.from_numpy(opt.step_scalars(0, n_steps)).to(dev)
+    return (split(x, 784), split(datasets.one_hot(y), 10), scalars,
+            [p for p, _ in states], [s for _, s in states])
+
+
+def _flat(params, slots):
+    return [t for ranks in (params, [s[k] for s in slots for k in sorted(s)])
+            for pairs in ranks for pair in pairs for t in pair]
+
+
+# K2 with the K6 ring: the flagship (pinned seed-1 weights, data seed 5)
+# over 4 and 2 ranks, the Dropout flagship over 4 on data seed 15 (seed 5
+# puts a ReLU input within rounding of 0 there), SGD over 3 ranks (1/3 is
+# not exact in f32)
+K6_CASES = {"flagship_4": (4, "adam", False, 5),
+            "flagship_2": (2, "adam", False, 5),
+            "dropout_4": (4, "adam", True, 15),
+            "sgd_3": (3, "sgd", False, 5)}
+
+
+def _k6_case(dev, name):
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.optimizer import SGD, Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.utils import seeder
+
+    n_ranks, opt_name, drop, data_seed = K6_CASES[name]
+    with seeder.scope(1):
+        net = _dropout_flagship() if drop else build_mnist_mlp()
+    net.to(dev)
+    opt = Adam(1e-3) if opt_name == "adam" else SGD(0.05)
+    data = _rank_inputs(dev, net, opt, n_ranks, data_seed=data_seed)
+    return net, opt, fused_epoch.epoch_spec(net, opt), data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_cuda_k6_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, opt, spec, (xs, ys, scalars, kp, ks) = _k6_case(dev, name)
+    _, _, _, (_, _, _, rp, rs) = _k6_case(dev, name)
+    before = fused_epoch.cuda_fused_epoch_ranks.launches
+    got = fused_epoch.cuda_fused_epoch_ranks(spec, kp, ks, xs, ys, scalars)
+    torch.cuda.synchronize()
+    assert fused_epoch.cuda_fused_epoch_ranks.launches == before + 1
+    want = fused_epoch.fused_epoch_reference(spec, rp, rs, xs, ys, scalars)
+    assert got.shape == want.shape == (xs.shape[0], 10)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    for i, (a, b) in enumerate(zip(_flat(kp, ks), _flat(rp, rs))):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5,
+                                   err_msg="leaf %d" % i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [None, (0, 100.0), (3, 100.0)])
+def test_cuda_k6_reruns_are_bit_identical(skew):
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    runs = []
+    for hold in (None, skew):
+        net, opt, spec, (xs, ys, scalars, p, s) = _k6_case(dev, "dropout_4")
+        losses = fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs, ys,
+                                                    scalars, skew=hold)
+        torch.cuda.synchronize()
+        runs.append([losses] + _flat(p, s))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_through_the_ranked_wrapper_is_k2():
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    net, opt, spec, xb, yb, scalars = _flagship_epoch(dev, 10)
+    (kp, ks), (rp, rs) = _state(net, opt), _state(net, opt)
+    single = fused_epoch.cuda_fused_epoch(spec, kp, ks, xb, yb, scalars)
+    ranked = fused_epoch.cuda_fused_epoch_ranks(spec, [rp], [rs], xb[None],
+                                                yb[None], scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(single, ranked[0])
+    for a, b in zip(_flat([kp], [ks]), _flat([rp], [rs])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_phase_clock_has_the_ring():
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    net, opt, spec, (xs, ys, scalars, p, s) = _k6_case(dev, "flagship_4")
+    names = fused_epoch.phase_names(spec, 4)
+    assert "ring all-reduce" in names
+    phase_ns = torch.zeros(len(names), dtype=torch.int64, device=dev)
+    fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs, ys, scalars,
+                                       phase_ns=phase_ns)
+    torch.cuda.synchronize()
+    assert (phase_ns.cpu() > 0).all()
+    with pytest.raises(ValueError, match="phase_ns must be an int64 \\[13\\]"):
+        fused_epoch.cuda_fused_epoch_ranks(
+            spec, p, s, xs, ys, scalars,
+            phase_ns=torch.zeros(12, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.cuda
+def test_cuda_k6_refuses_cpu_tensors_and_a_bad_skew():
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    net, opt, spec, (xs, ys, scalars, p, s) = _k6_case(dev, "flagship_2")
+    before = fused_epoch.cuda_fused_epoch_ranks.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs.cpu(), ys.cpu(),
+                                           scalars.cpu())
+    p[1][0] = (p[1][0][0].cpu(), p[1][0][1])
+    with pytest.raises(ValueError, match="rank 1 w0 is on cpu"):
+        fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs, ys, scalars)
+    with pytest.raises(ValueError, match="skew rank 2 of 2"):
+        fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs, ys, scalars,
+                                           skew=(2, 10.0))
+    with pytest.raises(ValueError, match="n_ranks, n_steps"):
+        fused_epoch.cuda_fused_epoch_ranks(spec, p, s, xs[0], ys[0], scalars)
+    assert fused_epoch.cuda_fused_epoch_ranks.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_dp_auto_epoch_is_one_ranked_launch():
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.parallel import DataParallel, make_mesh
+
+    dev = _cuda()
+    model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(), Adam(1e-3),
+                  device=dev)
+    dp = DataParallel(model, mesh=make_mesh(devices=[dev] * 4))
+    rng = np.random.RandomState(0)
+    x = rng.rand(4 * 128, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 4 * 128)]
+    counts = (kernels.cuda_matmul.launches,
+              fused_epoch.cuda_fused_epoch.launches,
+              fused_epoch.cuda_fused_epoch_ranks.launches)
+    losses = dp.train_epochs(x, y, 2, batch_size=128, fused="auto")
+    torch.cuda.synchronize()
+    assert (kernels.cuda_matmul.launches,
+            fused_epoch.cuda_fused_epoch.launches,
+            fused_epoch.cuda_fused_epoch_ranks.launches) == (
+        counts[0], counts[1], counts[2] + 2)
+    assert losses.shape == (2, 4) and torch.isfinite(losses).all()
+    assert model.optimizer.state_dict()["t"] == 8
+    assert dp._replicas is not None and dp.replica_spread() < 1e-5
+    # the step tier: 14 K1 launches a rank a step
+    dp.train_step(x[:128], y[:128])
+    assert kernels.cuda_matmul.launches == counts[0] + 56
+    assert dp.replica_spread() == 0.0

@@ -18,8 +18,9 @@
 // - The sequential grid becomes a loop over the steps inside ONE persistent
 //   cooperative launch: as many blocks as fit on the card at once
 //   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), with the phases
-//   of a step separated by grid-wide barriers (cooperative_groups
-//   this_grid().sync()). Per step: one phase per Dense forward, one for the
+//   of a step separated by grid-wide barriers (an arrival count in device
+//   memory, csrc/ring.cuh's rank_barrier). Per step: one phase per Dense
+//   forward, one for the
 //   loss, one per Dense backward (dW, db and the previous layer's dz
 //   together), one for the optimizer: 2 x layers + 2 barriers, 12 for the
 //   flagship MLP (one more with clip_norm). Every gradient is taken
@@ -52,6 +53,25 @@
 //   in shared memory; after a grid barrier every block sums the per-block
 //   partial sums in one fixed order. No float atomics, so it keeps the
 //   promise below.
+// - Ranks (K6, the data-parallel megakernel): the JAX package runs this
+//   kernel on each device of a mesh axis, on the device's batch shard, and
+//   between the backward and the optimizer sums the gradients over the
+//   axis with an in-kernel ring of remote DMAs (`grad_ring_all_reduce`,
+//   tinynn_autograd_tpu/ops/fused_epoch.py:114), then takes their mean.
+//   Here n ranks share the card in ONE launch: the co-resident blocks,
+//   rounded down to a multiple of n, are split into n groups, and each rank
+//   runs every phase on its own replica, slots, gradients, activations and
+//   batch shard, with the barriers above over its own blocks only. Its
+//   layer table (pointers to all that) sits in device memory, copied to
+//   shared memory at the start: 16 layers a rank would pass the launch's
+//   4 KB parameter limit at two ranks. The ring is one more phase after the
+//   last backward (csrc/ring.cuh, the device code of P3): the rank's flat
+//   gradient buffer summed round the ring, times 1/n, so clip_norm and the
+//   rule act on the mean, as the JAX optimizer does after its ring. Rank r
+//   seeds its Dropouts with step t + 7919 r (the JAX kernel's offset).
+//   Ranks meet only through the ring's counts, never a grid barrier.
+//   With one rank there is no ring phase, and the result is the
+//   single-device kernel's, bit for bit.
 // - f32 everywhere. With `bf16` set (set_matmul_precision("bf16")), each
 //   product operand is rounded to bf16 on load and widened again, and the
 //   products accumulate in f32, as the TPU kernel's bf16 operands with f32
@@ -64,23 +84,28 @@
 // but the first layer's), which at the H100's 67 TFLOP/s f32 FMA peak is
 // about 1.54 us a step, 0.60 ms for a 390-step epoch: compute-bound. The
 // bytes it must move are about 163 MB an epoch, mostly the batches, about
-// 49 us at 3.35 TB/s. What holds this simple design back: 12 grid barriers
+// 49 us at 3.35 TB/s. With n ranks at a global batch of 128 each rank
+// does 1/n of the products on 1/n of the blocks; the ring adds n - 1 hops
+// of the 746 KB of gradients a rank, each two cross-block handshakes (see
+// ring.cuh). What holds this simple design back: 12 grid barriers
 // a step, and narrow layers that leave most SMs idle (the first layer's
 // forward is 28 tiles of 25 stages each, on 132 SMs). Sharding the state
 // into shared memory, splitting K, and tensor cores are later work.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <vector>
 
 #include "hash.cuh"
 #include "optim_rules.cuh"
-
-namespace cg = cooperative_groups;
+#include "ring.cuh"
 
 namespace {
+
+using tinynn::global_ns;
+using tinynn::ld_cg;
 
 constexpr int MAX_LAYERS = 16;
 constexpr int THREADS = 256;
@@ -118,19 +143,42 @@ struct Args {
   float clip_norm;       // global-norm clipping of the gradients; 0 is off
   tinynn::Rule rule;     // the rule, its constants and weight decay; the
                          // scalars s0, s1 are set each step
-  const float* xb;       // [n_steps, batch, layer[0].din]
-  const float* yb;       // [n_steps, batch, layer[n_layers - 1].dout]
+  int n_ranks, blocks;   // the ranks, and the blocks each rank takes
+  const Layer* tables;   // [n_ranks][MAX_LAYERS] in device memory: each
+                         // rank's layers (its own replica and scratch)
+  const float* xb;       // [n_ranks, n_steps, batch, layer[0].din]
+  const float* yb;       // [n_ranks, n_steps, batch, dout of the last]
   const float* cw;       // class weights [dout of the last layer] or null
   const float* scalars;  // [n_steps, 2]: each step's (s0, s1)
-  float* losses;         // [n_steps]
-  float* row_loss;       // [batch] scratch
-  float* partial;        // [gridDim.x] scratch: clip_norm's partial sums
-  // [2 * n_layers + 2, one more with clip_norm] or null: block 0's time
-  // (ns) from one barrier to the next, summed over the steps, for each
-  // phase: the forwards, the loss, the backwards (last layer first), the
-  // clipping norm, the optimizer
+  float* losses;         // [n_ranks, n_steps]: each rank's batch mean
+  float* row_loss;       // [n_ranks, batch] scratch
+  float* partial;        // [n_ranks, blocks] scratch: clip_norm's partials
+  float* grads;          // [n_ranks, n_grad]: each rank's gradients, which
+  long long n_grad;      // its layers' gw and gb point into
+  unsigned* sync;        // [n_ranks][tinynn::kSyncWords] counts, zeroed
+  tinynn::Ring ring;     // the gradient ring (n_ranks > 1): comm slots
+  float ring_scale;      // 1 / n_ranks as f32: the mean after the ring
+  // [2 * n_layers + 2, one more with the ring and one with clip_norm] or
+  // null: block 0's time (ns) from one barrier to the next, summed over the
+  // steps, for each phase: the forwards, the loss, the backwards (last
+  // layer first), the ring, the clipping norm, the optimizer
   unsigned long long* phase_ns;
-  Layer layer[MAX_LAYERS];
+};
+
+// The block's rank's layers, copied from its table at the start: read from
+// shared memory as the single-rank kernel read them from its parameters.
+__shared__ Layer layers[MAX_LAYERS];
+
+// One block's view of its rank: its shard of the batches, its outputs and
+// scratch, and where it sits.
+struct Rank {
+  const float* xb;
+  const float* yb;
+  float* losses;
+  float* row_loss;
+  float* partial;
+  float* grads;
+  int block, blocks;  // the block's index among the rank's blocks
 };
 
 // A matrix as the product reads it: element (i, j) at p[i * rs + j * cs].
@@ -144,27 +192,11 @@ struct Smem {
   float b[BK][TILE + 1];
 };
 
-// A load of data written inside the launch: through L2 (never a stale L1
-// line), and volatile with a memory clobber, so that the compiler neither
-// merges it with a load of an earlier step nor moves it across a barrier
-// (__ldcg is a plain asm statement that it may hoist or merge).
-__device__ __forceinline__ float ld_cg(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-
 __device__ __forceinline__ float load_operand(const View& v, int i, int j,
                                               bool bf16) {
   const float x = ld_cg(v.p + static_cast<long long>(i) * v.rs +
                          static_cast<long long>(j) * v.cs);
   return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 __device__ __forceinline__ int tiles_of(int m, int n) {
@@ -280,14 +312,14 @@ __device__ __forceinline__ float drop(const Layer& L, uint32_t seed,
 
 // z = h_in @ w + b, h = act(z) and, with a Dropout, d = dropout(h), for one
 // Dense layer in the step whose counter is `t`.
-__device__ void forward_layer(const Args& a, int l, const float* x,
-                              uint32_t t, Smem& sm) {
-  const Layer& L = a.layer[l];
-  const View in = {l == 0 ? x : a.layer[l - 1].out, L.din, 1};
+__device__ void forward_layer(const Args& a, const Rank& rk, int l,
+                              const float* x, uint32_t t, Smem& sm) {
+  const Layer& L = layers[l];
+  const View in = {l == 0 ? x : layers[l - 1].out, L.din, 1};
   const View w = {L.w, L.dout, 1};
   const uint32_t seed = drop_seed(L, t);
   const int tiles = tiles_of(a.batch, L.dout);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int tile = rk.block; tile < tiles; tile += rk.blocks) {
     product_tile(in, w, a.batch, L.dout, L.din, tile, a.bf16, sm,
                  [&](int r, int c, float v) {
                    const float z = __fadd_rn(v, ld_cg(L.b + c));
@@ -306,11 +338,11 @@ __device__ void forward_layer(const Args& a, int l, const float* x,
 // Softmax cross-entropy over the last layer's output: the step's loss and
 // the gradient with respect to the last layer's z. One block; one thread a
 // row, with the same sequence of operations as the tape.
-__device__ void loss_phase(const Args& a, int s) {
-  if (blockIdx.x != 0) return;
-  const Layer& L = a.layer[a.n_layers - 1];
+__device__ void loss_phase(const Args& a, const Rank& rk, int s) {
+  if (rk.block != 0) return;
+  const Layer& L = layers[a.n_layers - 1];
   const int C = L.dout;
-  const float* y = a.yb + static_cast<long long>(s) * a.batch * C;
+  const float* y = rk.yb + static_cast<long long>(s) * a.batch * C;
   const float inv_m = 1.0f / static_cast<float>(a.batch);
   for (int r = threadIdx.x; r < a.batch; r += blockDim.x) {
     const long long base = static_cast<long long>(r) * C;
@@ -337,7 +369,7 @@ __device__ void loss_phase(const Args& a, int s) {
       nll = __fmul_rn(nll, w);
       g = __fmul_rn(g, w);
     }
-    a.row_loss[r] = nll;
+    rk.row_loss[r] = nll;
     g = -g;  // d loss / d (sum_c log_p[c] * labels[c])
     float gsum = 0.0f;
     for (int c = 0; c < C; ++c)
@@ -356,32 +388,31 @@ __device__ void loss_phase(const Args& a, int s) {
     // this block wrote the row losses: plain loads see them after the
     // barrier, from L1
     float total = 0.0f;
-    for (int r = 0; r < a.batch; ++r) total = __fadd_rn(total, a.row_loss[r]);
-    a.losses[s] = __fdiv_rn(total, static_cast<float>(a.batch));
+    for (int r = 0; r < a.batch; ++r) total = __fadd_rn(total, rk.row_loss[r]);
+    rk.losses[s] = __fdiv_rn(total, static_cast<float>(a.batch));
   }
 }
 
 // dW = h_in^T @ dz, db = sum over rows of dz, and (but for the first layer)
 // the previous layer's dz = act'(dropout'(dz @ W^T)), as one phase of work
 // items; the Dropout's VJP replays the forward's mask of the same step.
-__device__ void backward_layer(const Args& a, int l, const float* x,
-                               uint32_t t, Smem& sm) {
-  const Layer& L = a.layer[l];
-  const View h_t = {l == 0 ? x : a.layer[l - 1].out, 1, L.din};  // [din, B]
+__device__ void backward_layer(const Args& a, const Rank& rk, int l,
+                               const float* x, uint32_t t, Smem& sm) {
+  const Layer& L = layers[l];
+  const View h_t = {l == 0 ? x : layers[l - 1].out, 1, L.din};  // [din, B]
   const View dz = {L.dz, L.dout, 1};                           // [batch, dout]
   const View w_t = {L.w, 1, L.dout};                           // [dout, din]
   const int n_dw = tiles_of(L.din, L.dout);
   const int n_dh = l > 0 ? tiles_of(a.batch, L.din) : 0;
   const int n_db = (L.dout + THREADS - 1) / THREADS;
-  for (int item = blockIdx.x; item < n_dw + n_dh + n_db;
-       item += gridDim.x) {
+  for (int item = rk.block; item < n_dw + n_dh + n_db; item += rk.blocks) {
     if (item < n_dw) {
       product_tile(h_t, dz, L.din, L.dout, a.batch, item, a.bf16, sm,
                    [&](int r, int c, float v) {
                      L.gw[static_cast<long long>(r) * L.dout + c] = v;
                    });
     } else if (item < n_dw + n_dh) {
-      const Layer& P = a.layer[l - 1];
+      const Layer& P = layers[l - 1];
       const uint32_t seed = drop_seed(P, t);
       product_tile(dz, w_t, a.batch, L.din, L.dout, item - n_dw, a.bf16, sm,
                    [&](int r, int c, float v) {
@@ -405,12 +436,12 @@ __device__ void backward_layer(const Args& a, int l, const float* x,
 // clip_norm's first half: this block's sum of g^2 over its share of the
 // gradients (the optimizer phase's grid-stride share, layer by layer),
 // reduced over the block's threads in a fixed order into partial[block].
-__device__ void clip_phase(const Args& a, Smem& sm) {
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+__device__ void clip_phase(const Args& a, const Rank& rk, Smem& sm) {
+  const long long first = static_cast<long long>(rk.block) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(rk.blocks) * blockDim.x;
   float acc = 0.0f;
   for (int l = 0; l < a.n_layers; ++l) {
-    const Layer& L = a.layer[l];
+    const Layer& L = layers[l];
     const long long nw = static_cast<long long>(L.din) * L.dout;
     for (long long i = first; i < nw; i += stride) {
       const float g = ld_cg(L.gw + i);
@@ -429,7 +460,7 @@ __device__ void clip_phase(const Args& a, Smem& sm) {
       red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + half]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) a.partial[blockIdx.x] = red[0];
+  if (threadIdx.x == 0) rk.partial[rk.block] = red[0];
 }
 
 // clip_norm's second half, in every block: the first warp sums the partial
@@ -437,12 +468,12 @@ __device__ void clip_phase(const Args& a, Smem& sm) {
 // fixed butterfly; lane 0's total, the same in every block, gives
 // min(1, clip_norm / (sqrt(total) + 1e-6)) rounded as the plain version
 // rounds it (a reciprocal, then the product).
-__device__ float clip_scale(const Args& a, Smem& sm) {
+__device__ float clip_scale(const Args& a, const Rank& rk, Smem& sm) {
   float* red = &sm.a[0][0];
   if (threadIdx.x < 32) {
     float total = 0.0f;
-    for (unsigned int i = threadIdx.x; i < gridDim.x; i += 32)
-      total = __fadd_rn(total, ld_cg(a.partial + i));
+    for (int i = threadIdx.x; i < rk.blocks; i += 32)
+      total = __fadd_rn(total, ld_cg(rk.partial + i));
     for (int lane = 16; lane > 0; lane /= 2)
       total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, lane));
     if (threadIdx.x == 0) {
@@ -471,17 +502,18 @@ __device__ __forceinline__ void update(const tinynn::Rule& r, int n_slots,
   if (n_slots > 1) s1[i] = v1;
 }
 
-__device__ void optimizer_phase(const Args& a, int s, Smem& sm) {
+__device__ void optimizer_phase(const Args& a, const Rank& rk, int s,
+                                Smem& sm) {
   tinynn::Rule r = a.rule;
   r.s0 = __ldg(a.scalars + 2 * s);
   r.s1 = __ldg(a.scalars + 2 * s + 1);
   const int n_slots = tinynn::rule_slots(r.opt);
   const bool clip = a.clip_norm > 0.0f;
-  const float clip_by = clip ? clip_scale(a, sm) : 1.0f;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const float clip_by = clip ? clip_scale(a, rk, sm) : 1.0f;
+  const long long first = static_cast<long long>(rk.block) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(rk.blocks) * blockDim.x;
   for (int l = 0; l < a.n_layers; ++l) {
-    const Layer& L = a.layer[l];
+    const Layer& L = layers[l];
     const long long nw = static_cast<long long>(L.din) * L.dout;
     for (long long i = first; i < nw; i += stride)
       update(r, n_slots, L.w, L.gw, L.s0w, L.s1w, i, clip, clip_by);
@@ -492,12 +524,29 @@ __device__ void optimizer_phase(const Args& a, int s, Smem& sm) {
 
 __global__ void __launch_bounds__(THREADS)
 fused_epoch_kernel(const __grid_constant__ Args a) {
-  cg::grid_group grid = cg::this_grid();
   __shared__ Smem sm;
-  const bool timed = a.phase_ns != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  // the rank's view lives in shared memory, not in registers: the product
+  // tiles need those
+  __shared__ Rank rk;
+  tinynn::Group g = tinynn::group_of(a.sync, a.n_ranks, a.blocks);
+  if (threadIdx.x < a.n_layers)
+    layers[threadIdx.x] = a.tables[g.rank * MAX_LAYERS + threadIdx.x];
+  const long long din = a.tables[0].din;
+  if (threadIdx.x == 0) {
+    const long long dout = a.tables[a.n_layers - 1].dout;
+    const long long r = g.rank;
+    rk = {a.xb + r * a.n_steps * a.batch * din,
+          a.yb + r * a.n_steps * a.batch * dout, a.losses + r * a.n_steps,
+          a.row_loss + r * a.batch, a.partial + r * a.blocks,
+          a.grads + r * a.n_grad, g.block, g.blocks};
+  }
+  __syncthreads();
+  const bool timed =
+      a.phase_ns != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   unsigned long long last = timed ? global_ns() : 0;
+  // the phases of a rank are separated by barriers over its blocks alone
   auto barrier = [&](int phase) {
-    grid.sync();
+    tinynn::rank_barrier(g);
     if (timed) {
       const unsigned long long now = global_ns();
       a.phase_ns[phase] += now - last;
@@ -507,31 +556,40 @@ fused_epoch_kernel(const __grid_constant__ Args a) {
   const int L = a.n_layers;
   const bool clip = a.clip_norm > 0.0f;
   for (int s = 0; s < a.n_steps; ++s) {
-    const float* x = a.xb + static_cast<long long>(s) * a.batch * a.layer[0].din;
-    // the step's counter before its update: the Dropout seeds' step
-    const uint32_t t = a.t0 + static_cast<uint32_t>(s);
+    const float* x = rk.xb + static_cast<long long>(s) * a.batch * din;
+    // the Dropout seeds' step: the counter before the update, offset by
+    // the rank so that ranks draw different masks
+    const uint32_t t =
+        tinynn::rank_step(a.t0 + static_cast<uint32_t>(s), g.rank);
     for (int l = 0; l < L; ++l) {
-      forward_layer(a, l, x, t, sm);
+      forward_layer(a, rk, l, x, t, sm);
       barrier(l);
     }
-    loss_phase(a, s);
+    loss_phase(a, rk, s);
     barrier(L);
     for (int l = L - 1; l >= 0; --l) {
-      backward_layer(a, l, x, t, sm);
+      backward_layer(a, rk, l, x, t, sm);
       barrier(2 * L - l);
     }
-    if (clip) {
-      clip_phase(a, sm);
-      barrier(2 * L + 1);
+    int phase = 2 * L + 1;
+    if (a.n_ranks > 1) {
+      // K6: the gradients summed round the ring, then their mean
+      tinynn::ring_all_reduce(a.ring, g, rk.grads, a.ring_scale);
+      barrier(phase++);
     }
-    optimizer_phase(a, s, sm);
-    barrier(2 * L + 1 + (clip ? 1 : 0));
+    if (clip) {
+      clip_phase(a, rk, sm);
+      barrier(phase++);
+    }
+    optimizer_phase(a, rk, s, sm);
+    barrier(phase);
   }
 }
 
 }  // namespace
 
 // The grid the launch uses: co-resident blocks per SM and the SM count.
+// Each of n ranks takes blocks_per_sm * sms / n of them.
 extern "C" int tinynn_fused_epoch_grid(int* blocks_per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -542,29 +600,45 @@ extern "C" int tinynn_fused_epoch_grid(int* blocks_per_sm, int* sms) {
       blocks_per_sm, fused_epoch_kernel, THREADS, 0));
 }
 
-// One epoch of `n_steps` train steps. `dims` holds (din, dout, activation,
-// dropout) for each of the `n_layers` Dense layers, `drops` (seed index,
-// keep threshold) and `drop_scales` the scale of each layer's Dropout (read
-// where dropout is 1), `layer_ptrs` the 12 device pointers of each (w, b,
-// gw, gb, s0w, s0b, s1w, s1b, z, h, d, dz; a slot the rule does not have,
-// and d without a Dropout, are null). `opt`, `c0`-`c3` and `wd` are the
-// rule (csrc/optim_rules.cuh), `scalars` [n_steps, 2] its per-step scalars,
-// `t0` the step count before the epoch, `clip_norm` the clipping norm (0:
-// off), `partial` a scratch of `partial_len` floats (at least the grid's
-// blocks). `phase_ns`, where not null, accumulates each phase's time (see
-// Args). Launches on `stream` and does not synchronise. Returns the CUDA
-// error of the launch (0 when it was accepted); cudaErrorNotSupported when
-// the device cannot launch cooperatively.
+// The bytes of one rank's layer table in device memory.
+extern "C" long long tinynn_fused_epoch_table_bytes() {
+  return static_cast<long long>(sizeof(Layer)) * MAX_LAYERS;
+}
+
+// One epoch of `n_steps` train steps on each of `n_ranks` ranks, in one
+// cooperative launch. `dims` holds (din, dout, activation, dropout) for each
+// of the `n_layers` Dense layers, `drops` (seed index, keep threshold) and
+// `drop_scales` the scale of each layer's Dropout (read where dropout is
+// 1), `layer_ptrs` the 12 device pointers of each layer of each rank, rank
+// by rank (w, b, gw, gb, s0w, s0b, s1w, s1b, z, h, d, dz; a slot the rule
+// does not have, and d without a Dropout, are null; each rank's gw and gb
+// lie in its row of `grads`, [n_ranks, n_grad]). `tables` is a device
+// buffer of n_ranks * tinynn_fused_epoch_table_bytes(). `xb`, `yb`,
+// `losses` and `row_loss` hold one block per rank (see Args); `partial` is
+// a scratch of `partial_len` floats (at least the launch's blocks). `comm`
+// ([n_ranks, 2, n_grad] floats) and `sync` (n_ranks * 4 zeroed counts) are
+// the ring's; with one rank there is no ring and `comm` may be null.
+// `skew_rank` (-1: none) holds that rank back `skew_ns` before each step's
+// first hop (a check of the ring's flow control). `opt`, `c0`-`c3` and `wd`
+// are the rule (csrc/optim_rules.cuh), `scalars` [n_steps, 2] its per-step
+// scalars, `t0` the step count before the epoch, `clip_norm` the clipping
+// norm (0: off). `phase_ns`, where not null, accumulates each phase's time
+// (see Args). Launches on `stream` and does not synchronise. Returns the
+// CUDA error of the launch (0 when it was accepted); cudaErrorNotSupported
+// when the device cannot launch cooperatively.
 extern "C" int tinynn_fused_epoch(
-    int n_layers, const int* dims, const unsigned int* drops,
-    const float* drop_scales, void* const* layer_ptrs, const float* xb,
-    const float* yb, const float* class_weight, const float* scalars,
-    float* losses, float* row_loss, float* partial, int partial_len,
-    int batch, int n_steps, unsigned int t0, int opt, float c0, float c1,
-    float c2, float c3, float wd, float clip_norm, int bf16,
-    unsigned long long* phase_ns, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || batch < 1 || n_steps < 1 ||
-      opt < tinynn::kSGD || opt > tinynn::kAdadelta)
+    int n_ranks, int n_layers, const int* dims, const unsigned int* drops,
+    const float* drop_scales, void* const* layer_ptrs, void* tables,
+    const float* xb, const float* yb, const float* class_weight,
+    const float* scalars, float* losses, float* row_loss, float* partial,
+    int partial_len, float* grads, long long n_grad, float* comm,
+    unsigned* sync, int batch, int n_steps, unsigned int t0, int opt,
+    float c0, float c1, float c2, float c3, float wd, float clip_norm,
+    int bf16, int skew_rank, long long skew_ns, unsigned long long* phase_ns,
+    void* stream) {
+  if (n_ranks < 1 || n_layers < 1 || n_layers > MAX_LAYERS || batch < 1 ||
+      n_steps < 1 || opt < tinynn::kSGD || opt > tinynn::kAdadelta ||
+      (n_ranks > 1 && comm == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -574,6 +648,49 @@ extern "C" int tinynn_fused_epoch(
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
 
+  int blocks_per_sm = 0, sms = 0;
+  const int grid_err = tinynn_fused_epoch_grid(&blocks_per_sm, &sms);
+  if (grid_err != 0) return grid_err;
+  const int blocks = blocks_per_sm * sms / n_ranks;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (clip_norm > 0.0f && partial_len < blocks * n_ranks)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  std::vector<Layer> table(static_cast<size_t>(n_ranks) * MAX_LAYERS);
+  for (int r = 0; r < n_ranks; ++r) {
+    for (int l = 0; l < n_layers; ++l) {
+      Layer& L = table[r * MAX_LAYERS + l];
+      L.din = dims[4 * l];
+      L.dout = dims[4 * l + 1];
+      L.act = dims[4 * l + 2];
+      L.drop = dims[4 * l + 3];
+      L.seed_index = drops[2 * l];
+      L.threshold = drops[2 * l + 1];
+      L.scale = drop_scales[l];
+      float* const* p = reinterpret_cast<float* const*>(
+          layer_ptrs + PTRS_PER_LAYER * (r * n_layers + l));
+      L.w = p[0];
+      L.b = p[1];
+      L.gw = p[2];
+      L.gb = p[3];
+      L.s0w = p[4];
+      L.s0b = p[5];
+      L.s1w = p[6];
+      L.s1b = p[7];
+      L.z = p[8];
+      L.h = p[9];
+      L.d = p[10];
+      L.dz = p[11];
+      L.out = L.drop ? L.d : L.h;
+    }
+  }
+  // pageable memory: the call returns once the table has been staged, so
+  // it may go out of scope before the copy runs
+  err = cudaMemcpyAsync(tables, table.data(), table.size() * sizeof(Layer),
+                        cudaMemcpyHostToDevice,
+                        static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   Args a = {};
   a.n_layers = n_layers;
   a.batch = batch;
@@ -582,6 +699,9 @@ extern "C" int tinynn_fused_epoch(
   a.t0 = t0;
   a.clip_norm = clip_norm;
   a.rule = {opt, 0.0f, 0.0f, c0, c1, c2, c3, wd};
+  a.n_ranks = n_ranks;
+  a.blocks = blocks;
+  a.tables = static_cast<const Layer*>(tables);
   a.xb = xb;
   a.yb = yb;
   a.cw = class_weight;
@@ -589,43 +709,16 @@ extern "C" int tinynn_fused_epoch(
   a.losses = losses;
   a.row_loss = row_loss;
   a.partial = partial;
+  a.grads = grads;
+  a.n_grad = n_grad;
+  a.sync = sync;
+  a.ring = {comm, n_grad, skew_rank, skew_ns};
+  a.ring_scale = static_cast<float>(1.0 / n_ranks);
   a.phase_ns = phase_ns;
-  for (int l = 0; l < n_layers; ++l) {
-    Layer& L = a.layer[l];
-    L.din = dims[4 * l];
-    L.dout = dims[4 * l + 1];
-    L.act = dims[4 * l + 2];
-    L.drop = dims[4 * l + 3];
-    L.seed_index = drops[2 * l];
-    L.threshold = drops[2 * l + 1];
-    L.scale = drop_scales[l];
-    float* const* p =
-        reinterpret_cast<float* const*>(layer_ptrs + PTRS_PER_LAYER * l);
-    L.w = p[0];
-    L.b = p[1];
-    L.gw = p[2];
-    L.gb = p[3];
-    L.s0w = p[4];
-    L.s0b = p[5];
-    L.s1w = p[6];
-    L.s1b = p[7];
-    L.z = p[8];
-    L.h = p[9];
-    L.d = p[10];
-    L.dz = p[11];
-    L.out = L.drop ? L.d : L.h;
-  }
-
-  int blocks_per_sm = 0, sms = 0;
-  const int grid_err = tinynn_fused_epoch_grid(&blocks_per_sm, &sms);
-  if (grid_err != 0) return grid_err;
-  if (blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (clip_norm > 0.0f && partial_len < blocks_per_sm * sms)
-    return static_cast<int>(cudaErrorInvalidValue);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_epoch_kernel),
-      dim3(blocks_per_sm * sms), dim3(THREADS), params, 0,
+      dim3(blocks * n_ranks), dim3(THREADS), params, 0,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

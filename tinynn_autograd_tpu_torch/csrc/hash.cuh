@@ -12,7 +12,8 @@
 //
 // Seeds: a Net hands the Dropout layer at position idx among its layers that
 // take a seed (t * 1000003 + idx) for the step whose optimizer counter is t
-// before the update, in wrapping 32-bit arithmetic (nn/net.py).
+// before the update, in wrapping 32-bit arithmetic (nn/net.py); rank r of
+// the data-parallel kernel takes t + 7919 r for t (rank_step).
 
 #pragma once
 
@@ -28,6 +29,15 @@ __host__ __device__ __forceinline__ uint32_t hash_bits(uint32_t index,
   x = (x ^ (x >> 16)) * 0x7FEB352Du;
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   return x ^ (x >> 16);
+}
+
+// The step a rank of the data-parallel kernel seeds its Dropouts with: the
+// JAX megakernel adds axis_index * 7919 to the step (wrapping 32-bit).
+constexpr uint32_t kRankSeedStride = 7919u;
+
+__host__ __device__ __forceinline__ uint32_t rank_step(uint32_t t,
+                                                       int rank) {
+  return t + kRankSeedStride * static_cast<uint32_t>(rank);
 }
 
 // The seed of the Dropout at position `idx` in a step whose counter is `t`.

@@ -19,6 +19,18 @@ idx`` mod 2**32 (``Net.forward``'s rule), over the row-major index of its
 [batch, width] input. So K2, its plain version and the step loop draw the
 same masks as the JAX megakernel in interpret mode.
 
+Ranks (K6, the data-parallel megakernel): with ``n_ranks`` > 1 the one
+launch runs n ranks that share the card, each on its own replica, optimizer
+slots and batch shard; between the backward and the optimizer each rank's
+gradients are summed with the others' round an in-kernel ring
+(``csrc/ring.cuh``, the device code of P3, ``ops/ring_allreduce.py``) and
+multiplied by 1/n, the JAX package's ``grad_ring_all_reduce``. Rank r seeds
+its Dropouts with step ``t + 7919 r`` (``rank_step``), as the JAX kernel
+adds ``axis_index * 7919``. A 4-D ``xb`` ([n_ranks, n_steps, batch,
+features]) asks for ranks: the parameters and slots are then lists with one
+entry per rank, and the losses [n_ranks, n_steps] each rank's mean over
+its shard.
+
 - ``supports``: can the kernel run this (net, optimizer, loss)?
 - ``build_fused_epoch``: ``epoch_fn(params, slots, t0, xb, yb) -> (t,
   losses)``. The parameters and slots are the model's own tensors, updated
@@ -30,6 +42,8 @@ same masks as the JAX megakernel in interpret mode.
   layer by layer (not through the tape). For CPU tensors and the tests.
 - ``cuda_fused_epoch``: the kernel's wrapper. It launches or raises, never
   falls back; ``cuda_fused_epoch.launches`` counts its launches.
+- ``cuda_fused_epoch_ranks``: the ranked kernel's wrapper (K2 with K6), the
+  same launch with a shard, a replica and slots a rank; its own count.
 """
 
 import dataclasses
@@ -41,6 +55,9 @@ import torch
 from tinynn_autograd_tpu_torch.ops import dropout, kernels
 from tinynn_autograd_tpu_torch.ops.optim_rules import (
     OPTIMIZERS, optimizer_constants,
+)
+from tinynn_autograd_tpu_torch.ops.ring_allreduce import (
+    MAX_RANKS, SYNC_WORDS, ring_all_reduce_reference,
 )
 
 SOURCE = kernels.CSRC_DIR / "fused_epoch.cu"
@@ -56,6 +73,14 @@ MAX_LAYERS = 16  # MAX_LAYERS in csrc/fused_epoch.cu
 # through and other work on the card. The flagship with Adam needs 3.4 MB.
 # (The TPU kernel's VMEM budget of 6 MB is a TPU figure and does not apply.)
 STATE_BUDGET = 24 * 1024 * 1024
+RANK_SEED_STRIDE = 7919  # kRankSeedStride in csrc/hash.cuh
+
+
+def rank_step(t, rank):
+    """The step rank ``rank`` seeds its Dropouts with in the step whose
+    counter is ``t``: ``t + 7919 rank`` mod 2**32 (the JAX megakernel adds
+    ``axis_index * 7919`` to its step seed)."""
+    return (int(t) + RANK_SEED_STRIDE * int(rank)) & 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,10 +142,14 @@ def _dropout_reason(net, dense):
     return None
 
 
-def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
+def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None,
+                       n_ranks=1):
     """Why the kernel cannot run this (net, optimizer, loss), or None when
     it can. ``batch_shape`` ([batch, *features]), where given, also checks
-    the input layout and counts the activations in the state."""
+    the input layout and counts the activations in the state. With
+    ``n_ranks`` ranks the state of every rank counts, and with more than
+    one the ring's two comm slots a leaf too (``batch_shape`` is then a
+    rank's shard)."""
     from tinynn_autograd_tpu_torch.nn.layers import Dense, Dropout, Flatten
     from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
 
@@ -169,22 +198,28 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None):
             return "Dense layer %d has no parameters yet" % i
         if leaves["w"].dtype != torch.float32:
             return "Dense layer %d holds %s parameters" % (i, leaves["w"].dtype)
+    if not 1 <= n_ranks <= MAX_RANKS:
+        return "%d ranks: the kernel takes 1 to %d" % (n_ranks, MAX_RANKS)
     n_floats = sum(v.numel() for i in dense for v in params_tree[i].values())
-    state = n_floats * (2 + len(optimizer.slot_names))  # + grads
+    # + grads, and the ring's two comm slots
+    state = n_floats * (2 + len(optimizer.slot_names) + (
+        2 if n_ranks > 1 else 0))
     if batch_shape is not None:
         widths = sum((4 if rate else 3) * d_out
                      for _, d_out, _, rate, _ in layer_descriptor(net))
         state += batch_shape[0] * widths  # z, h, dz and a Dropout's output
+    state *= n_ranks
     if 4 * state > STATE_BUDGET:
         return ("the state (%d bytes) exceeds the %d-byte budget"
                 % (4 * state, STATE_BUDGET))
     return None
 
 
-def supports(net, params_tree, optimizer, loss, batch_shape=None):
+def supports(net, params_tree, optimizer, loss, batch_shape=None,
+             n_ranks=1):
     """Can this (net, optimizer, loss) run as one whole-epoch kernel?"""
     return unsupported_reason(net, params_tree, optimizer, loss,
-                              batch_shape) is None
+                              batch_shape, n_ranks) is None
 
 
 def layer_descriptor(net):
@@ -227,15 +262,21 @@ def dense_leaves(net, tree):
 
 
 def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
-                      label_shape):
+                      label_shape, n_ranks=None):
     """Returns ``epoch_fn(params, slots, t0, xb, yb) -> (t, losses)``.
 
     ``params`` is the model's parameter tree and ``slots`` the optimizer's
     slot trees by name; both are updated in place. ``t0`` is the step count
     before the epoch, ``t`` the count after it. ``xb`` is [n_steps,
-    *batch_shape], ``yb`` [n_steps, *label_shape]; ``losses`` [n_steps]."""
+    *batch_shape], ``yb`` [n_steps, *label_shape]; ``losses`` [n_steps].
+
+    With ``n_ranks`` set (the data-parallel megakernel; 1 runs the ranked
+    code with one rank), ``params`` and ``slots`` are lists with each
+    rank's tree and slot trees, ``xb`` is
+    [n_ranks, n_steps, *batch_shape] (each rank's shard; ``batch_shape`` is
+    a rank's), ``yb`` likewise, and ``losses`` [n_ranks, n_steps]."""
     reason = unsupported_reason(net, net.params_tree(), optimizer, loss_fn,
-                                batch_shape)
+                                batch_shape, n_ranks or 1)
     if reason is not None:
         raise ValueError("the whole-epoch kernel cannot run this net: "
                          + reason)
@@ -251,16 +292,25 @@ def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
     weight = loss_fn._weight
 
     def epoch_fn(params, slots, t0, xb, yb):
-        xb = xb.reshape(n_steps, batch, features)
-        yb = yb.reshape(n_steps, batch, spec.layers[-1][1])
+        ranks = () if n_ranks is None else (n_ranks,)
+        xb = xb.reshape(ranks + (n_steps, batch, features))
+        yb = yb.reshape(ranks + (n_steps, batch, spec.layers[-1][1]))
         scalars = torch.from_numpy(
             optimizer.step_scalars(t0, n_steps)).to(xb.device)
         run = (fused_epoch_reference if xb.device.type == "cpu"
-               else cuda_fused_epoch)
-        losses = run(spec, dense_leaves(net, params),
-                     {name: dense_leaves(net, slots[name])
-                      for name in optimizer.slot_names},
-                     xb, yb, scalars,
+               else cuda_fused_epoch if n_ranks is None
+               else cuda_fused_epoch_ranks)
+
+        def pairs(slot_trees):
+            return {name: dense_leaves(net, slot_trees[name])
+                    for name in optimizer.slot_names}
+
+        if n_ranks is None:
+            leaves, slot_leaves = dense_leaves(net, params), pairs(slots)
+        else:
+            leaves = [dense_leaves(net, tree) for tree in params]
+            slot_leaves = [pairs(s) for s in slots]
+        losses = run(spec, leaves, slot_leaves, xb, yb, scalars,
                      None if weight is None else weight.to(xb.device),
                      bf16=kernels.matmul_precision() == "bf16", t0=t0)
         return t0 + n_steps, losses
@@ -333,6 +383,62 @@ def apply_rule(spec, p, g, slots, s0, s1):
     p.add_(step)
 
 
+def _rank_step(spec, params, x, y, t, mm, class_weight):
+    """One rank's forward, loss and backward in the step whose Dropout seed
+    step is ``t``: (the loss, [(gw, gb)] per Dense)."""
+    batch = x.shape[0]
+    acts = [layer[2] for layer in spec.layers]
+    ins, zs, hs, masks = [x], [], [], []
+    for (_, _, act, rate, idx), (w, b) in zip(spec.layers, params):
+        zs.append(mm(ins[-1], w) + b)
+        hs.append(_activate(act, zs[-1]))
+        mask = None
+        out = hs[-1]
+        if rate:
+            out, mask = dropout.dropout_reference(
+                out, rate, dropout.layer_seed(t, idx))
+        masks.append(mask)
+        ins.append(out)
+    # softmax cross-entropy, as nn/losses.py and its tape
+    log_p = torch.log_softmax(ins[-1], dim=-1)
+    nll = -(log_p * y).sum(dim=1, keepdim=True)
+    g = torch.full((batch, 1), 1.0 / batch, device=x.device)
+    if class_weight is not None:
+        per_sample_w = (y * class_weight).sum(dim=1, keepdim=True)
+        nll = nll * per_sample_w
+        g = g * per_sample_w
+    loss = nll.sum() / batch
+    g_log_p = -g * y
+    dz = g_log_p - torch.exp(log_p) * g_log_p.sum(dim=-1, keepdim=True)
+    dz = _activation_grad(acts[-1], dz, zs[-1], hs[-1])
+    # backward: every gradient before any weight changes
+    grads = [None] * len(params)
+    for l in reversed(range(len(params))):
+        grads[l] = (mm(ins[l].T, dz), dz.sum(dim=0, keepdim=True))
+        if l > 0:
+            g = mm(dz, params[l][0].T)
+            if masks[l - 1] is not None:
+                scale = dropout.keep_scale(spec.layers[l - 1][3])[1]
+                g = torch.where(masks[l - 1], g * scale, 0.0)
+            dz = _activation_grad(acts[l - 1], g, zs[l - 1], hs[l - 1])
+    return loss, grads
+
+
+def _ring_mean(rank_grads):
+    """K6 in plain PyTorch: each gradient leaf summed over the ranks round
+    the ring (``ring_all_reduce_reference``: each rank in its own order),
+    then times 1/n, one f32 multiply."""
+    n = len(rank_grads)
+    scale = 1.0 / n
+    out = [[[None, None] for _ in grads] for grads in rank_grads]
+    for l in range(len(rank_grads[0])):
+        for j in range(2):
+            sums = ring_all_reduce_reference([g[l][j] for g in rank_grads])
+            for r, summed in enumerate(sums):
+                out[r][l][j] = summed * scale
+    return [[tuple(pair) for pair in grads] for grads in out]
+
+
 def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
                           class_weight=None, bf16=False, t0=0):
     """The kernel's function in plain PyTorch: ``params`` ([(w, b)] per
@@ -343,67 +449,54 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
     before the epoch (the Dropout seeds' steps start there). Returns the
     losses [n_steps]. With ``bf16`` each product operand is rounded to bf16
     and the products are summed in f32. ``clip_norm`` scales the gradients
-    as ``update`` does, before the rule."""
+    as ``update`` does, before the rule.
+
+    Ranks: with ``xb`` [n_ranks, n_steps, B, F] (and ``yb`` likewise),
+    ``params`` and ``slots`` are lists with each rank's, and the losses
+    [n_ranks, n_steps] each rank's mean over its shard. Each step every
+    rank takes its gradients on its shard (Dropout seeds from ``rank_step``),
+    then every leaf is summed round the ring and multiplied by 1/n (with
+    more than one rank), then each rank clips and applies the rule to its
+    own replica."""
     if bf16:
         def mm(a, b):
             return kernels.matmul_reference(a.to(torch.bfloat16).float(),
                                             b.to(torch.bfloat16).float())
     else:
         mm = kernels.matmul_reference
-    n_steps, batch = xb.shape[0], xb.shape[1]
-    acts = [layer[2] for layer in spec.layers]
-    slot_pairs = [slots[name] for name in spec.slot_names]
-    losses = torch.empty(n_steps, dtype=torch.float32, device=xb.device)
+    ranked = xb.ndim == 4
+    if not ranked:
+        params, slots, xb, yb = [params], [slots], xb[None], yb[None]
+    n_ranks, n_steps = xb.shape[0], xb.shape[1]
+    losses = torch.empty((n_ranks, n_steps), dtype=torch.float32,
+                         device=xb.device)
     for s in range(n_steps):
         t = t0 + s
-        y = yb[s]
-        ins, zs, hs, masks = [xb[s]], [], [], []
-        for (_, _, act, rate, idx), (w, b) in zip(spec.layers, params):
-            zs.append(mm(ins[-1], w) + b)
-            hs.append(_activate(act, zs[-1]))
-            mask = None
-            out = hs[-1]
-            if rate:
-                out, mask = dropout.dropout_reference(
-                    out, rate, dropout.layer_seed(t, idx))
-            masks.append(mask)
-            ins.append(out)
-        # softmax cross-entropy, as nn/losses.py and its tape
-        log_p = torch.log_softmax(ins[-1], dim=-1)
-        nll = -(log_p * y).sum(dim=1, keepdim=True)
-        g = torch.full((batch, 1), 1.0 / batch, device=xb.device)
-        if class_weight is not None:
-            per_sample_w = (y * class_weight).sum(dim=1, keepdim=True)
-            nll = nll * per_sample_w
-            g = g * per_sample_w
-        losses[s] = nll.sum() / batch
-        g_log_p = -g * y
-        dz = g_log_p - torch.exp(log_p) * g_log_p.sum(dim=-1, keepdim=True)
-        dz = _activation_grad(acts[-1], dz, zs[-1], hs[-1])
-        # backward: every gradient before any weight changes
-        grads = [None] * len(params)
-        for l in reversed(range(len(params))):
-            grads[l] = (mm(ins[l].T, dz), dz.sum(dim=0, keepdim=True))
-            if l > 0:
-                g = mm(dz, params[l][0].T)
-                if masks[l - 1] is not None:
-                    scale = dropout.keep_scale(spec.layers[l - 1][3])[1]
-                    g = torch.where(masks[l - 1], g * scale, 0.0)
-                dz = _activation_grad(acts[l - 1], g, zs[l - 1], hs[l - 1])
-        if spec.clip_norm:
-            # as BaseOptimizer.update: the norm over every leaf, in the
-            # JAX package's leaf order (b before w)
-            total = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                   for gw, gb in grads for g in (gb, gw)))
-            clip = torch.clamp(spec.clip_norm / (total + 1e-6), max=1.0)
-            grads = [(gw * clip, gb * clip) for gw, gb in grads]
-        # the optimizer, as nn/optimizer.py
+        rank_grads = []
+        for r in range(n_ranks):
+            losses[r, s], grads = _rank_step(
+                spec, params[r], xb[r, s], yb[r, s], rank_step(t, r), mm,
+                class_weight)
+            rank_grads.append(grads)
+        if n_ranks > 1:
+            rank_grads = _ring_mean(rank_grads)
         s0, s1 = scalars[s, 0], scalars[s, 1]
-        for l, (pair, grad_pair) in enumerate(zip(params, grads)):
-            for j, (p, grad) in enumerate(zip(pair, grad_pair)):
-                apply_rule(spec, p, grad, [sp[l][j] for sp in slot_pairs],
-                           s0, s1)
-    return losses
+        for r, grads in enumerate(rank_grads):
+            if spec.clip_norm:
+                # as BaseOptimizer.update: the norm over every leaf, in the
+                # JAX package's leaf order (b before w)
+                total = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                       for gw, gb in grads
+                                       for g in (gb, gw)))
+                clip = torch.clamp(spec.clip_norm / (total + 1e-6), max=1.0)
+                grads = [(gw * clip, gb * clip) for gw, gb in grads]
+            # the optimizer, as nn/optimizer.py
+            slot_pairs = [slots[r][name] for name in spec.slot_names]
+            for l, (pair, grad_pair) in enumerate(zip(params[r], grads)):
+                for j, (p, grad) in enumerate(zip(pair, grad_pair)):
+                    apply_rule(spec, p, grad,
+                               [sp[l][j] for sp in slot_pairs], s0, s1)
+    return losses if ranked else losses[0]
 
 
 # --------------------------------------------------------------------------
@@ -411,20 +504,23 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
 # --------------------------------------------------------------------------
 
 def _bind(lib, ctypes):
-    ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                          ctypes.c_float)
+    ptr, i32, u32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                               ctypes.c_float, ctypes.c_longlong)
     lib.tinynn_fused_epoch.argtypes = (
-        [i32, ctypes.POINTER(i32), ctypes.POINTER(u32), ctypes.POINTER(f32),
-         ctypes.POINTER(ptr)] + [ptr] * 7 + [i32] * 3 + [u32, i32]
-        + [f32] * 6 + [i32, ptr, ptr])
+        [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(u32),
+         ctypes.POINTER(f32), ctypes.POINTER(ptr)] + [ptr] * 8
+        + [i32, ptr, i64, ptr, ptr] + [i32, i32, u32, i32] + [f32] * 6
+        + [i32, i32, i64, ptr, ptr])
     lib.tinynn_fused_epoch.restype = i32
     lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(i32)] * 2
     lib.tinynn_fused_epoch_grid.restype = i32
+    lib.tinynn_fused_epoch_table_bytes.argtypes = []
+    lib.tinynn_fused_epoch_table_bytes.restype = i64
 
 
 def kernel_grid():
     """(co-resident blocks per SM, SMs): the launch's grid on the current
-    CUDA device."""
+    CUDA device. With n ranks each takes blocks per SM x SMs // n."""
     import ctypes
 
     lib = kernels.load_library("fused_epoch", _bind)
@@ -447,46 +543,91 @@ def _check(name, t, device, shape):
                          % (name, tuple(t.shape), tuple(shape)))
 
 
-def phase_names(spec):
+def phase_names(spec, n_ranks=1):
     """The kernel's phases in the order of ``phase_ns``."""
     n = len(spec.layers)
     return (["forward %d" % l for l in range(n)] + ["loss"]
             + ["backward %d" % l for l in reversed(range(n))]
+            + (["ring all-reduce"] if n_ranks > 1 else [])
             + (["clip norm"] if spec.clip_norm else []) + ["optimizer"])
 
 
 def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
                      class_weight=None, bf16=False, t0=0, phase_ns=None):
     """``fused_epoch_reference``'s function through the hand-written CUDA
-    kernel: one cooperative launch for the whole epoch, ``params`` and
+    kernel (K2): one cooperative launch for the whole epoch, ``params`` and
     ``slots`` updated in place. Every tensor is a contiguous float32 CUDA
     tensor on one device. ``phase_ns``, an int64 CUDA tensor with one entry
     per ``phase_names(spec)``, accumulates block 0's time in each phase,
     barrier wait included (a trace; None turns it off). Raises on anything
     the kernel does not take and when the launch fails; never computes the
-    epoch another way."""
+    epoch another way. ``cuda_fused_epoch.launches`` counts its launches."""
+    if xb.ndim != 3 or yb.ndim != 3:
+        raise ValueError("xb and yb must be [n_steps, batch, features]")
+    losses = _launch(spec, [params], [slots], xb[None], yb[None], scalars,
+                     class_weight, bf16, t0, phase_ns, None)
+    cuda_fused_epoch.launches += 1
+    return losses[0]
+
+
+cuda_fused_epoch.launches = 0
+
+
+def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
+                           class_weight=None, bf16=False, t0=0,
+                           phase_ns=None, skew=None):
+    """The ranked kernel (K2 with K6, the data-parallel megakernel): one
+    cooperative launch in which each of n ranks runs the epoch on its shard
+    of ``xb`` [n_ranks, n_steps, batch, features] (``yb`` likewise) with its
+    own ``params[r]`` and ``slots[r]``, updated in place, and with more
+    than one rank sums its gradients with the others' round the ring each
+    step. Returns the losses [n_ranks, n_steps]. ``phase_ns`` (one entry a
+    ``phase_names(spec, n_ranks)``) times rank 0's block 0. ``skew`` =
+    (rank, microseconds) holds that rank back before each step's first hop
+    (a check of the ring's flow control). Raises as ``cuda_fused_epoch``
+    does; ``cuda_fused_epoch_ranks.launches`` counts its launches."""
+    if xb.ndim != 4 or yb.ndim != 4:
+        raise ValueError("xb and yb must be [n_ranks, n_steps, batch, "
+                         "features]")
+    losses = _launch(spec, params, slots, xb, yb, scalars, class_weight,
+                     bf16, t0, phase_ns, skew)
+    cuda_fused_epoch_ranks.launches += 1
+    return losses
+
+
+cuda_fused_epoch_ranks.launches = 0
+
+
+def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
+            phase_ns, skew):
+    """Checks the ranked arguments and launches the kernel; returns the
+    losses [n_ranks, n_steps]."""
     device = xb.device
     if device.type != "cuda":
         raise ValueError("cuda_fused_epoch needs CUDA tensors, got %s"
                          % device)
-    n_layers = len(spec.layers)
-    if not 1 <= n_layers <= MAX_LAYERS or len(params) != n_layers:
-        raise ValueError("%d layers in the spec, %d parameter pairs (at most "
-                         "%d)" % (n_layers, len(params), MAX_LAYERS))
-    if not 0 <= spec.optimizer < len(OPTIMIZERS) or set(slots) != set(
-            spec.slot_names) or len(spec.slot_names) > 2:
+    n_layers, n_ranks = len(spec.layers), len(params)
+    if not 1 <= n_layers <= MAX_LAYERS or any(
+            len(p) != n_layers for p in params):
+        raise ValueError("%d layers in the spec, %s parameter pairs (at most "
+                         "%d)" % (n_layers, [len(p) for p in params],
+                                  MAX_LAYERS))
+    if not 1 <= n_ranks <= MAX_RANKS or len(slots) != n_ranks:
+        raise ValueError("%d ranks of parameters, %d of slots (1 to %d)"
+                         % (n_ranks, len(slots), MAX_RANKS))
+    if not 0 <= spec.optimizer < len(OPTIMIZERS) or any(
+            set(s) != set(spec.slot_names) for s in slots) or len(
+            spec.slot_names) > 2:
         raise ValueError("optimizer %d with slots %s, the spec has %s"
-                         % (spec.optimizer, sorted(slots),
+                         % (spec.optimizer, [sorted(s) for s in slots],
                             list(spec.slot_names)))
-    if xb.ndim != 3 or yb.ndim != 3:
-        raise ValueError("xb and yb must be [n_steps, batch, features]")
-    n_steps, batch = xb.shape[0], xb.shape[1]
-    _check("xb", xb, device, (n_steps, batch, spec.layers[0][0]))
-    _check("yb", yb, device, (n_steps, batch, spec.layers[-1][1]))
+    n_steps, batch = xb.shape[1], xb.shape[2]
+    _check("xb", xb, device, (n_ranks, n_steps, batch, spec.layers[0][0]))
+    _check("yb", yb, device, (n_ranks, n_steps, batch, spec.layers[-1][1]))
     _check("scalars", scalars, device, (n_steps, 2))
     if class_weight is not None:
         _check("class_weight", class_weight, device, (spec.layers[-1][1],))
-    n_phases = len(phase_names(spec))
+    n_phases = len(phase_names(spec, n_ranks))
     if phase_ns is not None and (
             phase_ns.device != device or phase_ns.dtype != torch.int64
             or tuple(phase_ns.shape) != (n_phases,)):
@@ -495,14 +636,20 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
     if not (0 < n_steps < 2 ** 31 and 0 < batch < 2 ** 31):
         raise ValueError("epoch of %d steps of %d rows is out of range"
                          % (n_steps, batch))
+    if skew is not None and not 0 <= skew[0] < n_ranks:
+        raise ValueError("skew rank %d of %d ranks" % (skew[0], n_ranks))
 
     import ctypes
 
-    # `scratch` holds the gradients and activations until the launch is
-    # queued: freed earlier, the caching allocator would hand one layer's
-    # buffers to the next. After the launch it may reuse them: they were
-    # allocated on the stream the kernel runs on.
-    dims, drops, drop_scales, ptrs, scratch = [], [], [], [], []
+    # `scratch` holds the gradients, activations and the ring's buffers
+    # until the launch is queued: freed earlier, the caching allocator
+    # would hand one layer's buffers to the next. After the launch it may
+    # reuse them: they were allocated on the stream the kernel runs on.
+    n_grad = sum(d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)
+    grads = torch.empty((n_ranks, n_grad), dtype=torch.float32,
+                        device=device)
+    scratch = [grads]
+    dims, drops, drop_scales, ptrs = [], [], [], []
     prev_out = spec.layers[0][0]
     for l, (d_in, d_out, act, rate, idx) in enumerate(spec.layers):
         if d_in != prev_out or act not in (ACT_NONE, ACT_RELU, ACT_SIGMOID,
@@ -514,57 +661,74 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
             raise ValueError("layer %d: a Dropout (rate %r, seed index %d) "
                              "the kernel cannot apply" % (l, rate, idx))
         prev_out = d_out
-        w, b = params[l]
-        _check("w%d" % l, w, device, (d_in, d_out))
-        _check("b%d" % l, b, device, (1, d_out))
-        leaves = [w, b, torch.empty_like(w), torch.empty_like(b)]
-        for name in list(spec.slot_names) + [None] * (
-                2 - len(spec.slot_names)):
-            if name is None:
-                leaves += [None, None]
-                continue
-            sw, sb = slots[name][l]
-            _check("%s_w%d" % (name, l), sw, device, (d_in, d_out))
-            _check("%s_b%d" % (name, l), sb, device, (1, d_out))
-            leaves += [sw, sb]
-        z = torch.empty((batch, d_out), dtype=torch.float32, device=device)
-        h = z if act == ACT_NONE else torch.empty_like(z)
-        leaves += [z, h, torch.empty_like(z) if rate else None,
-                   torch.empty_like(z)]
-        scratch.append(leaves)
         threshold, scale = dropout.keep_scale(rate)
         dims += [d_in, d_out, act, int(bool(rate))]
         drops += [max(idx, 0), threshold]
         drop_scales.append(scale)
-        ptrs += [0 if t is None else t.data_ptr() for t in leaves]
-    losses = torch.empty(n_steps, dtype=torch.float32, device=device)
-    row_loss = torch.empty(batch, dtype=torch.float32, device=device)
+    for r in range(n_ranks):
+        offset = 0
+        for l, (d_in, d_out, act, rate, _) in enumerate(spec.layers):
+            w, b = params[r][l]
+            _check("rank %d w%d" % (r, l), w, device, (d_in, d_out))
+            _check("rank %d b%d" % (r, l), b, device, (1, d_out))
+            gw = grads[r, offset:offset + d_in * d_out].view(d_in, d_out)
+            offset += d_in * d_out
+            gb = grads[r, offset:offset + d_out].view(1, d_out)
+            offset += d_out
+            leaves = [w, b, gw, gb]
+            for name in list(spec.slot_names) + [None] * (
+                    2 - len(spec.slot_names)):
+                if name is None:
+                    leaves += [None, None]
+                    continue
+                sw, sb = slots[r][name][l]
+                _check("rank %d %s_w%d" % (r, name, l), sw, device,
+                       (d_in, d_out))
+                _check("rank %d %s_b%d" % (r, name, l), sb, device,
+                       (1, d_out))
+                leaves += [sw, sb]
+            z = torch.empty((batch, d_out), dtype=torch.float32,
+                            device=device)
+            h = z if act == ACT_NONE else torch.empty_like(z)
+            leaves += [z, h, torch.empty_like(z) if rate else None,
+                       torch.empty_like(z)]
+            scratch.append(leaves)
+            ptrs += [0 if t is None else t.data_ptr() for t in leaves]
+    losses = torch.empty((n_ranks, n_steps), dtype=torch.float32,
+                         device=device)
+    row_loss = torch.empty((n_ranks, batch), dtype=torch.float32,
+                           device=device)
     per_sm, sms = kernel_grid()
     partial = torch.empty(per_sm * sms, dtype=torch.float32, device=device)
+    comm = (torch.empty((n_ranks, 2, n_grad), dtype=torch.float32,
+                        device=device) if n_ranks > 1 else None)
+    sync = torch.zeros(n_ranks * SYNC_WORDS, dtype=torch.int32,
+                       device=device)
+    skew_rank, skew_us = (-1, 0) if skew is None else skew
 
     lib = kernels.load_library("fused_epoch", _bind)
+    tables = torch.empty(n_ranks * lib.tinynn_fused_epoch_table_bytes(),
+                         dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tinynn_fused_epoch(
-            n_layers, (ctypes.c_int * len(dims))(*dims),
+            n_ranks, n_layers, (ctypes.c_int * len(dims))(*dims),
             (ctypes.c_uint * len(drops))(*drops),
             (ctypes.c_float * n_layers)(*drop_scales),
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_void_p * len(ptrs))(*ptrs), tables.data_ptr(),
             xb.data_ptr(), yb.data_ptr(),
             0 if class_weight is None else class_weight.data_ptr(),
             scalars.data_ptr(), losses.data_ptr(), row_loss.data_ptr(),
-            partial.data_ptr(), partial.numel(), batch, n_steps,
-            int(t0) & 0xFFFFFFFF, spec.optimizer, *spec.consts,
+            partial.data_ptr(), partial.numel(), grads.data_ptr(), n_grad,
+            0 if comm is None else comm.data_ptr(), sync.data_ptr(), batch,
+            n_steps, int(t0) & 0xFFFFFFFF, spec.optimizer, *spec.consts,
             spec.weight_decay, spec.clip_norm, int(bool(bf16)),
+            int(skew_rank), int(1000 * skew_us),
             0 if phase_ns is None else phase_ns.data_ptr(), stream)
-    del scratch, partial
+    del scratch, partial, comm, sync, tables
     if err == 801:  # cudaErrorNotSupported
         raise RuntimeError("the device cannot launch cooperative kernels")
     if err != 0:
         raise RuntimeError("fused epoch kernel launch failed: CUDA error %d"
                            % err)
-    cuda_fused_epoch.launches += 1
     return losses
-
-
-cuda_fused_epoch.launches = 0
