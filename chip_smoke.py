@@ -27,19 +27,30 @@ bench_block_probe_torch.py's probe at config 6's block (B 32, T 128, D
 256, 8 heads, causal or not), a T=512 causal block and 6b's block. The
 flagship trained data-parallel (BASELINE.json configuration 5: 4 ranks
 sharing the card, global batch 128) runs through K2 with its gradient ring
-(K6, csrc/fused_epoch.cu with csrc/ring.cuh); P3, the ring alone
-(csrc/ring_allreduce.cu), at the JAX test's shape and the flagship's
-gradients.
+(K6, csrc/fused_epoch.cu with csrc/ring.cuh, one all-rank exchange a
+step); P3, the ring all-reduce alone (csrc/ring_allreduce.cu), at the JAX
+test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
+(bench_vs_parent.py times K1, P3 and K2 beside an older checkout's.)
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build: compiles the nine libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
    spills.
-3. kernel vs plain: K1 against ``matmul_reference`` on the card at every
-   shape the main path gives it (the 14 products of a train step,
-   transposed views included, the 10,000-row eval product, two ragged
-   shapes), in f32 (rtol 1e-5, atol 1e-4) and bf16 (rtol 2e-2, atol 2e-1),
-   with per-launch times of both (back to back, and device-only).
+3. kernel vs plain: K1's tile configurations hold the blocks an SM that
+   ``MATMUL_TILES`` says. K1 against ``matmul_reference`` on the card at
+   every shape the main paths give it (the 14 products of a flagship train
+   step, transposed views included, the 10,000-row eval product, 6b's
+   three, two ragged shapes), in f32 (rtol 1e-5, atol 1e-4) and bf16 (rtol
+   2e-2, atol 2e-1); config 8's ten on the operands of a config-8 train
+   step at the f32 gate, and on unit-normal operands at the f32 gate where
+   K <= 256 and at K = 1,024 and 8,192 (where one f32 chain of K products
+   reaches the gate's atol) against float64 within 4x cuBLAS's f32 error, a
+   limit cuBLAS's TF32 must miss, and at the bf16 gate; split-K reruns
+   bit-identical. Then each product's device time through the kernel and
+   torch.matmul (cuBLAS, TF32 off: the plain version) in turns, with its
+   plan (tile, split, cluster) and bound, and the sums of a flagship step,
+   the eval, a config-8 step and a 6b step; the flagship step's 14 back to
+   back.
 4. fused epoch vs plain: K2 against ``fused_epoch_reference`` on the card
    for 10 flagship steps from pinned seed-1 weights: losses (rtol 1e-5,
    atol 1e-6), parameters, Adam slots and the step count (rtol 1e-4, atol
@@ -106,18 +117,20 @@ gradients.
    Both epochs' steps/s; the two accuracies within 0.02.
 6a. data parallel: K6 and P3 vs plain. P3 at tests/test_dp_megakernel.py's
    8 ranks of [8, 128] (arange) against the sum (rtol 1e-6) and its plain
-   version bit for bit, and at 4 ranks of the flagship's 186,610 gradient
-   floats bit for bit; each rerun with one rank held back 200 us before its
-   first hop, bit-identical; the kernel's, the plain version's and
-   torch.stack(xs).sum(0)'s device times; the main path ``ring_all_reduce``
-   at both shapes, counted. K2 with K6 on 4 ranks of 32 rows over the 10
+   version bit for bit, and at 2, 3, 4 and 16 ranks of the flagship's
+   186,610 gradient floats bit for bit; each rerun with one rank held back
+   200 us before its arrival, bit-identical; the kernel's, the plain
+   version's and torch.stack(xs).sum(0)'s device times at each
+   rank count; the main path ``ring_all_reduce`` at JAX's shape and 4
+   ranks, counted. K2 with K6 on 4 ranks of 32 rows over the 10
    pinned steps (seed-1 weights; data seed 5, and 15 for the Dropout
    flagship: on seed 5 a ReLU input of a rank lies within rounding of 0):
    every rank's losses and state at K2's gates, a rerun and a rerun with
    rank 1 held back bit-identical; one rank through the ranked wrapper
    bit for bit with K2; the kernel's and the plain version's ms for a
-   390-step epoch of 4 ranks, the time by phase (the ring's us/step) beside
-   its bound. Then the main path: ``DataParallel(Model(build_mnist_mlp(),
+   390-step epoch of 4 ranks, the kernel's time by phase (the ring's
+   us/step: the all-rank arrival and the pass) beside its bound. Then the
+   main path: ``DataParallel(Model(build_mnist_mlp(),
    ...), mesh=make_mesh(devices=[cuda] * 4)).train_epochs(fused="auto")``
    from seed 0 on synthetic MNIST 50,000/10,000: one ranked K2 launch an
    epoch, accuracy above 0.9 after the first, the replica spread, two more
@@ -244,6 +257,30 @@ STEP_SHAPES = ([(BATCH, i, o, False, False) for i, o in LAYERS]
                + [(BATCH, o, i, False, True) for i, o in LAYERS[1:]])
 EVAL_SHAPE = (10000, 784, 200, False, False)
 RAGGED = [(130, 129, 131, False, False), (1, 784, 200, False, False)]
+# config 8's ten products a train step (two LSTM layers of 256, T = 128,
+# batch 64; ops/recurrent.py): the input projections, the head's forward,
+# weight and input gradients, layer 2's dx through wx^T, each layer's dWx
+# and dWh through its transposed [T B, D] sequences (K = 8,192)
+CONFIG8_SHAPES = [(8192, 64, 1024, False, False),
+                  (8192, 256, 1024, False, False),
+                  (64, 256, 16, False, False), (256, 64, 16, True, False),
+                  (64, 16, 256, False, True), (8192, 1024, 256, False, True),
+                  (256, 8192, 1024, True, False),
+                  (256, 8192, 1024, True, False),
+                  (64, 8192, 1024, True, False),
+                  (256, 8192, 1024, True, False)]
+# 6b's three 2-D products a step (its head: [4, 512] @ [512, 16] and both
+# gradients; the blocks' products are 3-D and stay torch.matmul)
+CONFIG6B_SHAPES = [(4, 512, 16, False, False), (512, 4, 16, True, False),
+                   (4, 16, 512, False, True)]
+# config 8's products past K = LONG_K on unit-normal operands: there the
+# rounding of an f32 sum reaches the f32 gate's atol (on the H100 K1's one
+# chain of K products an output errs by 2.6-3.9e-4 against float64 at
+# K = 1,024 and 8,192, cuBLAS by 1.3-2.1e-4), so they are held against
+# float64 within LONG_K_FACTOR times cuBLAS's own f32 error on the same
+# operands (K1 took 1.7-2.9 times it; TF32 over 100 times)
+LONG_K = 256
+LONG_K_FACTOR = 4.0
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-1)}
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -379,7 +416,7 @@ BLOCK_MAIN = "config6b"
 DP_RANKS = 4
 DP_LOCAL = BATCH // DP_RANKS
 RING_JAX = (8, (8, 128))
-RING_SKEW_US = 200.0  # the hold of one rank before its first hop
+RING_SKEW_US = 200.0  # the hold of one rank before its arrival
 # the Dropout flagship's K6 hold: on data seed 5 a rank's ReLU input comes
 # within rounding of 0 and one weight moves past the state gate
 # (`k2_seed_scan.py --device cpu --ranks` ranks the seeds)
@@ -477,61 +514,188 @@ def device_kernels(prof):
             if ev.device_type == DeviceType.CUDA]
 
 
+def product_name(m, k, n, ta, tb):
+    return "[%d,%d]%s@[%d,%d]%s" % (m, k, "T" if ta else "", k, n,
+                                    "T" if tb else "")
+
+
+def hold_product(got, ref, dtype, what):
+    """Kernel vs plain at the K1 gate; returns the max abs error."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError("%s: got %s %s, plain %s %s" % (
+            what, got.dtype, tuple(got.shape), ref.dtype, tuple(ref.shape)))
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(g, r, err_msg=what, **TOL[dtype])
+    return float(np.max(np.abs(g - r)))
+
+
+def long_k_errors(a, b, got):
+    """The largest |C - A B| (A B in float64) of the kernel's C (``got``),
+    cuBLAS's f32 C (TF32 off) and cuBLAS's TF32 C, on the same operands."""
+    exact = torch.matmul(a.double(), b.double())
+    f32 = torch.matmul(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return [float((c.double() - exact).abs().max()) for c in (got, f32, tf32)]
+
+
+def config8_operands(device):
+    """The operands of a config-8 train step's ten products, as K1 sees them
+    (transposed views included): one step of the config-8 model from seed 0
+    on its first batch, each product's (a, b) recorded."""
+    tx, ty, _, _ = rnn_data()
+    model = rnn_model(device)
+    seen = []
+    matmul = kernels.matmul
+
+    def record(a, b):
+        seen.append((a.clone(), b.clone()))
+        return matmul(a, b)
+
+    kernels.matmul = record
+    try:
+        model.train_step(tx[:RNN_BATCH], ty[:RNN_BATCH])
+        torch.cuda.synchronize()
+    finally:
+        kernels.matmul = matmul
+    shapes = [(a.shape[0], a.shape[1], b.shape[1]) for a, b in seen]
+    if sorted(shapes) != sorted((m, k, n) for m, k, n, _, _ in
+                                CONFIG8_SHAPES):
+        raise AssertionError("a config-8 step made the products %s" % shapes)
+    return seen
+
+
+def time_products(shapes, operand_pairs):
+    """Device us of each product through the kernel and torch.matmul
+    (cuBLAS, f32, TF32 off; also the plain version), in turns: cuBLAS,
+    kernel, kernel, cuBLAS. Prints each with its plan; returns the sums
+    (kernel, cuBLAS, bound)."""
+    total = np.zeros(3)
+    for shape, (a, b) in zip(shapes, operand_pairs):
+        fns = (lambda: torch.matmul(a, b), lambda: kernels.cuda_matmul(a, b))
+        lib, new, new2, lib2 = (device_us(fns[i]) for i in (0, 1, 1, 0))
+        m, k, n = shape[:3]
+        times = np.array([(new + new2) / 2, (lib + lib2) / 2,
+                          1e3 * bound(*product_cost(m, k, n))[0]])
+        total += times
+        plan = kernels.plan_matmul(m, n, k)
+        print("  %-24s %9.2f %9.2f %9.3f   config %d (%dx%d tile), "
+              "split %d (cluster of %d, K slices of %d)"
+              % ((product_name(*shape),) + tuple(times)
+                 + (plan.config, plan.bm, plan.bn, plan.split, plan.split,
+                    plan.k_chunk)))
+    return total
+
+
 def check_kernel(device):
-    """Kernel vs plain at the main path's shapes. Returns the f32 max abs
-    error and the device time (ms) of one train step's 14 products through
-    the kernel and through the plain version."""
+    """K1 against its plain version at the main paths' shapes, and timed
+    beside torch.matmul (cuBLAS). Returns
+    the f32 max abs error and the sums (device ms) of a flagship train
+    step's 14 products through the kernel and the plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # plan_matmul's cost model takes each configuration's blocks an SM from
+    # MATMUL_TILES: it must be what the card reports for the built kernel
+    held = [kernels.matmul_occupancy(c, 1)[0]
+            for c in range(len(kernels.MATMUL_TILES))]
+    if held != [t[2] for t in kernels.MATMUL_TILES]:
+        raise AssertionError("the card holds %s blocks an SM of K1's tile "
+                             "configurations, MATMUL_TILES says %s" % (
+                                 held, [t[2] for t in kernels.MATMUL_TILES]))
+    print("K1's tile configurations, blocks an SM: %s, as MATMUL_TILES says"
+          % held)
     gen = torch.Generator().manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    step_us = np.zeros(4)  # kernel launch, plain launch, kernel dev, plain dev
-    print("  f32 product              launch us: kernel   plain"
-          "   device us: kernel   plain   max_abs_err   bound us")
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in STEP_SHAPES + [EVAL_SHAPE] + RAGGED:
+        for shape in (STEP_SHAPES + [EVAL_SHAPE] + CONFIG6B_SHAPES
+                      + RAGGED):
             a, b = operands(*shape, dtype, device, gen)
             got = kernels.cuda_matmul(a, b)
             torch.cuda.synchronize()
-            ref = kernels.matmul_reference(a, b)
-            torch.cuda.synchronize()
-            if got.dtype != ref.dtype or got.shape != ref.shape:
-                raise AssertionError("%s: got %s %s, plain %s %s" % (
-                    shape, got.dtype, tuple(got.shape), ref.dtype,
-                    tuple(ref.shape)))
-            g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
-            err = float(np.max(np.abs(g - r)))
-            np.testing.assert_allclose(g, r, err_msg=str(shape),
-                                       **TOL[dtype])
-            worst[dtype] = max(worst[dtype], err)
-            if dtype != torch.float32 or shape in RAGGED:
-                continue
+            worst[dtype] = max(worst[dtype], hold_product(
+                got, kernels.matmul_reference(a, b), dtype, str(shape)))
+    # config 8: on a step's own operands at the gate; on unit-normal
+    # operands at the gate where K <= LONG_K, and past it against float64
+    # within LONG_K_FACTOR times cuBLAS's f32 error, a limit that TF32
+    # must miss
+    real = config8_operands(device)
+    for a, b in real:
+        got = kernels.cuda_matmul(a, b)
+        worst[torch.float32] = max(worst[torch.float32], hold_product(
+            got, kernels.matmul_reference(a, b), torch.float32,
+            "config 8 step %s" % (tuple(a.shape) + tuple(b.shape),)))
+    for shape in CONFIG8_SHAPES:
+        a, b = operands(*shape, torch.float32, device, gen)
+        got = kernels.cuda_matmul(a, b)
+        if shape[1] <= LONG_K:
+            worst[torch.float32] = max(worst[torch.float32], hold_product(
+                got, kernels.matmul_reference(a, b), torch.float32,
+                "config 8 %s" % (shape,)))
+        else:
+            mine, f32, tf32 = long_k_errors(a, b, got)
+            print("  %s: max |C - A B| against float64: kernel %.3g, cuBLAS "
+                  "f32 %.3g, cuBLAS TF32 %.3g; limit %.3g (%g x cuBLAS f32)"
+                  % (product_name(*shape), mine, f32, tf32,
+                     LONG_K_FACTOR * f32, LONG_K_FACTOR))
+            if not mine <= LONG_K_FACTOR * f32:
+                raise AssertionError("%s: the kernel's error %.3g is past "
+                                     "%g x cuBLAS's %.3g" % (
+                                         shape, mine, LONG_K_FACTOR, f32))
+            if not tf32 > LONG_K_FACTOR * f32:
+                raise AssertionError("%s: TF32's error %.3g is within the "
+                                     "limit %.3g: the check cannot tell f32 "
+                                     "from TF32" % (shape, tf32,
+                                                    LONG_K_FACTOR * f32))
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], hold_product(
+            kernels.cuda_matmul(a16, b16),
+            kernels.matmul_reference(a16, b16), torch.bfloat16, str(shape)))
+    print("kernel vs plain: max_abs_err f32 %.3g (tol rtol 1e-5 atol 1e-4; "
+          "config 8 on a step's operands, and on unit-normal ones where K <= "
+          "%d), bf16 %.3g (tol rtol 2e-2 atol 2e-1)"
+          % (worst[torch.float32], LONG_K, worst[torch.bfloat16]))
+    # split-K reruns
+    split = 0
+    for shape in STEP_SHAPES + CONFIG8_SHAPES + CONFIG6B_SHAPES + RAGGED:
+        m, k, n = shape[:3]
+        if kernels.plan_matmul(m, n, k).split == 1:
+            continue
+        a, b = operands(*shape, torch.float32, device, gen)
+        if not torch.equal(kernels.cuda_matmul(a, b),
+                           kernels.cuda_matmul(a, b)):
+            raise AssertionError("%s: a split-K rerun differs" % (shape,))
+        split += 1
+    print("split-K reruns bit-identical at the %d split products" % split)
 
-            def kernel():
-                return kernels.cuda_matmul(a, b)
-
-            def plain():
-                return kernels.matmul_reference(a, b)
-
-            # in turns: plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (launch_us(f) for f in (plain, kernel, kernel,
-                                                     plain))
-            times = np.array([(k1 + k2) / 2, (p1 + p2) / 2,
-                              device_us(kernel), device_us(plain)])
-            if shape != EVAL_SHAPE:
-                step_us += times
-            m, k, n, ta, tb = shape
-            name = "[%d,%d]%s@[%d,%d]%s" % (m, k, "T" if ta else "", k, n,
-                                            "T" if tb else "")
-            print("  %-24s %15.2f %7.2f %19.2f %7.2f   %-11.3g %.3f"
-                  % ((name,) + tuple(times)
-                     + (err, 1e3 * bound(*product_cost(m, k, n))[0])))
-    print("kernel vs plain: max_abs_err f32 %.3g (tol rtol 1e-5 atol 1e-4), "
-          "bf16 %.3g (tol rtol 2e-2 atol 2e-1)"
-          % (worst[torch.float32], worst[torch.bfloat16]))
-    print("one train step's 14 products: launch us kernel %.2f plain %.2f; "
-          "device us kernel %.2f plain %.2f" % tuple(step_us))
-    return worst[torch.float32], step_us[2] / 1000.0, step_us[3] / 1000.0
+    print("  f32 product              device us: kernel    cuBLAS   bound"
+          "     plan")
+    step_pairs = [operands(*s, torch.float32, device, gen)
+                  for s in STEP_SHAPES]
+    step = time_products(STEP_SHAPES, step_pairs)
+    # in turns: plain, kernel, kernel, plain
+    launch = [launch_us(lambda: [f(*p) for p in step_pairs]) for f in (
+        kernels.matmul_reference, kernels.cuda_matmul, kernels.cuda_matmul,
+        kernels.matmul_reference)]
+    evals = time_products([EVAL_SHAPE], [operands(*EVAL_SHAPE, torch.float32,
+                                                  device, gen)])
+    c8 = time_products(CONFIG8_SHAPES, real)
+    c6b = time_products(CONFIG6B_SHAPES, [
+        operands(*s, torch.float32, device, gen) for s in CONFIG6B_SHAPES])
+    for what, t in (("one flagship train step's 14 products", step),
+                    ("the 10,000-row eval product", evals),
+                    ("one config-8 step's 10 products", c8),
+                    ("one 6b step's 3 products", c6b)):
+        print("%s: device us kernel %.2f, cuBLAS %.2f; bound %.3f us; "
+              "kernel at %.1f%% of the bound, %.2fx cuBLAS's time"
+              % ((what,) + tuple(t) + (100.0 * t[2] / t[0], t[0] / t[1])))
+    print("one train step's 14 products back to back, host dispatch "
+          "included: launch us kernel %.2f (turns %.2f, %.2f), plain %.2f"
+          % ((launch[1] + launch[2]) / 2, launch[1], launch[2],
+             (launch[0] + launch[3]) / 2))
+    return worst[torch.float32], step[0] / 1000.0, step[1] / 1000.0
 
 
 def fresh_state(net, opt):
@@ -2800,22 +2964,26 @@ def dp_epoch_cost(spec, n_steps, local_batch, n_ranks):
 def check_ring(device):
     """P3: the ring at the JAX test's shape (8 ranks of [8, 128], arange)
     against the sum (rtol 1e-6) and its plain version bit for bit; at the
-    flagship's gradients (4 ranks of 186,610 floats) against its plain
-    version bit for bit; each rerun with one rank held back RING_SKEW_US
-    before its first hop, bit-identical. Then the kernel's, the plain
-    version's and torch.stack(xs).sum(0)'s device times, and the main path:
-    ``ring_all_reduce`` at both shapes, counted. Returns the launch counts
-    and the kernels-line numbers (flagship shape)."""
+    flagship's gradients (186,610 floats) over 2, 3, 4 and 16 ranks against
+    its plain version bit for bit; each rerun with one rank held back
+    RING_SKEW_US before its arrival, bit-identical. Then at each of those
+    rank counts the kernel's, the plain version's and
+    torch.stack(xs).sum(0)'s device times, and the main path:
+    ``ring_all_reduce`` at the JAX shape and the flagship's 4 ranks,
+    counted. Returns the launch counts and the kernels-line numbers
+    (flagship shape, 4 ranks)."""
     n, shape = RING_JAX
     x = torch.arange(n * int(np.prod(shape)), dtype=torch.float32,
                      device=device).reshape((n,) + shape)
     jax_xs = list(x.unbind(0))
     n_grad = sum(d_in * d_out + d_out for d_in, d_out in LAYERS)
     gen = torch.Generator().manual_seed(0)
-    grad_xs = [(1e-3 * torch.randn(n_grad, generator=gen)).to(device)
-               for _ in range(DP_RANKS)]
-    for what, xs, skew_rank in (("JAX's 8 x [8, 128]", jax_xs, 3),
-                                ("the flagship's 4 x [186610]", grad_xs, 2)):
+    grad_xs = {r: [(1e-3 * torch.randn(n_grad, generator=gen)).to(device)
+                   for _ in range(r)] for r in (2, 3, DP_RANKS, 16)}
+    cases = [("JAX's 8 x [8, 128]", jax_xs, 3)] + [
+        ("the flagship's %d x [186610]" % r, xs, r // 2)
+        for r, xs in grad_xs.items()]
+    for what, xs, skew_rank in cases:
         got = ring_allreduce.cuda_ring_all_reduce(xs)
         skewed = ring_allreduce.cuda_ring_all_reduce(
             xs, skew=(skew_rank, RING_SKEW_US))
@@ -2839,30 +3007,34 @@ def check_ring(device):
               "torch.stack(xs).sum(0)| %.3g (rtol 1e-6)"
               % (what, skew_rank, RING_SKEW_US, spread,
                  float((got[0] - total).abs().max())))
-    xs = grad_xs
-    us = [device_us(f) for f in (
-        lambda: ring_allreduce.ring_all_reduce_reference(xs),
-        lambda: ring_allreduce.cuda_ring_all_reduce(xs),
-        lambda: ring_allreduce.cuda_ring_all_reduce(xs),
-        lambda: ring_allreduce.ring_all_reduce_reference(xs))]
-    kernel_us, plain_us = (us[1] + us[2]) / 2, (us[0] + us[3]) / 2
-    lib_us = device_us(lambda: torch.stack(xs).sum(0))
-    bound_ms, bound_by = bound(*ring_cost(DP_RANKS, n_grad))
-    print("  4 x [%d]: kernel %.2f us (turns %.2f, %.2f), plain %.2f us, "
-          "torch.stack(xs).sum(0) %.2f us (device time, CUDA events); bound "
-          "%.3f us (%s-bound), kernel at %.1f%% of it"
-          % (n_grad, kernel_us, us[1], us[2], plain_us, lib_us,
-             1e3 * bound_ms, bound_by, 100.0 * 1e3 * bound_ms / kernel_us))
+    main = None
+    for r, xs in grad_xs.items():
+        # in turns: plain, kernel, kernel, plain
+        fns = (lambda: ring_allreduce.ring_all_reduce_reference(xs),
+               lambda: ring_allreduce.cuda_ring_all_reduce(xs))
+        us = [device_us(fns[i]) for i in (0, 1, 1, 0)]
+        kernel_us, plain_us = (us[1] + us[2]) / 2, (us[0] + us[3]) / 2
+        lib_us = device_us(lambda: torch.stack(xs).sum(0))
+        bound_ms, bound_by = bound(*ring_cost(r, n_grad))
+        print("  %d x [%d]: kernel %.2f us (turns %.2f, %.2f), plain %.2f "
+              "us, torch.stack(xs).sum(0) %.2f us (device time, CUDA "
+              "events, whole calls); bound %.3f us (%s-bound), kernel at "
+              "%.1f%% of it, %.2fx the library call's time"
+              % (r, n_grad, kernel_us, us[1], us[2], plain_us, lib_us,
+                 1e3 * bound_ms, bound_by,
+                 100.0 * 1e3 * bound_ms / kernel_us, kernel_us / lib_us))
+        if r == DP_RANKS:
+            main = dict(max_abs_err=0.0, ms=kernel_us / 1e3,
+                        plain_ms=plain_us / 1e3, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_us / 1e3)
     zero_counts()
     ring_allreduce.ring_all_reduce(jax_xs)
-    ring_allreduce.ring_all_reduce(grad_xs)
+    ring_allreduce.ring_all_reduce(grad_xs[DP_RANKS])
     torch.cuda.synchronize()
     counts = launch_counts()
     if counts != only(ring_all_reduce=2):
         raise AssertionError("ring_all_reduce made %s launches" % counts)
-    return counts, dict(max_abs_err=0.0, ms=kernel_us / 1e3,
-                        plain_ms=plain_us / 1e3, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=lib_us / 1e3)
+    return counts, main
 
 
 def rank_shards(xb, yb):
@@ -2928,13 +3100,13 @@ def hold_k6(what, net, opt, xs, ys):
 
 
 def check_k6(device, k2_ms):
-    """K2 with the K6 ring on the card: 4 ranks of 32 rows over the 10 pinned
-    parity steps (seed-1 weights, data seed 5), the flagship and the
+    """K2 with the K6 exchange on the card: 4 ranks of 32 rows over the 10
+    pinned parity steps (seed-1 weights, data seed 5), the flagship and the
     Dropout flagship, against the plain version; one rank through the
     ranked wrapper equal to K2 bit for bit; then at the main path's shape
     (4 ranks x 390 steps of 32) the kernel's and the plain version's ms an
-    epoch beside single-rank K2's and the bound, and the time by phase.
-    Returns the max abs error and the kernels-line numbers."""
+    epoch beside single-rank K2's and the bound, and the kernel's time by
+    phase. Returns the max abs error and the kernels-line numbers."""
     with seeder.scope(1):
         net = build_mnist_mlp().to(device)
     with seeder.scope(1):
@@ -2959,10 +3131,10 @@ def check_k6(device, k2_ms):
           "with K2 over the 10 steps")
 
     (x, y), _ = synthetic_mnist(EPOCH_STEPS * BATCH, 10)
-    xe, ye = rank_shards(
-        torch.from_numpy(x).to(device).reshape(EPOCH_STEPS, BATCH, 784),
-        torch.from_numpy(one_hot(y)).to(device).reshape(EPOCH_STEPS, BATCH,
-                                                         10))
+    xg = torch.from_numpy(x).to(device).reshape(EPOCH_STEPS, BATCH, 784)
+    yg = torch.from_numpy(one_hot(y)).to(device).reshape(EPOCH_STEPS, BATCH,
+                                                          10)
+    xe, ye = rank_shards(xg, yg)
     se = torch.from_numpy(opt.step_scalars(0, EPOCH_STEPS)).to(device)
     states = [fresh_state(net, opt) for _ in range(DP_RANKS)]
     params = [fused_epoch.dense_leaves(net, p) for p, _ in states]
@@ -2999,8 +3171,11 @@ def check_k6(device, k2_ms):
     ring_us = per_step[names.index("ring all-reduce")]
     ring_bound_us = 1e3 * bound(*ring_cost(DP_RANKS, sum(
         d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)))[0]
-    print("  the ring phase: %.2f us/step against the all-reduce's bound of "
-          "%.3f us" % (ring_us, ring_bound_us))
+    print("  the ring phase (the all-rank arrival, every wait between ranks "
+          "included, and the pass): %.2f us/step, with the last backward "
+          "%.2f, against the all-reduce's bound of %.3f us"
+          % (ring_us, ring_us + per_step[names.index("backward 0")],
+             ring_bound_us))
     return max(err, drop_err), dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=None)

@@ -67,6 +67,177 @@ def test_cuda_kernel_matches_reference_at_flagship_shapes(dtype):
                                    err_msg=str(shape), **tol)
 
 
+# the other main paths' products, as (m, k, n, a transposed, b transposed):
+# config 8's ten a step (two LSTM layers of 256, T = 128, batch 64: the
+# input projections, the head's three, dx of layer 2 through wx^T, dWx and
+# dWh through the transposed sequences), 6b's three (its head), and ragged
+# shapes that no 16-byte copy fits
+CONFIG8_SHAPES = [(8192, 64, 1024, False, False),
+                  (8192, 256, 1024, False, False),
+                  (64, 256, 16, False, False), (256, 64, 16, True, False),
+                  (64, 16, 256, False, True), (8192, 1024, 256, False, True),
+                  (256, 8192, 1024, True, False),
+                  (64, 8192, 1024, True, False)]
+CONFIG6B_SHAPES = [(4, 512, 16, False, False), (512, 4, 16, True, False),
+                   (4, 16, 512, False, True)]
+RAGGED_SHAPES = [(130, 129, 131, False, False), (1, 784, 200, False, False),
+                 (3, 1001, 7, True, True), (129, 1031, 65, True, False),
+                 (200, 17, 333, False, True), (1, 1, 1, False, False)]
+MAIN_SHAPES = {"config8": CONFIG8_SHAPES, "config6b": CONFIG6B_SHAPES,
+               "ragged": RAGGED_SHAPES}
+
+
+def _hold_matmul(a, b, dtype, what, plan=None):
+    got = kernels.cuda_matmul(a, b, plan)
+    torch.cuda.synchronize()
+    ref = kernels.matmul_reference(a, b)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-1))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), err_msg=what,
+                               **tol)
+    return got
+
+
+# past this depth the rounding of an f32 sum of unit-normal products
+# reaches the f32 gate's atol (K1's one chain of K products an output: up
+# to 3.9e-4 against float64 at K = 8,192 on the H100, cuBLAS's 2.1e-4):
+# there the kernel is held against float64 within LONG_K_FACTOR times
+# cuBLAS's f32 error on the same operands, a limit TF32 must miss
+LONG_K = 256
+LONG_K_FACTOR = 4.0
+
+
+def _long_k_errors(a, b, got):
+    """max |C - A B| (A B in float64) of the kernel's C, cuBLAS's f32 C and
+    cuBLAS's TF32 C."""
+    exact = torch.matmul(a.double(), b.double())
+    f32 = torch.matmul(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return [float((c.double() - exact).abs().max()) for c in (got, f32, tf32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", sorted(MAIN_SHAPES))
+def test_cuda_kernel_matches_reference_at_main_path_shapes(group, dtype):
+    # config 8's f32 products past K = LONG_K against float64, beside
+    # cuBLAS; every other product at the gate (on a config-8 step's own
+    # operands all ten at the gate: the test below)
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype)
+    for shape in MAIN_SHAPES[group]:
+        a, b = _operands(*shape, dev, dtype)
+        if group == "config8" and dtype == torch.float32 \
+                and shape[1] > LONG_K:
+            mine, f32, tf32 = _long_k_errors(a, b, kernels.cuda_matmul(a, b))
+            assert mine <= LONG_K_FACTOR * f32, (shape, mine, f32)
+            assert tf32 > LONG_K_FACTOR * f32, (shape, tf32, f32)
+        else:
+            _hold_matmul(a, b, dtype, str(shape))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_reference_on_a_config8_step():
+    # the ten products of one config-8 train step (two LSTM layers of 256,
+    # T = 128, batch 64), on the operands the step gives K1
+    from tinynn_autograd_tpu_torch.models import build_rnn_classifier
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(build_rnn_classifier(64, 16, hidden=(256, 256), seed=77),
+                  SoftmaxCrossEntropyLoss(), Adam(1e-3), device=dev)
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 128, 64).astype(np.float32)
+    y = np.eye(16, dtype=np.float32)[rng.randint(0, 16, 64)]
+    seen, matmul = [], kernels.matmul
+
+    def record(a, b):
+        seen.append((a.clone(), b.clone()))
+        return matmul(a, b)
+
+    kernels.matmul = record
+    try:
+        model.train_step(x, y)
+    finally:
+        kernels.matmul = matmul
+    assert sorted((a.shape[0], a.shape[1], b.shape[1]) for a, b in seen) \
+        == sorted(s[:3] for s in CONFIG8_SHAPES + [CONFIG8_SHAPES[6]] * 2)
+    for a, b in seen:
+        _hold_matmul(a, b, torch.float32, str((a.shape, b.shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [0, 1, 2, 3])
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_cuda_kernel_matches_reference_at_every_plan(config, split):
+    # each tile configuration at each of these splits, over every layout:
+    # unit strides along the tile's rows (16-byte copies), across them, an
+    # operand one float off 16-byte alignment, and ragged edges
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bm, bn = kernels.MATMUL_TILES[config][:2]
+    m, k, n = 2 * bm + 3, 16 * 8 * split + 5, bn + 9
+    chunk = -(-(-(-k // split)) // 16) * 16
+    plan = kernels.MatmulPlan(config, bm, bn, split, chunk)
+    for ta in (False, True):
+        for tb in (False, True):
+            a, b = _operands(m, k, n, ta, tb, dev, torch.float32)
+            _hold_matmul(a, b, torch.float32, "%s %s" % (ta, tb), plan)
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn(m * k + 1, generator=gen).to(dev)[1:].view(m, k)
+    b = torch.randn(k * n + 1, generator=gen).to(dev)[1:].view(k, n)
+    _hold_matmul(a, b, torch.float32, "misaligned", plan)
+    _hold_matmul(a.to(torch.bfloat16), b, torch.float32, "bf16 @ f32", plan)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_tiles_hold_the_measured_blocks_an_sm():
+    # plan_matmul's cost model takes each configuration's blocks an SM from
+    # MATMUL_TILES: it must be what the card reports for the built kernel
+    _cuda()
+    for config, (_, _, per_sm, _) in enumerate(kernels.MATMUL_TILES):
+        assert kernels.matmul_occupancy(config, 1)[0] == per_sm, config
+
+
+@pytest.mark.cuda
+def test_cuda_split_k_reruns_are_bit_identical():
+    dev = _cuda()
+    for m, k, n, ta, tb in [(64, 8192, 1024, True, False),
+                            (256, 8192, 1024, True, False),
+                            (128, 784, 200, False, False),
+                            (128, 100, 200, False, True)]:
+        assert kernels.plan_matmul(m, n, k).split > 1
+        a, b = _operands(m, k, n, ta, tb, dev, torch.float32)
+        first = kernels.cuda_matmul(a, b)
+        again = kernels.cuda_matmul(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_refuses_a_bad_plan():
+    dev = _cuda()
+    a, b = _operands(64, 100, 64, False, False, dev, torch.float32)
+    before = kernels.cuda_matmul.launches
+    for plan in (kernels.MatmulPlan(0, 64, 64, 9, 16),   # past 8 blocks
+                 kernels.MatmulPlan(0, 64, 64, 2, 112),  # an empty slice
+                 kernels.MatmulPlan(0, 64, 64, 2, 32),   # K not covered
+                 kernels.MatmulPlan(4, 64, 64, 1, 100)):  # no such tile
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.cuda_matmul(a, b, plan)
+    assert kernels.cuda_matmul.launches == before
+
+
 @pytest.mark.cuda
 def test_cuda_train_step_launches_fourteen_kernels():
     from tinynn_autograd_tpu_torch.models import build_mnist_mlp
@@ -1045,6 +1216,43 @@ def test_cuda_ring_all_reduce_skew_rerun_is_bit_identical(skew_rank):
     torch.cuda.synchronize()
     for a, b in zip(plain, held):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16])
+def test_cuda_ring_all_reduce_bit_for_bit_at_every_rank_count(n):
+    # a ragged length (no whole float4s), one the float4 pass takes, and
+    # each with the last rank held back
+    from tinynn_autograd_tpu_torch.ops import ring_allreduce
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(n)
+    for length in (1001, 4096):
+        xs = [torch.randn(length, generator=gen).to(dev) for _ in range(n)]
+        want = ring_allreduce.ring_all_reduce_reference(xs)
+        got = ring_allreduce.cuda_ring_all_reduce(xs)
+        held = ring_allreduce.cuda_ring_all_reduce(xs, skew=(n - 1, 100.0))
+        torch.cuda.synchronize()
+        for g, h, w in zip(got, held, want):
+            assert torch.equal(g, w) and torch.equal(h, w)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_all_reduce_counts_carry_across_calls():
+    # the arrival counts stay on the card from call to call: calls of other
+    # lengths (so other blocks a rank) and rank counts, back to back
+    from tinynn_autograd_tpu_torch.ops import ring_allreduce
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(0)
+    cases = [[torch.randn(length, generator=gen).to(dev) for _ in range(n)]
+             for n, length in ((4, 186610), (2, 7), (16, 50000), (3, 1))]
+    outs = [ring_allreduce.cuda_ring_all_reduce(xs)
+            for _ in range(20) for xs in cases]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        want = ring_allreduce.ring_all_reduce_reference(cases[i % 4])
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
 
 
 @pytest.mark.cuda

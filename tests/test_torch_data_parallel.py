@@ -148,6 +148,25 @@ def test_ring_order_differs_between_ranks_but_not_by_much():
     assert ring_allreduce.ring_order(4, 1) == [1, 0, 3, 2]
 
 
+@pytest.mark.parametrize("n", list(range(1, 17)))
+def test_ring_order_and_plain_version_at_every_rank_count(n):
+    # the order of sums the one-pass exchange keeps: rank r adds its own
+    # buffer, then r - 1, r - 2, ... (mod n), rounding after every add
+    for r in range(n):
+        order = ring_allreduce.ring_order(n, r)
+        assert order == [(r - k) % n for k in range(n)]
+        assert sorted(order) == list(range(n))
+    x = np.random.RandomState(n).randn(n, 37).astype(np.float32) * 10
+    out = ring_allreduce.ring_all_reduce_reference(
+        [torch.from_numpy(a) for a in x])
+    assert len(out) == n
+    for r, got in enumerate(out):
+        acc = x[r].copy()
+        for k in range(1, n):
+            acc = acc + x[(r - k) % n]
+        np.testing.assert_array_equal(got.numpy(), acc)
+
+
 def test_ring_all_reduce_takes_the_plain_version_on_the_cpu():
     before = ring_allreduce.cuda_ring_all_reduce.launches
     xs = [torch.full((3,), float(r)) for r in range(3)]

@@ -56,6 +56,74 @@ def test_cpu_matmul_matches_pallas_interpret(m, k, n, transpose):
     np.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-4)
 
 
+# a long-K product (config 8's post-scan products, K = 8,192, at a small
+# width) and a narrow one: the shapes the plan splits on the card
+@pytest.mark.parametrize("m,k,n", [(24, 2048, 40), (33, 517, 9)])
+def test_cpu_long_k_matmul_matches_pallas_interpret(m, k, n):
+    a, b, ta, tb = _operands(m, k, n, True, False, seed=3)
+    expected = np.asarray(pallas_matmul(jnp.asarray(a), jnp.asarray(b),
+                                        interpret=True))
+    got = kernels.matmul(ta, tb)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-4)
+
+
+# the products of the main paths, as (m, k, n): the flagship's train step
+# (forward, weight gradients, input gradients) and eval product, config 8's
+# ten a step (two LSTM layers of 256 over T = 128 at batch 64: the input
+# projections, the head, dx, dWx and dWh), 6b's three (its head) and the
+# ragged check shapes
+FLAGSHIP = [(784, 200), (200, 100), (100, 70), (70, 30), (30, 10)]
+STEP_PRODUCTS = ([(128, i, o) for i, o in FLAGSHIP]
+                 + [(i, 128, o) for i, o in FLAGSHIP]
+                 + [(128, o, i) for i, o in FLAGSHIP[1:]])
+EVAL_PRODUCT = (10000, 784, 200)
+CONFIG8_PRODUCTS = [(8192, 64, 1024), (8192, 256, 1024), (64, 256, 16),
+                    (256, 64, 16), (64, 16, 256), (8192, 1024, 256),
+                    (256, 8192, 1024), (256, 8192, 1024), (64, 8192, 1024),
+                    (256, 8192, 1024)]
+CONFIG6B_PRODUCTS = [(4, 512, 16), (512, 4, 16), (4, 16, 512)]
+RAGGED_PRODUCTS = [(130, 129, 131), (1, 784, 200), (1, 1, 1), (3, 1001, 7),
+                   (200, 16, 10000), (9999, 17, 3)]
+ALL_PRODUCTS = (STEP_PRODUCTS + [EVAL_PRODUCT] + CONFIG8_PRODUCTS
+                + CONFIG6B_PRODUCTS + RAGGED_PRODUCTS)
+
+
+def test_plan_splits_config8_long_k_products_and_not_the_eval_product():
+    for m, k, n in [(64, 8192, 1024), (256, 8192, 1024)]:  # dWx, dWh
+        assert kernels.plan_matmul(m, n, k).split > 1
+    m, k, n = EVAL_PRODUCT
+    assert kernels.plan_matmul(m, n, k).split == 1
+    # config 8's forward and dx products fill the card with 128-row tiles
+    for m, k, n in [(8192, 256, 1024), (8192, 1024, 256)]:
+        plan = kernels.plan_matmul(m, n, k)
+        assert plan.split == 1 and plan.bm == 128
+
+
+@pytest.mark.parametrize("m,k,n", ALL_PRODUCTS)
+def test_plan_is_a_valid_launch(m, k, n):
+    plan = kernels.plan_matmul(m, n, k)
+    assert 0 <= plan.config < len(kernels.MATMUL_TILES)
+    bm, bn, per_sm, _ = kernels.MATMUL_TILES[plan.config]
+    assert (plan.bm, plan.bn) == (bm, bn)
+    assert 1 <= plan.split <= kernels.MATMUL_MAX_SPLIT
+    # every slice of K holds part of it, and the slices cover it once
+    assert plan.k_chunk % kernels.MATMUL_BK == 0
+    starts = [z * plan.k_chunk for z in range(plan.split)]
+    ends = [min(k, s + plan.k_chunk) for s in starts]
+    assert all(s < e for s, e in zip(starts, ends))
+    assert starts[0] == 0 and ends[-1] == k
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    # a split only where the tiles leave room on the SMs
+    tiles = -(-m // bm) * -(-n // bn)
+    assert plan.split == 1 or tiles * (plan.split - 1) < (
+        kernels.H100_SMS * per_sm)
+
+
+def test_plan_refuses_empty_products():
+    with pytest.raises(ValueError, match="positive"):
+        kernels.plan_matmul(0, 4, 4)
+
+
 def test_cpu_matmul_bf16_inputs_match_pallas_interpret():
     rng = np.random.RandomState(1)
     a = rng.randn(128, 256).astype(np.float32)
@@ -154,3 +222,22 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build_matmul()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_bench_matmul_plans_prints_the_plans_and_needs_a_card():
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "bench_matmul_plans.py")
+    plans = subprocess.run([sys.executable, script, "--plans-only"],
+                           capture_output=True, text=True, cwd=repo,
+                           timeout=300)
+    assert plans.returncode == 0, plans.stderr
+    assert "config8 dWx 1" in plans.stdout and "split=6" in plans.stdout
+    if not torch.cuda.is_available():
+        timed = subprocess.run([sys.executable, script], capture_output=True,
+                               text=True, cwd=repo, timeout=300)
+        assert timed.returncode == 1
+        assert "no CUDA device" in timed.stderr

@@ -64,13 +64,19 @@
 //   batch shard, with the barriers above over its own blocks only. Its
 //   layer table (pointers to all that) sits in device memory, copied to
 //   shared memory at the start: 16 layers a rank would pass the launch's
-//   4 KB parameter limit at two ranks. The ring is one more phase after the
-//   last backward (csrc/ring.cuh, the device code of P3): the rank's flat
-//   gradient buffer summed round the ring, times 1/n, so clip_norm and the
-//   rule act on the mean, as the JAX optimizer does after its ring. Rank r
+//   4 KB parameter limit at two ranks. The exchange (csrc/ring.cuh, the
+//   device code of P3) takes the last backward's barrier and one more
+//   phase: the all-rank arrival, then each rank's pass sums every rank's
+//   flat gradient buffer in the ring's order, times 1/n, into a buffer of
+//   its own, so clip_norm and the rule act on the mean, as the JAX
+//   optimizer does after its ring. The gradients are
+//   double-buffered by step parity: step s writes plane s % 2, so a rank
+//   that runs ahead writes step s + 1's gradients while slower ranks still
+//   read step s's, and it reaches step s + 2's only after step s + 1's
+//   arrival, which every rank makes after its pass of step s. Rank r
 //   seeds its Dropouts with step t + 7919 r (the JAX kernel's offset).
-//   Ranks meet only through the ring's counts, never a grid barrier.
-//   With one rank there is no ring phase, and the result is the
+//   Ranks meet only through the exchange's counts, never a grid barrier.
+//   With one rank there is no exchange, and the result is the
 //   single-device kernel's, bit for bit.
 // - f32 everywhere. With `bf16` set (set_matmul_precision("bf16")), each
 //   product operand is rounded to bf16 on load and widened again, and the
@@ -85,12 +91,13 @@
 // about 1.54 us a step, 0.60 ms for a 390-step epoch: compute-bound. The
 // bytes it must move are about 163 MB an epoch, mostly the batches, about
 // 49 us at 3.35 TB/s. With n ranks at a global batch of 128 each rank
-// does 1/n of the products on 1/n of the blocks; the ring adds n - 1 hops
-// of the 746 KB of gradients a rank, each two cross-block handshakes (see
-// ring.cuh). What holds this simple design back: 12 grid barriers
-// a step, and narrow layers that leave most SMs idle (the first layer's
-// forward is 28 tiles of 25 stages each, on 132 SMs). Sharding the state
-// into shared memory, splitting K, and tensor cores are later work.
+// does 1/n of the products on 1/n of the blocks; the exchange adds one
+// all-rank arrival and one pass that reads the n ranks' 746 KB of
+// gradients from L2 (see ring.cuh). What holds this simple design back:
+// 12 grid barriers a step, and narrow layers that leave most blocks idle
+// (the first layer's forward is 28 tiles of 25 stages each, on 264
+// blocks). Sharding the state into shared memory, splitting K, and tensor
+// cores are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,15 +160,21 @@ struct Args {
   float* losses;         // [n_ranks, n_steps]: each rank's batch mean
   float* row_loss;       // [n_ranks, batch] scratch
   float* partial;        // [n_ranks, blocks] scratch: clip_norm's partials
-  float* grads;          // [n_ranks, n_grad]: each rank's gradients, which
-  long long n_grad;      // its layers' gw and gb point into
+  float* grads;          // [planes, n_ranks, grad_stride]: each rank's
+  long long n_grad;      // n_grad gradients, which its layers' gw and gb
+  long long grad_stride; // point into in plane 0. With ranks, 3 planes:
+                         // the gradients of even steps, of odd steps,
+                         // and each rank's mean after the exchange
+  int vec;               // the planes' rows are 16-byte aligned
   unsigned* sync;        // [n_ranks][tinynn::kSyncWords] counts, zeroed
-  tinynn::Ring ring;     // the gradient ring (n_ranks > 1): comm slots
-  float ring_scale;      // 1 / n_ranks as f32: the mean after the ring
-  // [2 * n_layers + 2, one more with the ring and one with clip_norm] or
+  tinynn::Skew skew;     // a debug hold of one rank before each arrival
+  float ring_scale;      // 1 / n_ranks as f32: the mean after the exchange
+  // [2 * n_layers + 2, one more with ranks and one with clip_norm] or
   // null: block 0's time (ns) from one barrier to the next, summed over the
   // steps, for each phase: the forwards, the loss, the backwards (last
-  // layer first), the ring, the clipping norm, the optimizer
+  // layer first; with ranks the last ends with block 0's own share), the
+  // exchange (the all-rank arrival, every wait between ranks and blocks
+  // included, and the pass), the clipping norm, the optimizer
   unsigned long long* phase_ns;
 };
 
@@ -396,9 +409,13 @@ __device__ void loss_phase(const Args& a, const Rank& rk, int s) {
 // dW = h_in^T @ dz, db = sum over rows of dz, and (but for the first layer)
 // the previous layer's dz = act'(dropout'(dz @ W^T)), as one phase of work
 // items; the Dropout's VJP replays the forward's mask of the same step.
+// dW and db go `g_off` floats past the layer's gw and gb.
 __device__ void backward_layer(const Args& a, const Rank& rk, int l,
-                               const float* x, uint32_t t, Smem& sm) {
+                               const float* x, uint32_t t, long long g_off,
+                               Smem& sm) {
   const Layer& L = layers[l];
+  float* gw = L.gw + g_off;  // this step's plane of the gradients
+  float* gb = L.gb + g_off;
   const View h_t = {l == 0 ? x : layers[l - 1].out, 1, L.din};  // [din, B]
   const View dz = {L.dz, L.dout, 1};                           // [batch, dout]
   const View w_t = {L.w, 1, L.dout};                           // [dout, din]
@@ -409,7 +426,7 @@ __device__ void backward_layer(const Args& a, const Rank& rk, int l,
     if (item < n_dw) {
       product_tile(h_t, dz, L.din, L.dout, a.batch, item, a.bf16, sm,
                    [&](int r, int c, float v) {
-                     L.gw[static_cast<long long>(r) * L.dout + c] = v;
+                     gw[static_cast<long long>(r) * L.dout + c] = v;
                    });
     } else if (item < n_dw + n_dh) {
       const Layer& P = layers[l - 1];
@@ -427,16 +444,18 @@ __device__ void backward_layer(const Args& a, const Rank& rk, int l,
         float sum = 0.0f;
         for (int r = 0; r < a.batch; ++r)
           sum = __fadd_rn(sum, ld_cg(L.dz + static_cast<long long>(r) * L.dout + c));
-        L.gb[c] = sum;
+        gb[c] = sum;
       }
     }
   }
 }
 
 // clip_norm's first half: this block's sum of g^2 over its share of the
-// gradients (the optimizer phase's grid-stride share, layer by layer),
-// reduced over the block's threads in a fixed order into partial[block].
-__device__ void clip_phase(const Args& a, const Rank& rk, Smem& sm) {
+// gradients (the optimizer phase's grid-stride share, layer by layer; `g_off`
+// floats past gw and gb), reduced over the block's threads in a fixed order
+// into partial[block].
+__device__ void clip_phase(const Args& a, const Rank& rk, long long g_off,
+                           Smem& sm) {
   const long long first = static_cast<long long>(rk.block) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(rk.blocks) * blockDim.x;
   float acc = 0.0f;
@@ -444,11 +463,11 @@ __device__ void clip_phase(const Args& a, const Rank& rk, Smem& sm) {
     const Layer& L = layers[l];
     const long long nw = static_cast<long long>(L.din) * L.dout;
     for (long long i = first; i < nw; i += stride) {
-      const float g = ld_cg(L.gw + i);
+      const float g = ld_cg(L.gw + g_off + i);
       acc = __fmaf_rn(g, g, acc);
     }
     for (long long i = first; i < L.dout; i += stride) {
-      const float g = ld_cg(L.gb + i);
+      const float g = ld_cg(L.gb + g_off + i);
       acc = __fmaf_rn(g, g, acc);
     }
   }
@@ -503,7 +522,7 @@ __device__ __forceinline__ void update(const tinynn::Rule& r, int n_slots,
 }
 
 __device__ void optimizer_phase(const Args& a, const Rank& rk, int s,
-                                Smem& sm) {
+                                long long g_off, Smem& sm) {
   tinynn::Rule r = a.rule;
   r.s0 = __ldg(a.scalars + 2 * s);
   r.s1 = __ldg(a.scalars + 2 * s + 1);
@@ -516,13 +535,17 @@ __device__ void optimizer_phase(const Args& a, const Rank& rk, int s,
     const Layer& L = layers[l];
     const long long nw = static_cast<long long>(L.din) * L.dout;
     for (long long i = first; i < nw; i += stride)
-      update(r, n_slots, L.w, L.gw, L.s0w, L.s1w, i, clip, clip_by);
+      update(r, n_slots, L.w, L.gw + g_off, L.s0w, L.s1w, i, clip, clip_by);
     for (long long i = first; i < L.dout; i += stride)
-      update(r, n_slots, L.b, L.gb, L.s0b, L.s1b, i, clip, clip_by);
+      update(r, n_slots, L.b, L.gb + g_off, L.s0b, L.s1b, i, clip, clip_by);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One launch's kernel; kRanked (n_ranks > 1) compiles the exchange in, so
+// the one-rank kernel keeps no trace of it. Two blocks an SM: 264 blocks on
+// the H100.
+template <bool kRanked>
+__global__ void __launch_bounds__(THREADS, 2)
 fused_epoch_kernel(const __grid_constant__ Args a) {
   __shared__ Smem sm;
   // the rank's view lives in shared memory, not in registers: the product
@@ -538,29 +561,37 @@ fused_epoch_kernel(const __grid_constant__ Args a) {
     rk = {a.xb + r * a.n_steps * a.batch * din,
           a.yb + r * a.n_steps * a.batch * dout, a.losses + r * a.n_steps,
           a.row_loss + r * a.batch, a.partial + r * a.blocks,
-          a.grads + r * a.n_grad, g.block, g.blocks};
+          a.grads + r * a.grad_stride, g.block, g.blocks};
   }
   __syncthreads();
   const bool timed =
       a.phase_ns != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   unsigned long long last = timed ? global_ns() : 0;
-  // the phases of a rank are separated by barriers over its blocks alone
-  auto barrier = [&](int phase) {
-    tinynn::rank_barrier(g);
+  auto mark = [&](int phase) {
     if (timed) {
       const unsigned long long now = global_ns();
       a.phase_ns[phase] += now - last;
       last = now;
     }
   };
+  // the phases of a rank are separated by barriers over its blocks alone
+  auto barrier = [&](int phase) {
+    tinynn::rank_barrier(g);
+    mark(phase);
+  };
   const int L = a.n_layers;
   const bool clip = a.clip_norm > 0.0f;
+  // with ranks: the floats from one plane of the gradients to the next;
+  // the exchange writes the mean into plane 2
+  const long long plane = kRanked ? a.n_ranks * a.grad_stride : 0;
+  const long long mean_off = 2 * plane;
   for (int s = 0; s < a.n_steps; ++s) {
     const float* x = rk.xb + static_cast<long long>(s) * a.batch * din;
     // the Dropout seeds' step: the counter before the update, offset by
     // the rank so that ranks draw different masks
     const uint32_t t =
         tinynn::rank_step(a.t0 + static_cast<uint32_t>(s), g.rank);
+    const long long written = (s & 1) * plane;  // this step's plane
     for (int l = 0; l < L; ++l) {
       forward_layer(a, rk, l, x, t, sm);
       barrier(l);
@@ -568,36 +599,61 @@ fused_epoch_kernel(const __grid_constant__ Args a) {
     loss_phase(a, rk, s);
     barrier(L);
     for (int l = L - 1; l >= 0; --l) {
-      backward_layer(a, rk, l, x, t, sm);
-      barrier(2 * L - l);
+      backward_layer(a, rk, l, x, t, written, sm);
+      // with ranks the all-rank arrival below takes the last backward's
+      // barrier: the phase ends with block 0's own share, and every wait
+      // for other blocks, its rank's too, goes to the exchange's phase
+      if (!kRanked || l > 0) barrier(2 * L - l);
+      else mark(2 * L);
     }
     int phase = 2 * L + 1;
-    if (a.n_ranks > 1) {
-      // K6: the gradients summed round the ring, then their mean
-      tinynn::ring_all_reduce(a.ring, g, rk.grads, a.ring_scale);
+    if constexpr (kRanked) {
+      // K6: every rank's gradients published, then each rank's mean
+      tinynn::exchange_arrive(g, a.skew);
+      const float* planes = a.grads + written;
+      const long long stride = a.grad_stride;
+      tinynn::exchange_pass(
+          g, [&](int q) { return planes + q * stride; },
+          a.grads + mean_off + g.rank * stride, a.n_grad, a.vec != 0, true,
+          a.ring_scale);
       barrier(phase++);
     }
     if (clip) {
-      clip_phase(a, rk, sm);
+      clip_phase(a, rk, mean_off, sm);
       barrier(phase++);
     }
-    optimizer_phase(a, rk, s, sm);
+    optimizer_phase(a, rk, s, mean_off, sm);
     barrier(phase);
   }
 }
 
-}  // namespace
-
-// The grid the launch uses: co-resident blocks per SM and the SM count.
-// Each of n ranks takes blocks_per_sm * sms / n of them.
-extern "C" int tinynn_fused_epoch_grid(int* blocks_per_sm, int* sms) {
+// The co-resident blocks per SM of the one-rank or the ranked kernel, and
+// the SM count.
+int grid_of(bool ranked, int* blocks_per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_epoch_kernel, THREADS, 0));
+      blocks_per_sm,
+      ranked ? fused_epoch_kernel<true> : fused_epoch_kernel<false>,
+      THREADS, 0));
+}
+
+}  // namespace
+
+// The grid a launch uses: co-resident blocks per SM and the SM count. Each
+// of n ranks takes blocks_per_sm * sms / n of them; blocks_per_sm is the
+// greater of the one-rank and the ranked kernel's (a scratch sized by it
+// fits either).
+extern "C" int tinynn_fused_epoch_grid(int* blocks_per_sm, int* sms) {
+  int ranked = 0;
+  int err = grid_of(false, blocks_per_sm, sms);
+  if (err != 0) return err;
+  err = grid_of(true, &ranked, sms);
+  if (ranked > *blocks_per_sm) *blocks_per_sm = ranked;
+  return err;
 }
 
 // The bytes of one rank's layer table in device memory.
@@ -612,14 +668,15 @@ extern "C" long long tinynn_fused_epoch_table_bytes() {
 // 1), `layer_ptrs` the 12 device pointers of each layer of each rank, rank
 // by rank (w, b, gw, gb, s0w, s0b, s1w, s1b, z, h, d, dz; a slot the rule
 // does not have, and d without a Dropout, are null; each rank's gw and gb
-// lie in its row of `grads`, [n_ranks, n_grad]). `tables` is a device
-// buffer of n_ranks * tinynn_fused_epoch_table_bytes(). `xb`, `yb`,
-// `losses` and `row_loss` hold one block per rank (see Args); `partial` is
-// a scratch of `partial_len` floats (at least the launch's blocks). `comm`
-// ([n_ranks, 2, n_grad] floats) and `sync` (n_ranks * 4 zeroed counts) are
-// the ring's; with one rank there is no ring and `comm` may be null.
-// `skew_rank` (-1: none) holds that rank back `skew_ns` before each step's
-// first hop (a check of the ring's flow control). `opt`, `c0`-`c3` and `wd`
+// lie in its row of `grads`, [planes, n_ranks, grad_stride] with n_grad
+// floats a row used: one plane with one rank, three with more, see Args;
+// grad_stride >= n_grad). `tables` is a device buffer of n_ranks *
+// tinynn_fused_epoch_table_bytes(). `xb`, `yb`, `losses` and `row_loss`
+// hold one block per rank (see Args); `partial` is a scratch of
+// `partial_len` floats (at least the launch's blocks). `sync` holds
+// n_ranks * 2 zeroed counts. `skew_rank` (-1: none) holds that rank back
+// `skew_ns` before each step's all-rank arrival (a check of the
+// exchange's flow control). `opt`, `c0`-`c3` and `wd`
 // are the rule (csrc/optim_rules.cuh), `scalars` [n_steps, 2] its per-step
 // scalars, `t0` the step count before the epoch, `clip_norm` the clipping
 // norm (0: off). `phase_ns`, where not null, accumulates each phase's time
@@ -631,14 +688,14 @@ extern "C" int tinynn_fused_epoch(
     const float* drop_scales, void* const* layer_ptrs, void* tables,
     const float* xb, const float* yb, const float* class_weight,
     const float* scalars, float* losses, float* row_loss, float* partial,
-    int partial_len, float* grads, long long n_grad, float* comm,
+    int partial_len, float* grads, long long n_grad, long long grad_stride,
     unsigned* sync, int batch, int n_steps, unsigned int t0, int opt,
     float c0, float c1, float c2, float c3, float wd, float clip_norm,
     int bf16, int skew_rank, long long skew_ns, unsigned long long* phase_ns,
     void* stream) {
   if (n_ranks < 1 || n_layers < 1 || n_layers > MAX_LAYERS || batch < 1 ||
       n_steps < 1 || opt < tinynn::kSGD || opt > tinynn::kAdadelta ||
-      (n_ranks > 1 && comm == nullptr))
+      grad_stride < n_grad)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -649,7 +706,7 @@ extern "C" int tinynn_fused_epoch(
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
 
   int blocks_per_sm = 0, sms = 0;
-  const int grid_err = tinynn_fused_epoch_grid(&blocks_per_sm, &sms);
+  const int grid_err = grid_of(n_ranks > 1, &blocks_per_sm, &sms);
   if (grid_err != 0) return grid_err;
   const int blocks = blocks_per_sm * sms / n_ranks;
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -712,12 +769,16 @@ extern "C" int tinynn_fused_epoch(
   a.grads = grads;
   a.n_grad = n_grad;
   a.sync = sync;
-  a.ring = {comm, n_grad, skew_rank, skew_ns};
+  a.grad_stride = grad_stride;
+  a.vec = grad_stride % 4 == 0 &&
+          (reinterpret_cast<uintptr_t>(grads) & 15u) == 0;
+  a.skew = {skew_rank, skew_ns};
   a.ring_scale = static_cast<float>(1.0 / n_ranks);
   a.phase_ns = phase_ns;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_epoch_kernel),
+      n_ranks > 1 ? reinterpret_cast<const void*>(fused_epoch_kernel<true>)
+                  : reinterpret_cast<const void*>(fused_epoch_kernel<false>),
       dim3(blocks * n_ranks), dim3(THREADS), params, 0,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

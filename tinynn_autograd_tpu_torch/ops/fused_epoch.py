@@ -21,10 +21,11 @@ same masks as the JAX megakernel in interpret mode.
 
 Ranks (K6, the data-parallel megakernel): with ``n_ranks`` > 1 the one
 launch runs n ranks that share the card, each on its own replica, optimizer
-slots and batch shard; between the backward and the optimizer each rank's
-gradients are summed with the others' round an in-kernel ring
-(``csrc/ring.cuh``, the device code of P3, ``ops/ring_allreduce.py``) and
-multiplied by 1/n, the JAX package's ``grad_ring_all_reduce``. Rank r seeds
+slots and batch shard; between the backward and the optimizer each rank
+sums every rank's gradients in the ring's order through one in-kernel
+exchange (``csrc/ring.cuh``, the device code of P3,
+``ops/ring_allreduce.py``: one all-rank arrival, one pass) and multiplies
+by 1/n: the JAX package's ``grad_ring_all_reduce``, to the bit. Rank r seeds
 its Dropouts with step ``t + 7919 r`` (``rank_step``), as the JAX kernel
 adds ``axis_index * 7919``. A 4-D ``xb`` ([n_ranks, n_steps, batch,
 features]) asks for ranks: the parameters and slots are then lists with one
@@ -148,7 +149,7 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None,
     it can. ``batch_shape`` ([batch, *features]), where given, also checks
     the input layout and counts the activations in the state. With
     ``n_ranks`` ranks the state of every rank counts, and with more than
-    one the ring's two comm slots a leaf too (``batch_shape`` is then a
+    one two more planes of gradients a leaf too (``batch_shape`` is then a
     rank's shard)."""
     from tinynn_autograd_tpu_torch.nn.layers import Dense, Dropout, Flatten
     from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
@@ -201,7 +202,7 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None,
     if not 1 <= n_ranks <= MAX_RANKS:
         return "%d ranks: the kernel takes 1 to %d" % (n_ranks, MAX_RANKS)
     n_floats = sum(v.numel() for i in dense for v in params_tree[i].values())
-    # + grads, and the ring's two comm slots
+    # + grads; with ranks two planes of them (by step parity) and the mean
     state = n_floats * (2 + len(optimizer.slot_names) + (
         2 if n_ranks > 1 else 0))
     if batch_shape is not None:
@@ -509,7 +510,7 @@ def _bind(lib, ctypes):
     lib.tinynn_fused_epoch.argtypes = (
         [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(u32),
          ctypes.POINTER(f32), ctypes.POINTER(ptr)] + [ptr] * 8
-        + [i32, ptr, i64, ptr, ptr] + [i32, i32, u32, i32] + [f32] * 6
+        + [i32, ptr, i64, i64, ptr] + [i32, i32, u32, i32] + [f32] * 6
         + [i32, i32, i64, ptr, ptr])
     lib.tinynn_fused_epoch.restype = i32
     lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(i32)] * 2
@@ -580,11 +581,11 @@ def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
     cooperative launch in which each of n ranks runs the epoch on its shard
     of ``xb`` [n_ranks, n_steps, batch, features] (``yb`` likewise) with its
     own ``params[r]`` and ``slots[r]``, updated in place, and with more
-    than one rank sums its gradients with the others' round the ring each
+    than one rank sums every rank's gradients in the ring's order each
     step. Returns the losses [n_ranks, n_steps]. ``phase_ns`` (one entry a
     ``phase_names(spec, n_ranks)``) times rank 0's block 0. ``skew`` =
-    (rank, microseconds) holds that rank back before each step's first hop
-    (a check of the ring's flow control). Raises as ``cuda_fused_epoch``
+    (rank, microseconds) holds that rank back before each step's arrival
+    (a check of the exchange's flow control). Raises as ``cuda_fused_epoch``
     does; ``cuda_fused_epoch_ranks.launches`` counts its launches."""
     if xb.ndim != 4 or yb.ndim != 4:
         raise ValueError("xb and yb must be [n_ranks, n_steps, batch, "
@@ -641,13 +642,17 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
 
     import ctypes
 
-    # `scratch` holds the gradients, activations and the ring's buffers
-    # until the launch is queued: freed earlier, the caching allocator
-    # would hand one layer's buffers to the next. After the launch it may
-    # reuse them: they were allocated on the stream the kernel runs on.
+    # `scratch` holds the gradients and activations until the launch is
+    # queued: freed earlier, the caching allocator would hand one layer's
+    # buffers to the next. After the launch it may reuse them: they were
+    # allocated on the stream the kernel runs on. With ranks the gradients
+    # take three planes (even steps', odd steps', each rank's mean after
+    # the exchange) of rows padded to whole float4s; a rank's gw and gb
+    # point into plane 0, the kernel adds the plane's offset.
     n_grad = sum(d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)
-    grads = torch.empty((n_ranks, n_grad), dtype=torch.float32,
-                        device=device)
+    stride = n_grad if n_ranks == 1 else -(-n_grad // 4) * 4
+    grads = torch.empty((1 if n_ranks == 1 else 3, n_ranks, stride),
+                        dtype=torch.float32, device=device)
     scratch = [grads]
     dims, drops, drop_scales, ptrs = [], [], [], []
     prev_out = spec.layers[0][0]
@@ -671,9 +676,9 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
             w, b = params[r][l]
             _check("rank %d w%d" % (r, l), w, device, (d_in, d_out))
             _check("rank %d b%d" % (r, l), b, device, (1, d_out))
-            gw = grads[r, offset:offset + d_in * d_out].view(d_in, d_out)
+            gw = grads[0, r, offset:offset + d_in * d_out].view(d_in, d_out)
             offset += d_in * d_out
-            gb = grads[r, offset:offset + d_out].view(1, d_out)
+            gb = grads[0, r, offset:offset + d_out].view(1, d_out)
             offset += d_out
             leaves = [w, b, gw, gb]
             for name in list(spec.slot_names) + [None] * (
@@ -700,8 +705,6 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
                            device=device)
     per_sm, sms = kernel_grid()
     partial = torch.empty(per_sm * sms, dtype=torch.float32, device=device)
-    comm = (torch.empty((n_ranks, 2, n_grad), dtype=torch.float32,
-                        device=device) if n_ranks > 1 else None)
     sync = torch.zeros(n_ranks * SYNC_WORDS, dtype=torch.int32,
                        device=device)
     skew_rank, skew_us = (-1, 0) if skew is None else skew
@@ -720,12 +723,12 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
             0 if class_weight is None else class_weight.data_ptr(),
             scalars.data_ptr(), losses.data_ptr(), row_loss.data_ptr(),
             partial.data_ptr(), partial.numel(), grads.data_ptr(), n_grad,
-            0 if comm is None else comm.data_ptr(), sync.data_ptr(), batch,
+            stride, sync.data_ptr(), batch,
             n_steps, int(t0) & 0xFFFFFFFF, spec.optimizer, *spec.consts,
             spec.weight_decay, spec.clip_norm, int(bool(bf16)),
             int(skew_rank), int(1000 * skew_us),
             0 if phase_ns is None else phase_ns.data_ptr(), stream)
-    del scratch, partial, comm, sync, tables
+    del scratch, partial, sync, tables
     if err == 801:  # cudaErrorNotSupported
         raise RuntimeError("the device cannot launch cooperative kernels")
     if err != 0:

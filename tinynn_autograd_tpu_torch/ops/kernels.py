@@ -7,6 +7,12 @@ its VJPs. On a CUDA device every 2-D float product goes to the tiled kernel in
 ``_mm_kernel``); on the CPU it goes to ``matmul_reference``, the same
 arithmetic in plain PyTorch. Products that are not 2-D stay ``torch.matmul``.
 
+Each product's launch follows a host-side plan, ``plan_matmul(m, n, k)``:
+one of the kernel's four tile configurations and a K-split (the blocks of
+a thread block cluster that share an output tile), chosen so that the
+product puts about a wave of blocks on the card's SMs. It is plain Python,
+so the CPU tests check it.
+
 Dispatch policy
 ---------------
 ``matmul(a, b)``:
@@ -23,10 +29,12 @@ the shared headers (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``
 calls ``nvcc`` when the module is imported.
 """
 
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from collections import namedtuple
 from pathlib import Path
 
 import torch
@@ -80,6 +88,98 @@ def matmul_reference(a, b):
     out_dtype = torch.promote_types(a.dtype, b.dtype)
     acc = torch.promote_types(out_dtype, torch.float32)
     return torch.matmul(a.to(acc), b.to(acc)).to(out_dtype)
+
+
+# --------------------------------------------------------------------------
+# the plan of a launch
+# --------------------------------------------------------------------------
+
+MATMUL_BK = 16        # BK in csrc/matmul.cu: the depth of a stage
+MATMUL_MAX_SPLIT = 8  # MAX_SPLIT: the portable cluster size
+H100_SMS = 132
+
+# The kernel's tile configurations (Small, Wide, Large, Large1 in
+# csrc/matmul.cu): (rows, columns) of a block's output tile, the blocks an
+# SM holds at once, and the share of an SM's f32 FMA peak that 1, 2, ...
+# co-resident blocks reach together. Measured on the H100 at config 8's and
+# the eval's products (bench_matmul_plans.py): a block alone on an SM (8
+# warps) hides too little latency, but for Large1, whose registers are not
+# cut to fit two blocks an SM. chip_smoke.py and bench_matmul_plans.py fail
+# where the card holds other blocks an SM than these (matmul_occupancy).
+MATMUL_TILES = ((64, 64, 3, (0.3, 0.37, 0.36)), (128, 64, 2, (0.3, 0.5)),
+                (128, 128, 2, (0.3, 0.5)), (128, 128, 1, (0.55,)))
+
+# Clusters of more than this many blocks only for launches of at most
+# MATMUL_WIDE_CLUSTER_BLOCKS blocks: on the H100 clusters of 7 and 8 ran
+# slower than clusters of 6 at config 8's long-K products (96-256 blocks),
+# and faster at the flagship's narrow ones (8-56 blocks; bench_matmul_
+# plans.py).
+MATMUL_WIDE_CLUSTER = 6
+MATMUL_WIDE_CLUSTER_BLOCKS = 64
+
+# The plan's cost model, in microseconds of one block on one SM: an SM's
+# share of the H100's f32 FMA peak (67 TFLOP/s over 132 SMs, in
+# multiply-adds a microsecond), the latency before a block's first FMA (its
+# first loads), and a split's cluster barriers and its reads of the other
+# blocks' partial tiles through distributed shared memory (bytes a
+# microsecond). Estimates, for ranking plans.
+_FMA_PER_US = 67e12 / 2 / H100_SMS / 1e6
+_FIRST_LOAD_US = 1.5
+_CLUSTER_SYNC_US = 0.5
+_DSMEM_BYTES_PER_US = 100e3
+
+MatmulPlan = namedtuple("MatmulPlan", "config bm bn split k_chunk")
+
+
+def _k_slices(k, split):
+    """(the slices K is cut into, each slice's length): slices of whole
+    stages, every one non-empty, at most ``split`` of them."""
+    per_slice = -(-k // split)
+    chunk = -(-per_slice // MATMUL_BK) * MATMUL_BK
+    return -(-k // chunk), chunk
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_matmul(m, n, k, sms=H100_SMS):
+    """The launch of one [m, k] @ [k, n] product: a ``MatmulPlan`` of the
+    tile configuration (its index and its bm x bn output tile), the K-split
+    (the blocks of a cluster that share a tile, each a slice of ``k_chunk``
+    of K) and the slice length. Among the configurations and the splits of
+    1 to 8 it takes the least modelled time: the launch's waves of blocks
+    over ``sms`` SMs, in each the most blocks an SM runs at once times a
+    block's multiply-adds at the share of the SM's peak that many reach,
+    after the latency of the first loads, plus the split's reduction. A
+    split is tried only while the next smaller one leaves room on the SMs,
+    so a product whose tiles fill the card is never split, and clusters past
+    ``MATMUL_WIDE_CLUSTER`` blocks only in small launches; ties go to fewer
+    splits, then to larger tiles."""
+    if min(m, n, k) < 1:
+        raise ValueError("plan_matmul needs positive sizes, got %d x %d x %d"
+                         % (m, n, k))
+    best = None
+    for config, (bm, bn, per_sm, shares) in enumerate(MATMUL_TILES):
+        tiles = -(-m // bm) * -(-n // bn)
+        for split in range(1, MATMUL_MAX_SPLIT + 1):
+            if tiles * (split - 1) >= sms * per_sm or (
+                    split > MATMUL_WIDE_CLUSTER
+                    and tiles * split > MATMUL_WIDE_CLUSTER_BLOCKS):
+                break
+            slices, chunk = _k_slices(k, split)
+            if slices == split:
+                us, left = 0.0, tiles * split
+                while left > 0:
+                    wave = min(left, sms * per_sm)
+                    at_once = -(-wave // sms)
+                    us += (at_once * bm * bn * chunk
+                           / (shares[at_once - 1] * _FMA_PER_US)
+                           + _FIRST_LOAD_US)
+                    left -= wave
+                if split > 1:
+                    us += _CLUSTER_SYNC_US + 4 * bm * bn / _DSMEM_BYTES_PER_US
+                key = (round(us, 6), split, -bm * bn)
+                if best is None or key < best[0]:
+                    best = (key, MatmulPlan(config, bm, bn, split, chunk))
+    return best[1]
 
 
 # --------------------------------------------------------------------------
@@ -154,22 +254,47 @@ def load_library(name, bind):
 
 def _bind_matmul(lib, ctypes):
     lib.tinynn_matmul.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.tinynn_matmul.restype = ctypes.c_int
+    lib.tinynn_matmul_occupancy.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.tinynn_matmul_occupancy.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def matmul_occupancy(config, split):
+    """(blocks an SM holds, clusters of ``split`` blocks the card holds) of
+    tile configuration ``config``'s f32 kernel on the current CUDA
+    device."""
+    import ctypes
+
+    lib = load_library("matmul", _bind_matmul)
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.tinynn_matmul_occupancy(config, split, ctypes.byref(per_sm),
+                                      ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError("occupancy query failed: CUDA error %d" % err)
+    return per_sm.value, clusters.value
 
 
 # --------------------------------------------------------------------------
 # the kernel's wrapper
 # --------------------------------------------------------------------------
 
-def cuda_matmul(a, b):
+def cuda_matmul(a, b, plan=None):
     """C = A @ B on the GPU through the hand-written kernel.
 
     ``a`` [M, K] and ``b`` [K, N] are CUDA tensors of float32 or bfloat16 on
     one device, in any strided layout (transposed views are read in place).
-    Returns a new contiguous [M, N] tensor in ``promote(a, b)``. Raises on
-    anything the kernel does not take; never computes the product another
-    way. ``cuda_matmul.launches`` counts the launches."""
+    Returns a new contiguous [M, N] tensor in ``promote(a, b)``, launched as
+    ``plan`` says (default ``plan_matmul`` for the device's SM count).
+    Raises on anything the kernel does not take; never computes the product
+    another way. ``cuda_matmul.launches`` counts the launches."""
     if a.device.type != "cuda" or b.device.type != "cuda":
         raise ValueError("cuda_matmul needs CUDA tensors, got %s and %s"
                          % (a.device, b.device))
@@ -184,7 +309,7 @@ def cuda_matmul(a, b):
                         % (a.dtype, b.dtype))
     m, k = a.shape
     n = b.shape[1]
-    if (m + 63) // 64 > 65535 or max(m, n, k, *a.stride(), *b.stride()) >= 2 ** 31:
+    if (m + 63) // 64 > 65535 or max(m, n, k) >= 2 ** 31:
         raise ValueError("shape %s @ %s exceeds the kernel's 32-bit sizes"
                          % (tuple(a.shape), tuple(b.shape)))
     out = torch.empty((m, n), dtype=torch.promote_types(a.dtype, b.dtype),
@@ -193,12 +318,17 @@ def cuda_matmul(a, b):
         return out
     if k == 0:
         return out.zero_()
+    if plan is None:
+        index = a.device.index
+        plan = plan_matmul(m, n, k, _sm_count(
+            torch.cuda.current_device() if index is None else index))
     lib = load_library("matmul", _bind_matmul)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.tinynn_matmul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[b.dtype], stream)
+        _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[b.dtype], plan.config,
+        plan.split, plan.k_chunk, stream)
     if err != 0:
         raise RuntimeError("matmul kernel launch failed: CUDA error %d" % err)
     cuda_matmul.launches += 1

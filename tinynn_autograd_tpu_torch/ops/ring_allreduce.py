@@ -1,9 +1,9 @@
-"""The ring all-reduce (P3): n ranks that share one device sum their buffers
-round a ring, in the JAX package's ring order.
+"""The ring all-reduce (P3): n ranks that share one device each sum the n
+buffers in the JAX package's ring order.
 
 PyTorch counterpart of the ring kernel of ``tests/test_dp_megakernel.py``
 (``allreduce``), whose device code is also the data-parallel megakernel's
-gradient ring (K6, ``grad_ring_all_reduce`` in the JAX package's
+gradient exchange (K6, ``grad_ring_all_reduce`` in the JAX package's
 ops/fused_epoch.py). Rank r's sum is ``((x_r + x_{r-1}) + x_{r-2}) + ...``
 (indices mod n), rounded after every add: each rank gets the same total in
 its own order, so ranks can differ in the last bit.
@@ -12,8 +12,11 @@ its own order, so ranks can differ in the last bit.
   in the same order, so the kernel and it agree bit for bit.
 - ``cuda_ring_all_reduce``: the wrapper of the hand-written kernel
   (``csrc/ring_allreduce.cu`` with ``csrc/ring.cuh``, one cooperative
-  launch in which each rank is a group of blocks). It launches or raises,
-  never falls back; ``cuda_ring_all_reduce.launches`` counts its launches.
+  launch in which each rank is a group of blocks: one all-rank arrival,
+  then one pass that reads every rank's input in the ring's order). It
+  launches or raises, never falls back; ``cuda_ring_all_reduce.launches``
+  counts its launches. Its arrival counts live on the device across calls
+  (one set per device and stream), so a call is one launch.
 - ``ring_all_reduce``: the kernel for CUDA tensors, the plain version for
   CPU tensors.
 """
@@ -24,7 +27,7 @@ from tinynn_autograd_tpu_torch.ops import kernels
 
 SOURCE = kernels.CSRC_DIR / "ring_allreduce.cu"
 MAX_RANKS = 16  # MAX_RANKS in csrc/ring_allreduce.cu
-SYNC_WORDS = 4  # kSyncWords in csrc/ring.cuh: a rank's counts
+SYNC_WORDS = 2  # kSyncWords in csrc/ring.cuh: a rank's counts
 
 
 def ring_order(n, rank):
@@ -50,7 +53,8 @@ def _bind(lib, ctypes):
     ptr = ctypes.c_void_p
     lib.tinynn_ring_all_reduce.argtypes = [
         ctypes.c_int, ctypes.POINTER(ptr), ctypes.POINTER(ptr),
-        ctypes.c_longlong, ptr, ptr, ctypes.c_int, ctypes.c_longlong, ptr]
+        ctypes.c_longlong, ptr, ctypes.POINTER(ctypes.c_uint), ctypes.c_int,
+        ctypes.c_longlong, ptr]
     lib.tinynn_ring_all_reduce.restype = ctypes.c_int
 
 
@@ -78,11 +82,25 @@ def _check_ranks(xs):
         raise ValueError("nothing to sum: the buffers are empty")
 
 
+# (device, stream) -> (counts, each rank's published count): the kernel's
+# arrival counts, zeroed once and kept across calls; a call adds 1 to the
+# count of each of its ranks
+_counts = {}
+
+
+def _counts_for(device, stream):
+    key = (device, stream)
+    if key not in _counts:
+        _counts[key] = (torch.zeros(MAX_RANKS * SYNC_WORDS, dtype=torch.int32,
+                                    device=device), [0] * MAX_RANKS)
+    return _counts[key]
+
+
 def cuda_ring_all_reduce(xs, skew=None):
     """``ring_all_reduce_reference``'s function through the hand-written
     kernel, one launch: ``xs`` are the ranks' contiguous float32 buffers,
     of one shape, on one CUDA device. ``skew`` = (rank, microseconds) holds
-    that rank back before its first hop, a check that the result does not
+    that rank back before its arrival, a check that the result does not
     depend on the ranks running in step. Raises on anything the kernel does
     not take and when the launch fails; never sums another way."""
     _check_ranks(xs)
@@ -90,29 +108,32 @@ def cuda_ring_all_reduce(xs, skew=None):
         raise ValueError("skew rank %d of %d ranks" % (skew[0], len(xs)))
     import ctypes
 
-    n, device = len(xs), xs[0].device
-    out = torch.empty((n,) + tuple(xs[0].shape), dtype=torch.float32,
+    n, device, length = len(xs), xs[0].device, xs[0].numel()
+    # rows of whole float4s, so that every rank's output is 16-byte aligned
+    # and the pass stores four floats at a time
+    out = torch.empty((n, -(-length // 4) * 4), dtype=torch.float32,
                       device=device)
-    comm = torch.empty((n, 2, xs[0].numel()), dtype=torch.float32,
-                       device=device)
-    sync = torch.zeros(n * SYNC_WORDS, dtype=torch.int32, device=device)
     skew_rank, skew_us = (-1, 0) if skew is None else skew
     ptr_array = ctypes.c_void_p * n
     lib = kernels.load_library("ring_allreduce", _bind)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        counts = _counts_for(device, stream)
         err = lib.tinynn_ring_all_reduce(
             n, ptr_array(*[x.data_ptr() for x in xs]),
-            ptr_array(*[o.data_ptr() for o in out]), xs[0].numel(),
-            comm.data_ptr(), sync.data_ptr(), int(skew_rank),
+            ptr_array(*[o.data_ptr() for o in out]), length,
+            counts[0].data_ptr(), (ctypes.c_uint * n)(*counts[1][:n]),
+            int(skew_rank),
             int(1000 * skew_us), stream)
     if err == 801:  # cudaErrorNotSupported
         raise RuntimeError("the device cannot launch cooperative kernels")
     if err != 0:
         raise RuntimeError("ring all-reduce kernel launch failed: CUDA error "
                            "%d" % err)
+    for r in range(n):
+        counts[1][r] = (counts[1][r] + 1) & 0xFFFFFFFF
     cuda_ring_all_reduce.launches += 1
-    return list(out.unbind(0))
+    return [row[:length].view(xs[0].shape) for row in out.unbind(0)]
 
 
 cuda_ring_all_reduce.launches = 0
