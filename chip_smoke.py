@@ -149,11 +149,16 @@ test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
    ``attention_forward_reference``/``attention_backward_reference`` at
    every shape of ATTN_SHAPES (config 6b's, the TPU's K4b and K4c shapes,
    config 6's, windows of 512 and of 40 over a ragged 300, GQA 8q/2kv,
-   cross attention 256/384, dropout 0.1), o and lse at rtol 1e-4/atol
-   1e-5, dq/dk/dv at rtol 1e-4 and an atol of 1e-4 of their own largest
-   plain value, reruns bit-identical; then at config 6b each kernel's time,
-   its plain version's, SDPA's (forward, and backward by autograd.grad) and
-   the bounds.
+   cross attention 256/384, dropout 0.1, head dims 128 with GQA and
+   dropout, and 40), o and lse at rtol 1e-4/atol 1e-5, dq/dk/dv at rtol
+   1e-4 and an atol of 1e-4 of their own largest plain value, reruns
+   bit-identical; at config 6b and K4c's shape the backward pair (3xTF32 on
+   the tensor cores) against a float64 plain version, within 4x the f32
+   plain version's error, a limit the plain version with TF32 allowed must
+   miss; then at config 6b, K4b's and K4c's shapes each kernel's time, its
+   plain version's, SDPA's (forward, and backward by autograd.grad), the
+   pair plus the delta reduction beside SDPA's backward, and the bounds
+   (the backward pair's at f32 FMA and at 3xTF32 on the tensor cores).
 9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
    device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
    step launches each attention kernel twice (two blocks) and K1 three
@@ -338,8 +343,9 @@ SCALED_TOL = dict(rtol=1e-4, atol=1e-4)
 # past STATE_TOL.
 STEPS_SEED = 7
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): f32 FMA
-# outside the tensor cores, and HBM3.
+# outside the tensor cores, dense TF32 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
 # Config 6b of bench_all.py (bench_transformer_long): the long-context causal
 # transformer classifier, 7.49 M parameters, head dim 64; batch 4, Adam 1e-3,
@@ -365,7 +371,9 @@ ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "window40_ragged": (2, 4, 4, 300, 300, 64, True, 40, 0.0),
                "gqa_8q_2kv": (2, 8, 2, 256, 256, 64, True, None, 0.0),
                "cross_256_384": (2, 4, 4, 256, 384, 64, False, None, 0.0),
-               "dropout": (1, 4, 4, 2048, 2048, 64, True, None, 0.1)}
+               "dropout": (1, 4, 4, 2048, 2048, 64, True, None, 0.1),
+               "d128_gqa_dropout": (1, 4, 2, 200, 200, 128, True, None, 0.1),
+               "d40": (1, 2, 1, 100, 100, 40, False, None, 0.0)}
 ATTN_MAIN = "config6b"
 # timed too: the shapes that take K4b and K4c on the TPU
 ATTN_TIMED = ("k4b_t512", "k4c_noncausal")
@@ -378,6 +386,13 @@ ATTN_SEED = 1234
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_RTOL = 1e-4
 GRAD_ATOL = 1e-4
+# the backward pair's float64 hold (its products in 3xTF32 on the tensor
+# cores): at these shapes each of dq, dk and dv within F64_FACTOR times the
+# f32 plain version's own max error against a float64 plain version (TF32
+# off), as K1's long-K products are held; the plain version with TF32
+# allowed must miss that limit
+ATTN_F64 = ("config6b", "k4c_noncausal")
+F64_FACTOR = 4.0
 # fused vs tape losses over 5 Adam steps: the same math with sums in other
 # orders
 PARITY_RTOL = 1e-4
@@ -427,11 +442,18 @@ def phase(name):
     print("== %s" % name, flush=True)
 
 
-def bound(flops, n_bytes):
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+def bound(flops, n_bytes, peak=PEAK_F32_FLOPS):
+    """(least ms the card could take, "operations" or "bytes"), the
+    operations at ``peak`` FLOP/s (f32 FMA by default)."""
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_3xtf32(flops, n_bytes):
+    """``bound`` for f32 products done in 3xTF32 on the tensor cores: three
+    TF32 products each, at the dense TF32 peak."""
+    return bound(3.0 * flops, n_bytes, peak=PEAK_TF32_FLOPS)
 
 
 def product_cost(m, k, n):
@@ -1552,6 +1574,50 @@ def check_attention_shape(device, name):
     return errs
 
 
+def attention_f64_hold(device, name):
+    """The backward pair against a float64 plain version at ``name``'s
+    shape: each of dq, dk and dv within F64_FACTOR times the f32 plain
+    version's max error (TF32 off), and the plain version with TF32 allowed
+    past that limit. All from the f32 plain forward's lse and delta. Returns
+    {output: (kernel's, f32's, TF32's max error)}."""
+    q, k, v, do, kw = attn_inputs(device, name)
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    delta = (do * o).sum(dim=-1)
+    bwd = (q, k, v, do, lse, delta)
+    got = ((attention.cuda_attention_backward_dq(*bwd, **kw),)
+           + attention.cuda_attention_backward_dkv(*bwd, **kw))
+    f32 = attention.attention_backward_reference(*bwd, **kw)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = attention.attention_backward_reference(*bwd, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    exact = attention.attention_backward_reference(
+        *(x.double() for x in bwd), **kw)
+    errs = {}
+    for i, what in enumerate(("dq", "dk", "dv")):
+        e = [float((x[i].double() - exact[i]).abs().max())
+             for x in (got, f32, tf32)]
+        errs[what] = e
+        limit = F64_FACTOR * e[1]
+        print("  %-16s %s against float64: kernel %.3g, f32 plain %.3g, "
+              "TF32 plain %.3g; limit %.3g (%gx f32's); kernel/f32 %.2f, "
+              "TF32/f32 %.1f" % (name, what, e[0], e[1], e[2], limit,
+                                 F64_FACTOR, e[0] / e[1], e[2] / e[1]))
+        if e[0] > limit:
+            raise AssertionError("%s: %s's float64 error %.3g exceeds %gx "
+                                 "the f32 plain version's %.3g"
+                                 % (name, what, e[0], F64_FACTOR, e[1]))
+        if e[2] <= limit:
+            raise AssertionError("%s: %s: TF32's float64 error %.3g is "
+                                 "within the limit %.3g: the hold cannot "
+                                 "tell 3xTF32 from TF32"
+                                 % (name, what, e[2], limit))
+    del exact, f32, tf32
+    torch.cuda.empty_cache()
+    return errs
+
+
 def sdpa_times(q, k, v, do, kw):
     """PyTorch's scaled_dot_product_attention at the same shape, as a
     yardstick only: (forward ms, backward ms from autograd.grad, the device
@@ -1614,6 +1680,11 @@ def check_attention(device):
         for kname, err in check_attention_shape(device, name).items():
             worst[kname] = max(worst[kname], err)
         torch.cuda.empty_cache()
+    print("  the backward pair against float64 (3xTF32 on the tensor cores; "
+          "limit %gx the f32 plain version's error, which TF32 must miss)"
+          % F64_FACTOR)
+    for name in ATTN_F64:
+        attention_f64_hold(device, name)
 
     out = time_attention(device, ATTN_MAIN, detail=True)
     for name in out:
@@ -1626,8 +1697,10 @@ def check_attention(device):
 def time_attention(device, name, detail=False):
     """Each attention kernel's time a launch at shape ``name`` (CUDA
     events, in turns with the plain version), its bound and SDPA's time;
-    with ``detail`` also the profiler's device time and the card's clock
-    under 300 back-to-back launches. Returns a dict per kernel."""
+    with ``detail`` also the device time behind a spin and the card's clock
+    under 300 back-to-back launches. The backward kernels' bound (their
+    ``bound_ms``) is at 3xTF32 on the tensor cores, the work they do; the
+    f32 FMA bound is printed beside it. Returns a dict per kernel."""
     q, k, v, do, kw = attn_inputs(device, name)
     o, lse = attention.attention_forward_reference(q, k, v, **kw)
     delta = (do * o).sum(dim=-1)
@@ -1653,17 +1726,23 @@ def time_attention(device, name, detail=False):
         p1, k1, k2, p2 = (epoch_ms(plain, 2), epoch_ms(kernel, 10),
                           epoch_ms(kernel, 10), epoch_ms(plain, 2))
         bound_ms, bound_by = bound(*costs[kname])
+        fma = ""
+        if kname != "attention_forward":
+            fma = " (at f32 FMA %.4f ms, %s-bound; the kernel at %.2f%% of " \
+                  "it)" % (bound_ms, bound_by,
+                           100.0 * bound_ms / ((k1 + k2) / 2))
+            bound_ms, bound_by = bound_3xtf32(*costs[kname])
         ms = (k1 + k2) / 2
         out[kname] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                           bound_by=bound_by,
                           library_ms=(sdpa_fwd if kname == "attention_forward"
                                       else sdpa_bwd))
-        extra = ""
+        extra = fma
         if detail:
-            extra = ("; %.4f ms device time (queued); under 300 "
-                     "back-to-back launches the card read (SM clock, max SM "
-                     "clock, power) %s" % (device_us(kernel, reps=5) / 1e3,
-                                           clock_under(kernel, 300)))
+            extra += ("; %.4f ms device time (queued); under 300 "
+                      "back-to-back launches the card read (SM clock, max "
+                      "SM clock, power) %s" % (device_us(kernel, reps=5) / 1e3,
+                                               clock_under(kernel, 300)))
         print("%s at %s: %.4f ms a launch by CUDA events (turns %.4f, "
               "%.4f); plain %.3f ms (turns %.3f, %.3f); bound %.4f ms "
               "(%s-bound: %.4g GFLOP, %.4g MB); kernel at %.2f%% of it%s"
@@ -1672,12 +1751,24 @@ def time_attention(device, name, detail=False):
                  costs[kname][1] / 1e6, 100.0 * bound_ms / ms, extra))
     pair = out["attention_backward_dq"]["ms"] + \
         out["attention_backward_dkv"]["ms"]
-    pair_bound = bound(*costs["backward"])
-    print("backward pair at %s: %.4f ms; the VJP's bound %.4f ms (%s-bound, "
-          "%.4g GFLOP: S and dP once), the pair at %.2f%% of it (the kernels "
-          "recompute S and dP in each)"
+    pair_bound = bound_3xtf32(*costs["backward"])
+    pair_fma = bound(*costs["backward"])
+
+    def reduction():
+        return (do.float() * o.float()).sum(dim=-1)
+
+    delta_ms = (epoch_ms(reduction, 20) + epoch_ms(reduction, 20)) / 2
+    print("backward pair at %s: %.4f ms; the VJP's bound at 3xTF32 %.4f ms "
+          "(%s-bound, %.4g GFLOP: S and dP once, three TF32 products each), "
+          "the pair at %.2f%% of it; at f32 FMA %.4f ms, the pair at %.2f%% "
+          "(the kernels recompute S and dP in each)"
           % (name, pair, pair_bound[0], pair_bound[1],
-             costs["backward"][0] / 1e9, 100.0 * pair_bound[0] / pair))
+             costs["backward"][0] / 1e9, 100.0 * pair_bound[0] / pair,
+             pair_fma[0], 100.0 * pair_fma[0] / pair))
+    print("the pair plus the delta reduction (mha_bwd's rowsum(dO * O), "
+          "%.4f ms) at %s: %.4f ms, beside SDPA's whole backward %.4f ms: "
+          "%.3fx its time" % (delta_ms, name, pair + delta_ms, sdpa_bwd,
+                              (pair + delta_ms) / sdpa_bwd))
     print("SDPA (f32) at %s: forward %.4f ms, backward %.4f ms "
           "(autograd.grad, all of dq, dk, dv); max|SDPA - plain| of o %.3g; "
           "its device kernels: %s" % (name, sdpa_fwd, sdpa_bwd, sdpa_err,

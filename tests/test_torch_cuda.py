@@ -1,10 +1,10 @@
 """The CUDA kernels on the card: the matmul (K1), the whole-epoch kernel
 (K2, with Dropout and the seven optimizer rules), the weight-streaming
 kernels (K3, K3b), the flash-attention kernels (K4's forward, K4b-d's dq and
-dk/dv), the recurrent kernels (K5-K5d), the dropout pass (P1), the
-optimizer-only probe (P2), the fused transformer-block forward (K7), the
-ring all-reduce (P3) and the whole-epoch kernel over ranks with its gradient
-ring (K6).
+dk/dv, their 3xTF32 products also held against float64), the recurrent
+kernels (K5-K5d), the dropout pass (P1), the optimizer-only probe (P2), the
+fused transformer-block forward (K7), the ring all-reduce (P3) and the
+whole-epoch kernel over ranks with its gradient ring (K6).
 Tests marked ``cuda``; they skip without a CUDA device, since the kernels
 have no CPU mode.
 
@@ -623,6 +623,39 @@ def test_cuda_attention_backward_matches_reference(name):
             a.cpu().numpy(), b, rtol=1e-4,
             atol=1e-4 * float(np.abs(b).max()), err_msg=what)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# the backward pair's products run in 3xTF32 on the tensor cores: at the
+# long-context shapes each of dq, dk and dv is held against a float64 plain
+# version within ATTN_F64_FACTOR times the f32 plain version's own max error
+# (TF32 off), as K1's long-K products are; the plain version with TF32
+# allowed must miss that limit
+ATTN_F64_FACTOR = 4.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config6b", "k4c_noncausal"])
+def test_cuda_attention_backward_float64_hold(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    (q, k, v, do, kw), _, (o, lse) = _attn_forward_both(dev, name)
+    bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+    got = ((attention.cuda_attention_backward_dq(*bwd, **kw),)
+           + attention.cuda_attention_backward_dkv(*bwd, **kw))
+    f32 = attention.attention_backward_reference(*bwd, **kw)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = attention.attention_backward_reference(*bwd, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    exact = attention.attention_backward_reference(
+        *(x.double() for x in bwd), **kw)
+    for i, what in enumerate(("dq", "dk", "dv")):
+        errs = [float((x[i].double() - exact[i]).abs().max())
+                for x in (got, f32, tf32)]
+        assert errs[0] <= ATTN_F64_FACTOR * errs[1], (what, errs)
+        assert errs[2] > ATTN_F64_FACTOR * errs[1], (what, errs)
 
 
 @pytest.mark.cuda

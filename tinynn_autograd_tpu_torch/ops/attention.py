@@ -136,11 +136,18 @@ def _keep_mask(seed, b, h, hkv, tq, tk, rate, device):
 # plain versions
 # --------------------------------------------------------------------------
 
-def _masked_scores(q, k, causal, scale, window):
-    """f32 scores [B, H, Tq, Tk], kv heads repeated to the query heads,
-    masked positions at NEG_INF."""
+def _acc(x):
+    """The plain versions' arithmetic type: f32, or float64 for float64
+    inputs (a reference for the kernels' f32 error)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _masked_scores(q, k, causal, scale, window, product=torch.matmul):
+    """Scores [B, H, Tq, Tk] in ``_acc(q)``, kv heads repeated to the query
+    heads, masked positions at NEG_INF."""
     k = _repeat_kv(k, q.shape[1] // k.shape[1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    acc = _acc(q)
+    s = product(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if causal:
         vis = torch.from_numpy(band_mask(q.shape[2], window)).to(s.device)
         s = torch.where(vis, s, NEG_INF)
@@ -153,8 +160,9 @@ def _repeat_kv(x, group):
 
 def attention_forward_reference(q, k, v, causal, scale, window=None,
                                 dropout_rate=0.0, seed=None):
-    """(o [B,H,Tq,d], lse [B,H,Tq,1] f32) with materialised scores: the
-    kernels' arithmetic in plain PyTorch (the JAX package's ``_fwd_xla``)."""
+    """(o [B,H,Tq,d], lse [B,H,Tq,1] f32; float64 for float64 inputs) with
+    materialised scores: the kernels' arithmetic in plain PyTorch (the JAX
+    package's ``_fwd_xla``)."""
     b, h, tq, _ = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     s = _masked_scores(q, k, causal, scale, window)
@@ -166,23 +174,28 @@ def attention_forward_reference(q, k, v, causal, scale, window=None,
                           q.device)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     o = torch.einsum("bhqk,bhkd->bhqd", p,
-                     _repeat_kv(v, h // hkv).float()) / l
+                     _repeat_kv(v, h // hkv).to(p.dtype)) / l
     return o.to(q.dtype), m + torch.log(l)
 
 
 def attention_backward_reference(q, k, v, do, lse, delta, causal, scale,
-                                 window=None, dropout_rate=0.0, seed=None):
+                                 window=None, dropout_rate=0.0, seed=None,
+                                 product=torch.matmul):
     """(dq, dk, dv) of the recompute scheme with materialised scores (the
     JAX package's ``_bwd_xla``); ``delta`` [B,H,Tq] is rowsum(dO * O). Under
-    GQA dk/dv sum over each kv head's group of query heads."""
+    GQA dk/dv sum over each kv head's group of query heads. In f32, or in
+    float64 for float64 inputs. ``product(a, b)`` forms each of the five
+    matrix products (a [..., m, k] @ b [..., k, n]); ``tf32.matmul_3xtf32``
+    there models the kernels' tensor-core arithmetic."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     group = h // hkv
-    kx, vx = _repeat_kv(k, group).float(), _repeat_kv(v, group).float()
-    s = _masked_scores(q, k, causal, scale, window)
-    p = torch.exp(s - lse.reshape(b, h, tq, 1))
-    dof = do.float()
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vx)
+    acc = _acc(q)
+    kx, vx = _repeat_kv(k, group).to(acc), _repeat_kv(v, group).to(acc)
+    s = _masked_scores(q, k, causal, scale, window, product)
+    p = torch.exp(s - lse.reshape(b, h, tq, 1).to(acc))
+    dof = do.to(acc)
+    dp = product(dof, vx.transpose(-1, -2))
     if dropout_rate > 0.0:
         keep = _keep_mask(seed or 0, b, h, hkv, tq, tk, dropout_rate,
                           q.device)
@@ -191,10 +204,10 @@ def attention_backward_reference(q, k, v, do, lse, delta, causal, scale,
         dp = torch.where(keep, dp, 0.0) * inv
     else:
         pd = p
-    ds = p * (dp - delta.reshape(b, h, tq, 1)) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dof)
+    ds = p * (dp - delta.reshape(b, h, tq, 1).to(acc)) * scale
+    dq = product(ds, kx)
+    dk = product(ds.transpose(-1, -2), q.to(acc))
+    dv = product(pd.transpose(-1, -2), dof)
     if group > 1:
         dk = dk.reshape(b, hkv, group, tk, d).sum(dim=2)
         dv = dv.reshape(b, hkv, group, tk, d).sum(dim=2)
