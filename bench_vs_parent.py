@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""The attention backward pair (K4b-d's dq and dk/dv kernels) beside the
-design it replaced, on one CUDA card.
+"""The attention kernels (K4's forward, K4b-d's dq and dk/dv) beside an
+earlier checkout's, on one CUDA card.
 
 Builds a parent checkout's ``csrc/attention.cu`` in the same process as this
 tree's (the C interface is the same) and times the two in turns (this,
 parent, parent, this; CUDA events behind a spin, ``device_us``):
 
-- the pair (dq + dk/dv) at config 6b's shape (B 4, H 8, T 2048, d 64,
-  causal), the TPU's K4b shape (T 512, causal) and its K4c shape (T 2048,
-  non-causal), each kernel held to the plain version at the attention
-  gate (rtol 1e-4, atol 1e-4 of the largest plain value), beside SDPA's
-  whole backward and the pair's bounds (f32 FMA; 3xTF32 on the tensor
-  cores);
+- the forward at config 6b's shape (B 4, H 8, T 2048, d 64, causal), the
+  TPU's K4b shape (T 512, causal) and its K4c shape (T 2048, non-causal),
+  each held to the plain version at the attention gate (rtol 1e-4, atol
+  1e-5), beside SDPA's forward (device time the same way) and the
+  forward's bounds (3xTF32 on the tensor cores; f32 FMA);
+- the pair (dq + dk/dv) at the same shapes, each kernel held to the plain
+  version at the attention gate (rtol 1e-4, atol 1e-4 of the largest plain
+  value), beside SDPA's whole backward and the pair's bounds;
 - config 6b's training through ``Model.train_epoch`` (64 steps of batch 4,
   the attention kernels twice a step each) with this tree's attention
   library and the parent's, steps/s by the host's clock.
 
-The parent is the design before the tensor-core pair: CUDA-core FMA, 64-row
-tiles of 256 threads. Unpack it into a git-ignored directory and point
---parent there:
+Commit a9c3485 has the CUDA-core forward (64 x 64 score tiles of 256
+threads) and the tensor-core pair of this tree; ec60c57 has CUDA-core
+kernels throughout. Unpack the parent into a git-ignored directory and
+point --parent there:
 
     mkdir -p _parent && git archive <commit> | tar -x -C _parent
     python3 bench_vs_parent.py --parent _parent   # ~2 min with the builds
@@ -79,6 +82,13 @@ class uses:
         kernels._loaded["attention"] = self.saved
 
 
+def forward_fn(lib, q, k, v, kw):
+    def run():
+        with uses(lib):
+            return attention.cuda_attention_forward(q, k, v, **kw)
+    return run
+
+
 def pair_fn(lib, bwd, kw):
     def run():
         with uses(lib):
@@ -93,6 +103,51 @@ def in_turns(mine, parents):
     parent's, parent's, mine."""
     t = [device_us(f, reps=20) for f in (mine, parents, parents, mine)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def bench_forward(libs, device):
+    print("== the forward (K4), device us a launch: this tree's and the "
+          "parent's in turns")
+    import torch.nn.functional as F
+
+    for name in SHAPES:
+        q, k, v, _, kw = smoke.attn_inputs(device, name)
+        want = attention.attention_forward_reference(q, k, v, **kw)
+        mine, parents = (forward_fn(libs[w], q, k, v, kw)
+                         for w in ("this", "parent"))
+        for who, fn in (("this tree's", mine), ("the parent's", parents)):
+            errs = []
+            for what, a, b in zip(("o", "lse"), fn(), want):
+                np.testing.assert_allclose(
+                    a.cpu().numpy(), b.cpu().numpy(),
+                    err_msg="%s %s %s" % (name, who, what), **smoke.ATTN_TOL)
+                errs.append(float((a - b).abs().max()))
+            print("  %s %s: max abs err against the plain version o %.3g, "
+                  "lse %.3g" % (name, who, *errs))
+        this_us, parent_us, turns = in_turns(mine, parents)
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=kw["causal"], scale=kw["scale"])
+
+        sdpa_us = device_us(sdpa, reps=20)
+        costs = smoke.attention_costs(name)["attention_forward"]
+        fma_ms, _ = smoke.bound(*costs)
+        tc_ms, tc_by = smoke.bound_3xtf32(*costs)
+        print("%s: the forward %.1f us (turns %.1f, %.1f), the parent's "
+              "%.1f us (turns %.1f, %.1f): %.2fx faster; SDPA's forward "
+              "%.1f us (this tree's at %.3fx its time); the bound %.1f us "
+              "at 3xTF32 (%s-bound; this tree's at %.2f%%, the parent's at "
+              "%.2f%%), %.1f us at f32 FMA (this tree's at %.2f%%, the "
+              "parent's at %.2f%%)"
+              % (name, this_us, turns[0], turns[3], parent_us, turns[1],
+                 turns[2], parent_us / this_us, sdpa_us, this_us / sdpa_us,
+                 1e3 * tc_ms, tc_by, 1e5 * tc_ms / this_us,
+                 1e5 * tc_ms / parent_us, 1e3 * fma_ms,
+                 1e5 * fma_ms / this_us, 1e5 * fma_ms / parent_us))
+        del want
+        torch.cuda.empty_cache()
 
 
 def bench_pair(libs, device):
@@ -189,6 +244,7 @@ def main(argv=None):
         libs = {"this": mine.result(), "parent": parent.result()}
     print("built this tree's and the parent's attention in %.2f s (one nvcc "
           "each, in parallel)" % (time.perf_counter() - t0))
+    bench_forward(libs, device)
     bench_pair(libs, device)
     bench_6b(libs, device)
     return 0

@@ -152,13 +152,14 @@ test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
    cross attention 256/384, dropout 0.1, head dims 128 with GQA and
    dropout, and 40), o and lse at rtol 1e-4/atol 1e-5, dq/dk/dv at rtol
    1e-4 and an atol of 1e-4 of their own largest plain value, reruns
-   bit-identical; at config 6b and K4c's shape the backward pair (3xTF32 on
-   the tensor cores) against a float64 plain version, within 4x the f32
-   plain version's error, a limit the plain version with TF32 allowed must
-   miss; then at config 6b, K4b's and K4c's shapes each kernel's time, its
-   plain version's, SDPA's (forward, and backward by autograd.grad), the
-   pair plus the delta reduction beside SDPA's backward, and the bounds
-   (the backward pair's at f32 FMA and at 3xTF32 on the tensor cores).
+   bit-identical; at config 6b and K4c's shape the three kernels (3xTF32
+   on the tensor cores) against a float64 plain version, o, lse, dq, dk
+   and dv each within 4x the f32 plain version's error, a limit the plain
+   version with TF32 allowed must miss; then at config 6b, K4b's and K4c's
+   shapes each kernel's time, its plain version's, SDPA's (forward, and
+   backward by autograd.grad), the pair plus the delta reduction beside
+   SDPA's backward, and the bounds (at 3xTF32 on the tensor cores, and at
+   f32 FMA beside them).
 9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
    device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
    step launches each attention kernel twice (two blocks) and K1 three
@@ -386,11 +387,11 @@ ATTN_SEED = 1234
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_RTOL = 1e-4
 GRAD_ATOL = 1e-4
-# the backward pair's float64 hold (its products in 3xTF32 on the tensor
-# cores): at these shapes each of dq, dk and dv within F64_FACTOR times the
-# f32 plain version's own max error against a float64 plain version (TF32
-# off), as K1's long-K products are held; the plain version with TF32
-# allowed must miss that limit
+# the attention kernels' float64 hold (their products in 3xTF32 on the
+# tensor cores): at these shapes each of o, lse, dq, dk and dv within
+# F64_FACTOR times the f32 plain version's own max error against a float64
+# plain version (TF32 off), as K1's long-K products are held; the plain
+# version with TF32 allowed must miss that limit
 ATTN_F64 = ("config6b", "k4c_noncausal")
 F64_FACTOR = 4.0
 # fused vs tape losses over 5 Adam steps: the same math with sums in other
@@ -1575,32 +1576,41 @@ def check_attention_shape(device, name):
 
 
 def attention_f64_hold(device, name):
-    """The backward pair against a float64 plain version at ``name``'s
-    shape: each of dq, dk and dv within F64_FACTOR times the f32 plain
-    version's max error (TF32 off), and the plain version with TF32 allowed
-    past that limit. All from the f32 plain forward's lse and delta. Returns
-    {output: (kernel's, f32's, TF32's max error)}."""
+    """The three attention kernels against a float64 plain version at
+    ``name``'s shape: each of o, lse, dq, dk and dv within F64_FACTOR times
+    the f32 plain version's max error (TF32 off), and the plain version with
+    TF32 allowed past that limit. The backward from the f32 plain forward's
+    lse and delta.
+    Returns {output: (kernel's, f32's, TF32's max error)}."""
     q, k, v, do, kw = attn_inputs(device, name)
     o, lse = attention.attention_forward_reference(q, k, v, **kw)
     delta = (do * o).sum(dim=-1)
     bwd = (q, k, v, do, lse, delta)
-    got = ((attention.cuda_attention_backward_dq(*bwd, **kw),)
-           + attention.cuda_attention_backward_dkv(*bwd, **kw))
-    f32 = attention.attention_backward_reference(*bwd, **kw)
+
+    def kernels_run(args):
+        return (attention.cuda_attention_forward(*args[:3], **kw)
+                + (attention.cuda_attention_backward_dq(*args, **kw),)
+                + attention.cuda_attention_backward_dkv(*args, **kw))
+
+    def plain_run(args):
+        return (attention.attention_forward_reference(*args[:3], **kw)
+                + attention.attention_backward_reference(*args, **kw))
+
+    got = kernels_run(bwd)
+    f32 = plain_run(bwd)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32 = attention.attention_backward_reference(*bwd, **kw)
+        tf32 = plain_run(bwd)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    exact = attention.attention_backward_reference(
-        *(x.double() for x in bwd), **kw)
+    exact = plain_run([x.double() for x in bwd])
     errs = {}
-    for i, what in enumerate(("dq", "dk", "dv")):
+    for i, what in enumerate(("o", "lse", "dq", "dk", "dv")):
         e = [float((x[i].double() - exact[i]).abs().max())
              for x in (got, f32, tf32)]
         errs[what] = e
         limit = F64_FACTOR * e[1]
-        print("  %-16s %s against float64: kernel %.3g, f32 plain %.3g, "
+        print("  %-16s %-3s against float64: kernel %.3g, f32 plain %.3g, "
               "TF32 plain %.3g; limit %.3g (%gx f32's); kernel/f32 %.2f, "
               "TF32/f32 %.1f" % (name, what, e[0], e[1], e[2], limit,
                                  F64_FACTOR, e[0] / e[1], e[2] / e[1]))
@@ -1680,7 +1690,7 @@ def check_attention(device):
         for kname, err in check_attention_shape(device, name).items():
             worst[kname] = max(worst[kname], err)
         torch.cuda.empty_cache()
-    print("  the backward pair against float64 (3xTF32 on the tensor cores; "
+    print("  the three kernels against float64 (3xTF32 on the tensor cores; "
           "limit %gx the f32 plain version's error, which TF32 must miss)"
           % F64_FACTOR)
     for name in ATTN_F64:
@@ -1698,9 +1708,9 @@ def time_attention(device, name, detail=False):
     """Each attention kernel's time a launch at shape ``name`` (CUDA
     events, in turns with the plain version), its bound and SDPA's time;
     with ``detail`` also the device time behind a spin and the card's clock
-    under 300 back-to-back launches. The backward kernels' bound (their
-    ``bound_ms``) is at 3xTF32 on the tensor cores, the work they do; the
-    f32 FMA bound is printed beside it. Returns a dict per kernel."""
+    under 300 back-to-back launches. Each kernel's bound (its ``bound_ms``)
+    is at 3xTF32 on the tensor cores, the work it does; the f32 FMA bound is
+    printed beside it. Returns a dict per kernel."""
     q, k, v, do, kw = attn_inputs(device, name)
     o, lse = attention.attention_forward_reference(q, k, v, **kw)
     delta = (do * o).sum(dim=-1)
@@ -1725,14 +1735,11 @@ def time_attention(device, name, detail=False):
         # in turns: plain, kernel, kernel, plain
         p1, k1, k2, p2 = (epoch_ms(plain, 2), epoch_ms(kernel, 10),
                           epoch_ms(kernel, 10), epoch_ms(plain, 2))
-        bound_ms, bound_by = bound(*costs[kname])
-        fma = ""
-        if kname != "attention_forward":
-            fma = " (at f32 FMA %.4f ms, %s-bound; the kernel at %.2f%% of " \
-                  "it)" % (bound_ms, bound_by,
-                           100.0 * bound_ms / ((k1 + k2) / 2))
-            bound_ms, bound_by = bound_3xtf32(*costs[kname])
         ms = (k1 + k2) / 2
+        fma_ms, fma_by = bound(*costs[kname])
+        fma = " (at f32 FMA %.4f ms, %s-bound; the kernel at %.2f%% of it)" \
+            % (fma_ms, fma_by, 100.0 * fma_ms / ms)
+        bound_ms, bound_by = bound_3xtf32(*costs[kname])
         out[kname] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                           bound_by=bound_by,
                           library_ms=(sdpa_fwd if kname == "attention_forward"

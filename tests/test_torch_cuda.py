@@ -625,11 +625,11 @@ def test_cuda_attention_backward_matches_reference(name):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-# the backward pair's products run in 3xTF32 on the tensor cores: at the
-# long-context shapes each of dq, dk and dv is held against a float64 plain
-# version within ATTN_F64_FACTOR times the f32 plain version's own max error
-# (TF32 off), as K1's long-K products are; the plain version with TF32
-# allowed must miss that limit
+# the attention kernels' products run in 3xTF32 on the tensor cores: at the
+# long-context shapes each of dq, dk and dv (and the forward's o and lse,
+# below) is held against a float64 plain version within ATTN_F64_FACTOR
+# times the f32 plain version's own max error (TF32 off), as K1's long-K
+# products are; the plain version with TF32 allowed must miss that limit
 ATTN_F64_FACTOR = 4.0
 
 
@@ -652,6 +652,30 @@ def test_cuda_attention_backward_float64_hold(name):
     exact = attention.attention_backward_reference(
         *(x.double() for x in bwd), **kw)
     for i, what in enumerate(("dq", "dk", "dv")):
+        errs = [float((x[i].double() - exact[i]).abs().max())
+                for x in (got, f32, tf32)]
+        assert errs[0] <= ATTN_F64_FACTOR * errs[1], (what, errs)
+        assert errs[2] > ATTN_F64_FACTOR * errs[1], (what, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config6b", "k4c_noncausal"])
+def test_cuda_attention_forward_float64_hold(name):
+    # the forward multiplies in 3xTF32 too: o and lse each within
+    # ATTN_F64_FACTOR times the f32 plain version's float64 error, which the
+    # plain version with TF32 allowed must miss
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    (q, k, v, _, kw), got, f32 = _attn_forward_both(dev, name)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = attention.attention_forward_reference(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    exact = attention.attention_forward_reference(q.double(), k.double(),
+                                                  v.double(), **kw)
+    for i, what in enumerate(("o", "lse")):
         errs = [float((x[i].double() - exact[i]).abs().max())
                 for x in (got, f32, tf32)]
         assert errs[0] <= ATTN_F64_FACTOR * errs[1], (what, errs)

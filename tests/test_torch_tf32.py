@@ -1,10 +1,11 @@
-"""The 3xTF32 arithmetic of the attention backward kernels, held on the CPU:
+"""The 3xTF32 arithmetic of the attention kernels, held on the CPU:
 ``ops/tf32.py``'s rounding against an independent float64 reference, the
 split's reach, the 3-term product against float64 at the attention's
 products (where plain TF32 must miss the f32 gate), and the attention
-backward built from ``matmul_3xtf32`` against the JAX package's
-``mha_bwd`` (Pallas kernels in interpret mode, as
-``tests/test_torch_attention.py`` runs them).
+forward and backward built from ``matmul_3xtf32`` against the JAX package's
+``mha_fwd`` and ``mha_bwd`` (Pallas kernels in interpret mode, as
+``tests/test_torch_attention.py`` runs them), the forward also against
+float64.
 
 Inputs come from numpy with a seed.
 """
@@ -26,7 +27,11 @@ torch.set_num_threads(1)
 GATE_RTOL = 1e-4
 GATE_ATOL = 1e-4
 # against the JAX package: f32 sums in other orders (test_torch_attention.py)
+FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 BWD_TOL = dict(rtol=1e-5, atol=1e-5)
+# against float64: the 3xTF32 forward within F64_FACTOR times the f32 plain
+# version's max error, as chip_smoke.py holds the kernel; plain TF32 past it
+F64_FACTOR = 4.0
 
 # test_torch_attention.py's cases: (B, H, Hkv, Tq, Tk, d, causal, window,
 # dropout rate)
@@ -217,3 +222,65 @@ def test_3xtf32_backward_matches_jax(name, jax_impl):
     for what, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=what,
                                    **BWD_TOL)
+
+
+# --------------------------------------------------------------------------
+# the attention forward in 3xTF32
+# --------------------------------------------------------------------------
+
+def _forward(q, k, v, kw, product):
+    return attention.attention_forward_reference(
+        q, k, v, kw["causal"], kw["scale"],
+        window=attention._norm_window(kw["window"], kw["causal"],
+                                      q.shape[2]),
+        dropout_rate=kw["dropout_rate"], seed=kw["dropout_seed"],
+        product=product)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_3xtf32_forward_matches_jax(name, jax_impl):
+    (q, k, v, _), kw = _inputs(name)
+    jo, jlse = jattn.mha_fwd(*map(jnp.asarray, (q, k, v)), impl=jax_impl,
+                             **kw)
+    o, lse = _forward(*map(torch.from_numpy, (q, k, v)), kw,
+                      tf32.matmul_3xtf32)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), err_msg="o",
+                               **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), err_msg="lse",
+                               **FWD_TOL)
+
+
+def test_3xtf32_forward_error_is_near_f32s():
+    # one causal head pair at T=256, d=64: o and lse against float64 within
+    # F64_FACTOR times the f32 plain version's error; plain TF32's past it
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32))
+               for _ in range(3))
+    kw = dict(causal=True, scale=1.0 / 8.0, window=None, dropout_rate=0.0,
+              dropout_seed=None)
+    exact = _forward(q.double(), k.double(), v.double(), kw, torch.matmul)
+    errs = {}
+    for name, product in (("3xtf32", tf32.matmul_3xtf32),
+                          ("f32", torch.matmul), ("tf32", tf32.matmul_tf32)):
+        got = _forward(q, k, v, kw, product)
+        errs[name] = [float((a.double() - b).abs().max())
+                      for a, b in zip(got, exact)]
+    for i, what in enumerate(("o", "lse")):
+        assert errs["3xtf32"][i] <= F64_FACTOR * errs["f32"][i], (what, errs)
+        assert errs["tf32"][i] > F64_FACTOR * errs["f32"][i], (what, errs)
+
+
+def test_forward_reference_default_product_is_unchanged():
+    # the default keeps the einsum: bit for bit what it computed before
+    (q, k, v, _), kw = _inputs("gqa_dropout")
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    o, lse = _forward(q, k, v, kw, torch.matmul)
+    s = attention._masked_scores(q, k, kw["causal"], kw["scale"], None)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    keep = attention._keep_mask(SEED, 1, 4, 2, 32, 32, 0.1, None)
+    p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - 0.1))
+    want = torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.repeat_interleave(2, dim=1)) / l
+    assert torch.equal(o, want) and torch.equal(lse, m + torch.log(l))

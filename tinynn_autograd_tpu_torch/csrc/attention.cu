@@ -29,26 +29,36 @@
 //   bit-identical. Head dims up to 128 (templates for 32, 64 and 128; a
 //   smaller d is zero-padded in shared memory).
 //
-// The forward: 256 threads in a 16 x 16 layout, each holding a 4 x 4 block
-// of the [64 queries, 64 keys] score tile and a 4-row x d/16-column block of
-// the output, multiplied in full f32 with FMA on the CUDA cores from
-// transposed shared-memory copies; the online softmax in f32 registers, a
-// row's 64 scores in 16 lanes of one warp meeting through shuffles.
+// All three kernels multiply on the tensor cores, `mma.sync` m16n8k8 TF32
+// with f32 accumulators, in 3xTF32: each f32 operand is split into a TF32
+// high part (rounded to nearest, ties away) and a TF32 low part (the
+// remainder cut towards zero), and lo hi' + hi lo' + hi hi' are issued, as
+// CUTLASS's OpMultiplyAddFastF32 does (and as PyTorch's f32 SDPA does on
+// this card). `ops/tf32.py` is the same split on the CPU, bit for bit. The
+// tensor cores' accumulation cuts towards zero, so long sums are kept short:
+// the score products sum their small terms apart, and each looped tile's
+// share of an output is summed apart and added to it once (an f32 add
+// rounded to nearest). Against a float64 plain version the kernels' error
+// then stays within that of the f32 plain version (cuBLAS, TF32 off) at the
+// long-context shapes, where one running sum missed it by up to 13x.
+//
+// The forward: a block is 4 warps and 64 query rows; each warp owns 16 rows
+// with their running max and sum. Q is loaded once, K and V come in 32-key
+// tiles by cp.async, double-buffered. S = Q K^T lands in m16n8
+// accumulators, the online softmax (masks, scale, dropout) runs on them in
+// f32 registers, a row's max and sum meeting over the 4 lanes of its quad
+// in two shuffles, and the accumulators feed P.V as its A fragments, so P
+// never leaves the registers; each tile's share of O is summed apart and
+// added once to the rescaled O (o = o alpha + share). Q and K fragments
+// come by ldmatrix, and every warp splits the K and V values it reads in
+// registers: faster on the H100 than splitting each tile once a block into
+// shared high and low planes, than 128-row blocks of 8 warps (level at
+// config 6b, slower at T=512, where their grid is under one wave) and than
+// warps owning 32 rows (out of registers).
 //
 // The backward pair, dq (over query tiles) and dk/dv (over key tiles):
 // - Every product (S and dP in both kernels, dQ = dS K, dV = P_d^T dO,
-//   dK = dS^T Q) runs on the tensor cores, `mma.sync` m16n8k8 TF32 with f32
-//   accumulators, in 3xTF32: each f32 operand is split into a TF32 high part
-//   (rounded to nearest, ties away) and a TF32 low part (the remainder cut
-//   towards zero), and lo hi' + hi lo' + hi hi' are issued, as CUTLASS's
-//   OpMultiplyAddFastF32 does (and as PyTorch's f32 SDPA does on this card).
-//   `ops/tf32.py` is the same split on the CPU, bit for bit. The tensor
-//   cores' accumulation cuts towards zero, so long sums are kept short: S
-//   and dP sum their small terms apart, and each looped tile's share of dQ,
-//   dK and dV is summed apart and added to the output once (an f32 add
-//   rounded to nearest). Against a float64 plain version the kernels' error
-//   then stays within that of the f32 plain version (cuBLAS, TF32 off) at
-//   the long-context shapes, where one running sum missed it by up to 13x.
+//   dK = dS^T Q) runs in 3xTF32 as above.
 // - A block is 4 warps; each warp owns 16 rows of the block's 64 (query rows
 //   in dq, key rows in dk/dv), with their lse and delta, P and dS in its
 //   registers. An m16n8 accumulator's columns 2t and 2t + 1 serve as the
@@ -66,13 +76,15 @@
 //
 // What bounds them on this card: at the long-context config (B=4, H=8,
 // T=2048, d=64, causal) the forward is 17.2 GFLOP on the visible half of the
-// score plane against 67 MB of traffic: f32 FMA (67 TFLOP/s) bounds it, at
-// 0.257 ms. The backward pair does 7 products a tile (both kernels recompute
-// S and dP), 60 GFLOP, three TF32 products each: 180 GFLOP at the tensor
-// cores' 494.7 TFLOP/s, 0.364 ms. The pair issues its MMAs with the operand
-// splits, the elementwise work and the fragment loads beside them on the same
-// schedulers; a fused backward that computes S and dP once (without float
-// atomics), `wgmma` and TMA copies are later work.
+// score plane against 67 MB of traffic, 51.6 GFLOP of TF32 in 3xTF32 at the
+// tensor cores' 494.7 TFLOP/s: 0.104 ms (0.257 ms at f32 FMA, 67 TFLOP/s).
+// The backward pair does 7 products a tile (both kernels recompute S and
+// dP), 60 GFLOP, three TF32 products each: 180 GFLOP, 0.364 ms. The kernels
+// issue their MMAs with the operand splits, the softmax, the elementwise
+// work and the fragment loads beside them on the same schedulers (the
+// forward splits each K and V value once in each of its four warps); a
+// fused backward that computes S and dP once (without float atomics),
+// `wgmma` with K-major operands and TMA copies are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,10 +92,6 @@
 
 namespace {
 
-constexpr int TILE = 64;        // the forward's score tile: 64 x 64
-constexpr int THREADS = 256;    // the forward's 16 x 16 threads
-constexpr int PAD = 4;          // keeps rows 16-byte aligned, spreads banks
-constexpr int SP = TILE + PAD;  // pitch of the [*][64] buffers
 constexpr unsigned GOLDEN = 2654435761u;
 
 struct Shape {
@@ -120,93 +128,6 @@ __device__ __forceinline__ bool visible(int qi, int ki, const Shape& s,
   return ki <= qi && (o.window == 0 || qi - ki < o.window);
 }
 
-// Rows [r0, r0 + 64) of a [n, d] head slice (row stride st), zero-padded to
-// [64, D], transposed into dst[c * SP + r].
-template <int D>
-__device__ __forceinline__ void load_t(float* dst, const float* src,
-                                       long long st, int r0, int n, int d) {
-  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    float v = 0.0f;
-    if (r0 + r < n && c < d) v = src[(r0 + r) * st + c];
-    dst[c * SP + r] = v;
-  }
-}
-
-// The same rows as they are: dst[r * (D + PAD) + c].
-template <int D>
-__device__ __forceinline__ void load_r(float* dst, const float* src,
-                                       long long st, int r0, int n, int d) {
-  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    float v = 0.0f;
-    if (r0 + r < n && c < d) v = src[(r0 + r) * st + c];
-    dst[r * (D + PAD) + c] = v;
-  }
-}
-
-// acc[i][j] = sum_c at[c][ty*4+i] * bt[c][tx*4+j] over c < D: a score tile
-// from two transposed operands.
-template <int D>
-__device__ __forceinline__ void tile_nt(float (&acc)[4][4],
-                                        const float* __restrict__ at,
-                                        const float* __restrict__ bt, int ty,
-                                        int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < D; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(at + c * SP + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(bt + c * SP + tx * 4);
-    const float ar[4] = {a.x, a.y, a.z, a.w};
-    const float br[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// out[i][j] += sum_k pt[k][ty*4+i] * x[k][tx*NC+j] over k < 64: a [64, D]
-// output tile from a transposed score tile and a row-major operand.
-template <int D>
-__device__ __forceinline__ void tile_nn(float (&out)[4][D / 16],
-                                        const float* __restrict__ pt,
-                                        const float* __restrict__ x, int ty,
-                                        int tx) {
-  constexpr int NC = D / 16;
-#pragma unroll 4
-  for (int k = 0; k < TILE; ++k) {
-    const float4 p = *reinterpret_cast<const float4*>(pt + k * SP + ty * 4);
-    const float pr[4] = {p.x, p.y, p.z, p.w};
-    const float* row = x + k * (D + PAD) + tx * NC;
-    float xr[NC];
-    if constexpr (NC % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < NC / 4; ++q) {
-        const float4 t = reinterpret_cast<const float4*>(row)[q];
-        xr[4 * q] = t.x;
-        xr[4 * q + 1] = t.y;
-        xr[4 * q + 2] = t.z;
-        xr[4 * q + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < NC / 2; ++q) {
-        const float2 t = reinterpret_cast<const float2*>(row)[q];
-        xr[2 * q] = t.x;
-        xr[2 * q + 1] = t.y;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) out[i][j] = fmaf(pr[i], xr[j], out[i][j]);
-  }
-}
-
 // The C-key tiles [lo, hi] that the R query rows from q0 can see.
 template <int R, int C>
 __device__ __forceinline__ void key_range(int q0, const Shape& s,
@@ -220,115 +141,15 @@ __device__ __forceinline__ void key_range(int q0, const Shape& s,
   }
 }
 
-// One block per (b*H + h, query tile); the heaviest causal tiles first.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attention_forward_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, Shape s, Strides sq,
-                         Strides sk, Strides sv, Options opt) {
-  constexpr int NC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][SP]
-  float* kt = qt + D * SP;                        // [D][SP]
-  float* vs = kt + D * SP;                        // [64][D + PAD]
-  float* pt = vs + TILE * (D + PAD);              // [64 keys][SP]
-
-  const int bh = blockIdx.x;
-  const int b = bh / s.h, h = bh % s.h;
-  const int group = s.h / s.hkv, kvh = h / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* kh = k + b * sk.b + kvh * sk.h;
-  const float* vh = v + b * sv.b + kvh * sv.h;
-  const unsigned hh = b * s.hkv + kvh;
-  const unsigned seed = opt.seed + static_cast<unsigned>(h % group) * GOLDEN;
-
-  load_t<D>(qt, q + b * sq.b + h * sq.h, sq.t, q0, s.tq, s.d);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-
-  int j_lo, j_hi;
-  key_range<TILE, TILE>(q0, s, opt, &j_lo, &j_hi);
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();  // the last tile's kt, vs and pt are consumed
-    load_t<D>(kt, kh, sk.t, k0, s.tk, s.d);
-    load_r<D>(vs, vh, sv.t, k0, s.tk, s.d);
-    __syncthreads();
-    float sc[4][4];
-    tile_nt<D>(sc, qt, kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (visible(qi, k0 + tx * 4 + jj, s, opt)) {
-          sc[i][jj] *= opt.scale;
-          mt = fmaxf(mt, sc[i][jj]);
-        } else {
-          sc[i][jj] = -INFINITY;
-        }
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float mn = fmaxf(m[i], mt);
-      const float alpha = (mn == -INFINITY) ? 1.0f : expf(m[i] - mn);
-      float rs = 0.0f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int ki = k0 + tx * 4 + jj;
-        const float p = (sc[i][jj] == -INFINITY) ? 0.0f : expf(sc[i][jj] - mn);
-        rs += p;
-        float pd = p;
-        if (opt.dropout)
-          pd = keep(hh, qi, ki, s, seed, opt.thresh) ? p * opt.inv : 0.0f;
-        pt[(tx * 4 + jj) * SP + ty * 4 + i] = pd;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      m[i] = mn;
-    }
-    __syncthreads();  // pt complete
-    tile_nn<D>(acc, pt, vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= s.tq) continue;
-    const long long row = static_cast<long long>(bh) * s.tq + qi;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx * NC + c;
-      if (col < s.d) o[row * s.d + col] = acc[i][c] / l[i];
-    }
-    if (tx == 0) lse[row] = m[i] + logf(l[i]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The backward pair: 3xTF32 products on the tensor cores (mma.sync
-// m16n8k8), warps that own 16 rows each, cp.async-pipelined looped tiles.
+// The three kernels' common parts: 3xTF32 products on the tensor cores
+// (mma.sync m16n8k8), warps that own 16 rows each, cp.async-pipelined
+// looped tiles.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;          // rows a backward block owns: 4 warps x 16
-constexpr int BN = 32;          // rows of a looped tile
-constexpr int BWD_THREADS = 128;
+constexpr int BM = 64;       // rows a block owns: 4 warps x 16
+constexpr int BN = 32;       // rows of a looped tile
+constexpr int THREADS = 128;
 
 // The shared-memory pitch of a [rows][D] operand: D + 4 floats, 4 mod 32
 // words for D = 32, 64 and 128, so that every fragment read below is free
@@ -461,8 +282,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   if (vec) {
     constexpr int C4 = D / 4;
 #pragma unroll
-    for (int it = 0; it < R * C4 / BWD_THREADS; ++it) {
-      const int idx = threadIdx.x + it * BWD_THREADS;
+    for (int it = 0; it < R * C4 / THREADS; ++it) {
+      const int idx = threadIdx.x + it * THREADS;
       const int r = idx / C4, c = (idx % C4) * 4;
       const int left = d - c;
       const int valid =
@@ -472,8 +293,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     }
   } else {
 #pragma unroll 4
-    for (int it = 0; it < R * D / BWD_THREADS; ++it) {
-      const int idx = threadIdx.x + it * BWD_THREADS;
+    for (int it = 0; it < R * D / THREADS; ++it) {
+      const int idx = threadIdx.x + it * THREADS;
       const int r = idx / D, c = idx % D;
       const bool valid = r0 + r < n && c < d;
       cp_async4(dst + r * P + c, valid ? src + (r0 + r) * st + c : src,
@@ -490,8 +311,8 @@ template <int D>
 __device__ __forceinline__ void split_tile(float* x, float* lo) {
   constexpr int P = pitch<D>(), C4 = D / 4;
 #pragma unroll
-  for (int it = 0; it < BN * C4 / BWD_THREADS; ++it) {
-    const int idx = threadIdx.x + it * BWD_THREADS;
+  for (int it = 0; it < BN * C4 / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
     const int at = (idx / C4) * P + (idx % C4) * 4;
     float4 v = *reinterpret_cast<const float4*>(x + at);
     unsigned h[4], l[4];
@@ -526,6 +347,205 @@ __device__ __forceinline__ int band(int q_lo, int q_hi, int k_lo, int k_hi,
   return inside ? 2 : 1;
 }
 
+// Four 8 x 4 f32 blocks of shared memory in one instruction (ldmatrix of
+// four 8 x 8 b16 matrices): thread i gives the address of row i % 8 of
+// block i / 8 and receives, from each block, the word at (row g, column t).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The forward: one block per (b*H + h, 64-row query tile), the heaviest
+// causal tiles first; warp w owns query rows 16w..16w+15 with their running
+// max m and sum l in registers (a row's values sit in the 4 lanes of one
+// quad). Loops over the visible 32-key tiles: S = Q K^T into registers, the
+// online softmax in place (p, then the dropped and rescaled p_d), and the
+// tile's share of P_d V from S's accumulators as A fragments (V's rows read
+// in their column order), added once to the rescaled O. Q and K fragments
+// come by ldmatrix, V's by scalar loads; each warp splits what it reads in
+// registers (three blocks an SM at d=64).
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 1)
+attention_forward_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, Shape s, Strides sq,
+                         Strides sk, Strides sv, Options opt, int vec) {
+  constexpr int P = pitch<D>();
+  constexpr int KD = D / 8;   // 8-wide steps over the head dim
+  constexpr int NK = BN / 8;  // 8-key steps over a key tile
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [BM][P]
+  float* ks = qs + BM * P;                        // [2][BN][P]
+  float* vs = ks + 2 * BN * P;                    // [2][BN][P]
+
+  const int bh = blockIdx.x;
+  const int b = bh / s.h, h = bh % s.h;
+  const int group = s.h / s.hkv, kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const float* kh = k + b * sk.b + kvh * sk.h;
+  const float* vh = v + b * sv.b + kvh * sv.h;
+  const unsigned hh = b * s.hkv + kvh;
+  const unsigned seed = opt.seed + static_cast<unsigned>(h % group) * GOLDEN;
+
+  int j_lo, j_hi;
+  key_range<BM, BN>(q0, s, opt, &j_lo, &j_hi);
+  load_rows<BM, D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, s.tq, s.d,
+                   vec & kVecQ);
+  load_rows<BN, D>(ks, kh, sk.t, j_lo * BN, s.tk, s.d, vec & kVecK);
+  load_rows<BN, D>(vs, vh, sv.t, j_lo * BN, s.tk, s.d, vec & kVecV);
+  cp_async_commit();
+
+  // this thread's two rows, g and g + 8 of the warp's 16: element e of an
+  // accumulator is row e >> 1
+  const int qa = q0 + r0 + g;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[KD][4];
+#pragma unroll
+  for (int c = 0; c < KD; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int stage = (j - j_lo) & 1;
+    const float* kt = ks + stage * BN * P;
+    const float* vt = vs + stage * BN * P;
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; tile j - 1's stage is free
+    if (j < j_hi) {
+      load_rows<BN, D>(ks + (stage ^ 1) * BN * P, kh, sk.t, (j + 1) * BN,
+                       s.tk, s.d, vec & kVecK);
+      load_rows<BN, D>(vs + (stage ^ 1) * BN * P, vh, sv.t, (j + 1) * BN,
+                       s.tk, s.d, vec & kVecV);
+    }
+    cp_async_commit();
+    const int k0 = j * BN;
+    const int vis = band(q0 + r0, q0 + r0 + 15, k0, k0 + BN - 1, s, opt);
+    if (vis == 0) continue;  // the warp's rows see none of these keys
+
+    // S, its small terms summed apart. Q's A fragment: blocks (rows 0-7,
+    // columns 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7); K's B fragments
+    // of key tiles n and n + 1: (keys 0-7 of n, columns 0-3), (n, 4-7),
+    // (n + 1, 0-3), (n + 1, 4-7)
+    float sc[NK][4], scs[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = scs[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned r[4];
+      ldsm_x4(r, qs + (r0 + (lane & 7) + (lane & 8)) * P + kk * 8 +
+                     (lane >> 4) * 4);
+      FragA qf;
+      qf.set(__uint_as_float(r[0]), __uint_as_float(r[1]),
+             __uint_as_float(r[2]), __uint_as_float(r[3]));
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        ldsm_x4(r, kt + (n * 8 + (lane & 7) + (lane >> 4) * 8) * P + kk * 8 +
+                       (lane & 8) / 2);
+        FragB b0, b1;
+        split_tf32(__uint_as_float(r[0]), b0.h0, b0.l0);
+        split_tf32(__uint_as_float(r[1]), b0.h1, b0.l1);
+        split_tf32(__uint_as_float(r[2]), b1.h0, b1.l0);
+        split_tf32(__uint_as_float(r[3]), b1.h1, b1.l1);
+        mma3s(sc[n], scs[n], qf, b0);
+        mma3s(sc[n + 1], scs[n + 1], qf, b1);
+      }
+    }
+
+    // the online softmax: scaled scores, masked ones -inf; each row's max
+    // and sum meet over the 4 lanes of its quad
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qa + (e & 2) * 4;
+        const int ki = k0 + n * 8 + 2 * t + (e & 1);
+        float x = -INFINITY;
+        if (vis == 2 || visible(qi, ki, s, opt))
+          x = (sc[n][e] + scs[n][e]) * opt.scale;
+        sc[n][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float mn = fmaxf(m[r], mt[r]);
+      alpha[r] = (mn == -INFINITY) ? 1.0f : expf(m[r] - mn);
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[n][e];
+        const float p = (x == -INFINITY) ? 0.0f : expf(x - m[e >> 1]);
+        rs[e >> 1] += p;
+        float pd = p;
+        if (opt.dropout) {
+          const int qi = qa + (e & 2) * 4;
+          const int ki = k0 + n * 8 + 2 * t + (e & 1);
+          pd = keep(hh, qi, ki, s, seed, opt.thresh) ? p * opt.inv : 0.0f;
+        }
+        sc[n][e] = pd;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+
+    // the tile's share of P_d V, V's rows read in the accumulators' column
+    // order, summed apart and added once to the rescaled O
+    float part[KD][4];
+#pragma unroll
+    for (int c = 0; c < KD; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[c][e] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      FragA a;
+      acc_to_a(a, sc[n]);
+#pragma unroll
+      for (int c = 0; c < KD; ++c) {
+        const int at = (n * 8 + 2 * t) * P + c * 8 + g;
+        mma3(part[c], a, split_b(vt, at, at + P));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KD; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c][e] = acc[c][e] * alpha[e >> 1] + part[c][e];
+  }
+  cp_async_wait_all();
+
+  const long long rowa = static_cast<long long>(bh) * s.tq + qa;
+#pragma unroll
+  for (int c = 0; c < KD; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c * 8 + 2 * t + (e & 1);
+      if (qa + (e & 2) * 4 < s.tq && col < s.d)
+        o[(rowa + (e & 2) * 4) * s.d + col] = acc[c][e] / l[e >> 1];
+    }
+  if (t == 0) {
+    if (qa < s.tq) lse[rowa] = m[0] + logf(l[0]);
+    if (qa + 8 < s.tq) lse[rowa + 8] = m[1] + logf(l[1]);
+  }
+}
+
 // dq: one block per (b*H + h, 64-row query tile); warp w owns query rows
 // 16w..16w+15. Loops over the visible 32-key tiles: S = Q K^T and
 // dP = dO V^T into registers, dS = P (dP - D) scale in place, dQ += dS K.
@@ -534,7 +554,7 @@ __device__ __forceinline__ int band(int q_lo, int q_hi, int k_lo, int k_hi,
 // 69,632 bytes at d=64, three blocks an SM, which ran faster on the H100
 // than the dk/dv kernel's shared split planes at two blocks.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, D <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 1)
 attention_backward_dq_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -685,7 +705,7 @@ attention_backward_dq_kernel(const float* __restrict__ q,
 // and low planes (`split_tile`) for its four warps: two blocks an SM at
 // d=64, faster on the H100 than splitting in registers at three.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 attention_backward_dkv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -866,6 +886,12 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     }
 }
 
+// The forward block: Q's [BM][P] rows and two stages of K and V tiles,
+// 52,224 bytes at d=64 (three blocks an SM, as the registers allow).
+template <int D>
+constexpr size_t forward_smem() {
+  return sizeof(float) * (BM + 4 * BN) * pitch<D>();
+}
 // The backward blocks: two resident [BM][P] operands and two stages of two
 // looped [BN][P] ones; in dk/dv also the looped operands' low planes and
 // two stages of lse and delta. 69,632 and 87,552 bytes at d=64: three dq
@@ -895,10 +921,6 @@ int vec_flags(const float* q, const float* k, const float* v,
          (rows16(v, sv) ? kVecV : 0) | (rows16(dout, sdo) ? kVecDO : 0);
 }
 
-template <int D>
-constexpr size_t forward_smem() {
-  return sizeof(float) * (2 * D * SP + TILE * (D + PAD) + TILE * SP);
-}
 // Raises a kernel's dynamic shared-memory limit to what it uses (above the
 // default 48 KB), once per kernel.
 template <typename Kernel>
@@ -921,9 +943,10 @@ cudaError_t launch_forward(const float* q, const float* k, const float* v,
   const size_t bytes = forward_smem<D>();
   cudaError_t err = allow_smem(attention_forward_kernel<D>, bytes, &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(s.b * s.h, (s.tq + TILE - 1) / TILE);
+  const dim3 grid(s.b * s.h, (s.tq + BM - 1) / BM);
   attention_forward_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, o, lse, s, sq, sk, sv, opt);
+      q, k, v, o, lse, s, sq, sk, sv, opt,
+      vec_flags(q, k, v, q, sq, sk, sv, sq));
   return cudaGetLastError();
 }
 
@@ -939,7 +962,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   cudaError_t err = allow_smem(attention_backward_dq_kernel<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.h, (s.tq + BM - 1) / BM);
-  attention_backward_dq_kernel<D><<<grid, BWD_THREADS, bytes, stream>>>(
+  attention_backward_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, delta, dq, s, sq, sk, sv, sdo, opt,
       vec_flags(q, k, v, dout, sq, sk, sv, sdo));
   return cudaGetLastError();
@@ -958,7 +981,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
       allow_smem(attention_backward_dkv_kernel<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.hkv, (s.tk + BM - 1) / BM);
-  attention_backward_dkv_kernel<D><<<grid, BWD_THREADS, bytes, stream>>>(
+  attention_backward_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, s, sq, sk, sv, sdo, opt,
       vec_flags(q, k, v, dout, sq, sk, sv, sdo));
   return cudaGetLastError();

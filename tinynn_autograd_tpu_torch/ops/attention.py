@@ -2,8 +2,8 @@
 VJP, as CUDA kernels on the GPU and their plain PyTorch versions on the CPU.
 
 PyTorch counterpart of the JAX package's ops/attention.py. The forward keeps
-one [64, 64] score tile at a time on chip (online softmax) and writes only O
-and the per-row logsumexp; the backward is the recompute scheme
+one [64, 32] score tile at a time in registers (online softmax) and writes
+only O and the per-row logsumexp; the backward is the recompute scheme
 
     D_i   = sum_d dO_id O_id                 (a torch reduction, outside)
     p_ij  = exp(s_ij - L_i)                  (L = logsumexp, saved forward)
@@ -159,13 +159,16 @@ def _repeat_kv(x, group):
 
 
 def attention_forward_reference(q, k, v, causal, scale, window=None,
-                                dropout_rate=0.0, seed=None):
+                                dropout_rate=0.0, seed=None,
+                                product=torch.matmul):
     """(o [B,H,Tq,d], lse [B,H,Tq,1] f32; float64 for float64 inputs) with
     materialised scores: the kernels' arithmetic in plain PyTorch (the JAX
-    package's ``_fwd_xla``)."""
+    package's ``_fwd_xla``). ``product(a, b)`` forms S = Q K^T and P_d V
+    (a [..., m, k] @ b [..., k, n]); ``tf32.matmul_3xtf32`` there models the
+    kernel's tensor-core arithmetic. The default forms P_d V by einsum."""
     b, h, tq, _ = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    s = _masked_scores(q, k, causal, scale, window)
+    s = _masked_scores(q, k, causal, scale, window, product)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -173,8 +176,10 @@ def attention_forward_reference(q, k, v, causal, scale, window=None,
         keep = _keep_mask(seed or 0, b, h, hkv, tq, tk, dropout_rate,
                           q.device)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-    o = torch.einsum("bhqk,bhkd->bhqd", p,
-                     _repeat_kv(v, h // hkv).to(p.dtype)) / l
+    vx = _repeat_kv(v, h // hkv).to(p.dtype)
+    pv = (torch.einsum("bhqk,bhkd->bhqd", p, vx) if product is torch.matmul
+          else product(p, vx))
+    o = pv / l
     return o.to(q.dtype), m + torch.log(l)
 
 
@@ -242,8 +247,8 @@ def _operands(what, q, k, v, *rest):
     if any(t.device != q.device for t in tensors):
         raise ValueError("%s: operands on different devices" % what)
     if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("%s takes float32 tensors (the kernels run f32 "
-                         "FMA), got %s" % (what, sorted({str(t.dtype)
+        raise ValueError("%s takes float32 tensors (the kernels' f32 "
+                         "contract), got %s" % (what, sorted({str(t.dtype)
                                                          for t in tensors})))
     d = q.shape[-1]
     if d > MAX_HEAD_DIM:

@@ -1,6 +1,6 @@
 """TF32 rounding and the 3xTF32 product in plain PyTorch: the arithmetic of
-the attention backward kernels' tensor-core products (``csrc/attention.cu``),
-so that the CPU tests can hold it.
+the attention kernels' tensor-core products (``csrc/attention.cu``: the
+forward and the backward pair), so that the CPU tests can hold it.
 
 A TF32 value is an f32 whose 13 lowest mantissa bits are zero (10 explicit
 bits of mantissa, f32's exponent). The kernels split each f32 operand x into
