@@ -1,10 +1,25 @@
 #!/usr/bin/env python3
-"""The attention kernels (K4's forward, K4b-d's dq and dk/dv) beside an
-earlier checkout's, on one CUDA card.
+"""This tree's kernels beside an earlier checkout's, on one CUDA card.
 
-Builds a parent checkout's ``csrc/attention.cu`` in the same process as this
-tree's (the C interface is the same) and times the two in turns (this,
-parent, parent, this; CUDA events behind a spin, ``device_us``):
+Builds a parent checkout's kernel source in the same process as this
+tree's, binds it as its wrapper bound it, and times the two in turns
+(this, parent, parent, this; CUDA events).
+
+``--mode k2`` (the default): the whole-epoch kernel (K2; with ranks K6 in
+it), against a parent whose ``csrc/fused_epoch.cu`` has the interface of
+commit 2c17618 (one block a 32x32 tile, no plan; a shim hands it this
+tree's call):
+
+- single-rank K2, a 390-step epoch of the flagship (784-200-100-70-30-10,
+  batch 128, Adam 1e-3, pinned seed-1 weights), and K2 with K6 on 4 ranks
+  of 32 rows, each by CUDA events in turns (this, parent, parent, this,
+  this, parent), then each by phase (block 0's clock, ``phase_ns``), and
+  the plan this tree launches;
+- the flagship's ``Model.train_epoch(fused="auto")`` steps/s with each
+  library, by the host's clock in turns.
+
+``--mode attention``: the attention kernels (K4's forward, K4b-d's dq and
+dk/dv) against a parent's ``csrc/attention.cu`` (the same C interface):
 
 - the forward at config 6b's shape (B 4, H 8, T 2048, d 64, causal), the
   TPU's K4b shape (T 512, causal) and its K4c shape (T 2048, non-causal),
@@ -24,7 +39,8 @@ kernels throughout. Unpack the parent into a git-ignored directory and
 point --parent there:
 
     mkdir -p _parent && git archive <commit> | tar -x -C _parent
-    python3 bench_vs_parent.py --parent _parent   # ~2 min with the builds
+    python3 bench_vs_parent.py --parent _parent   # K2, ~1 min
+    python3 bench_vs_parent.py --parent _parent --mode attention  # ~2 min
 
 Without a CUDA device it exits 1.
 """
@@ -44,28 +60,106 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke as smoke  # noqa: E402
-from tinynn_autograd_tpu_torch.ops import attention, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.models import build_mnist_mlp  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.model import Model  # noqa: E402
+from tinynn_autograd_tpu_torch.nn.optimizer import Adam  # noqa: E402
+from tinynn_autograd_tpu_torch.ops import attention, fused_epoch, kernels  # noqa: E402
+from tinynn_autograd_tpu_torch.utils import seeder  # noqa: E402
+from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  # noqa: E402
 from tinynn_autograd_tpu_torch.utils.timing import device_us  # noqa: E402
 
 SHAPES = ("config6b", "k4b_t512", "k4c_noncausal")
 
 
-def build_parent(root):
-    """The parent checkout's attention library, built into this tree's
-    git-ignored build directory and bound as this tree's wrappers bind
-    theirs."""
-    source = Path(root) / "tinynn_autograd_tpu_torch" / "csrc" / "attention.cu"
-    out = kernels.BUILD_DIR / "libtinynn_parent_attention.so"
+def build_parent(root, name, bind):
+    """The parent checkout's ``csrc/<name>.cu``, built into this tree's
+    git-ignored build directory and bound by ``bind(lib, ctypes)``."""
+    source = Path(root) / "tinynn_autograd_tpu_torch" / "csrc" / (
+        "%s.cu" % name)
+    out = kernels.BUILD_DIR / ("libtinynn_parent_%s.so" % name)
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     proc = subprocess.run(
         kernels.nvcc_command(kernels._find_nvcc(), source, out),
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed building the parent's attention:\n%s"
-                           % proc.stderr)
+        raise RuntimeError("nvcc failed building the parent's %s:\n%s"
+                           % (name, proc.stderr))
     lib = ctypes.CDLL(str(out))
-    attention._bind(lib, ctypes)
+    bind(lib, ctypes)
     return lib
+
+
+def bind_parent_k2(lib, ctypes):
+    """The C interface of 2c17618's fused_epoch.cu."""
+    ptr, i32, u32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                               ctypes.c_float, ctypes.c_longlong)
+    lib.tinynn_fused_epoch.argtypes = (
+        [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(u32),
+         ctypes.POINTER(f32), ctypes.POINTER(ptr)] + [ptr] * 8
+        + [i32, ptr, i64, i64, ptr] + [i32, i32, u32, i32] + [f32] * 6
+        + [i32, i32, i64, ptr, ptr])
+    lib.tinynn_fused_epoch.restype = i32
+    lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.tinynn_fused_epoch_grid.restype = i32
+    lib.tinynn_fused_epoch_table_bytes.argtypes = []
+    lib.tinynn_fused_epoch_table_bytes.restype = i64
+
+
+class ParentFusedEpoch:
+    """The parent's K2 behind this tree's wrapper: it takes the call
+    ``ops/fused_epoch.py`` makes and gives the parent's kernel the
+    arguments it took: four dims and 12 pointers a layer (no row pitch, no
+    weight copy wp; the parent reads the first batch x dout floats of each
+    padded activation buffer as its own [batch, dout] rows), a row-loss
+    scratch and a partial-sum scratch of its own grid, and no plan. The
+    grid query is this tree's (the wrapper plans with it); the table's size
+    is the parent's."""
+
+    def __init__(self, lib, mine):
+        self.lib = lib
+        self.tinynn_fused_epoch_grid = mine.tinynn_fused_epoch_grid
+        self.tinynn_fused_epoch_table_bytes = \
+            lib.tinynn_fused_epoch_table_bytes
+
+    def tinynn_fused_epoch(self, n_ranks, blocks, n_layers, dims, plan, drops,
+                           scales, ptrs, tables, xb, x_pitch, yb, cw,
+                           scalars, losses, partial, partial_len, grads,
+                           n_grad, grad_stride, sync, batch, *rest):
+        dims4 = [dims[5 * l + i] for l in range(n_layers) for i in range(4)]
+        if x_pitch != dims4[0]:
+            raise ValueError("the parent takes unpadded inputs")
+        ptrs12 = [ptrs[13 * j + i] for j in range(len(ptrs) // 13)
+                  for i in range(12)]
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        self.lib.tinynn_fused_epoch_grid(ctypes.byref(per_sm),
+                                         ctypes.byref(sms))
+        row_loss = torch.empty((n_ranks, batch), device="cuda")
+        own_partial = torch.empty(per_sm.value * sms.value, device="cuda")
+        # the scratch stays alive until the launch is queued; later work on
+        # the stream may reuse it
+        return self.lib.tinynn_fused_epoch(
+            n_ranks, n_layers, (ctypes.c_int * len(dims4))(*dims4), drops,
+            scales, (ctypes.c_void_p * len(ptrs12))(*ptrs12), tables, xb, yb,
+            cw, scalars, losses, row_loss.data_ptr(), own_partial.data_ptr(),
+            own_partial.numel(), grads, n_grad, grad_stride, sync, batch,
+            *rest)
+
+
+class parent_k2:
+    """Within it, ``fused_epoch``'s wrappers launch the parent's K2."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        fused_epoch.kernel_grid()  # this tree's library, loaded
+        self.saved = kernels._loaded["fused_epoch"]
+        kernels._loaded["fused_epoch"] = ParentFusedEpoch(self.lib,
+                                                          self.saved)
+
+    def __exit__(self, *exc):
+        kernels._loaded["fused_epoch"] = self.saved
 
 
 class uses:
@@ -184,6 +278,105 @@ def bench_pair(libs, device):
         torch.cuda.empty_cache()
 
 
+def by_phase(what, names, run, device, n_steps):
+    phase_ns = torch.zeros(len(names), dtype=torch.int64, device=device)
+    run(phase_ns=phase_ns)
+    per_step = phase_ns.cpu().numpy() / 1e3 / n_steps
+    print("  %s by phase, us/step: " % what
+          + ", ".join("%s %.2f" % (name, t) for name, t in
+                      zip(names, per_step))
+          + "; sum %.2f" % per_step.sum())
+
+
+def bench_epochs(lib, device):
+    steps = smoke.EPOCH_STEPS
+    print("== single-rank K2 and K2 with K6 (%d ranks of %d rows): a %d-step "
+          "epoch of the flagship, this tree's kernel and the parent's in "
+          "turns" % (smoke.DP_RANKS, smoke.DP_LOCAL, steps))
+    with seeder.scope(1):
+        net = build_mnist_mlp().to(device)
+    opt = Adam(1e-3)
+    spec = fused_epoch.epoch_spec(net, opt)
+    (x, y), _ = synthetic_mnist(steps * smoke.BATCH, 10)
+    xg = torch.from_numpy(x).to(device).reshape(steps, smoke.BATCH, 784)
+    yg = torch.from_numpy(one_hot(y)).to(device).reshape(steps, smoke.BATCH,
+                                                          10)
+    xe, ye = smoke.rank_shards(xg, yg)
+    se = torch.from_numpy(opt.step_scalars(0, steps)).to(device)
+    states = [smoke.fresh_state(net, opt) for _ in range(smoke.DP_RANKS)]
+    params = [fused_epoch.dense_leaves(net, p) for p, _ in states]
+    slots = [{k: fused_epoch.dense_leaves(net, v) for k, v in s.items()}
+             for _, s in states]
+    one = smoke.fresh_state(net, opt)
+    pairs = (fused_epoch.dense_leaves(net, one[0]),
+             {k: fused_epoch.dense_leaves(net, v) for k, v in one[1].items()})
+
+    def single(**kw):
+        fused_epoch.cuda_fused_epoch(spec, *pairs, xg, yg, se, **kw)
+
+    def ranked(**kw):
+        fused_epoch.cuda_fused_epoch_ranks(spec, params, slots, xe, ye, se,
+                                           **kw)
+
+    def parents(fn):
+        def run(**kw):
+            with parent_k2(lib):
+                fn(**kw)
+        return run
+
+    for what, fn, n_ranks, batch in (
+            ("single-rank K2", single, 1, smoke.BATCH),
+            ("K2 with K6", ranked, smoke.DP_RANKS, smoke.DP_LOCAL)):
+        fn()  # warm-up
+        parents(fn)()
+        # in turns: mine, parent's, parent's, mine, mine, parent's
+        t = [smoke.epoch_ms(f, 3) for f in (fn, parents(fn), parents(fn),
+                                            fn, fn, parents(fn))]
+        mine, theirs = [t[i] for i in (0, 3, 4)], [t[i] for i in (1, 2, 5)]
+        print("%s: this tree's %.3f ms (%.2f us/step; turns %s), the "
+              "parent's %.3f ms (%.2f us/step; turns %s): %.2fx faster"
+              % (what, np.mean(mine), 1e3 * np.mean(mine) / steps,
+                 ", ".join("%.3f" % v for v in mine), np.mean(theirs),
+                 1e3 * np.mean(theirs) / steps,
+                 ", ".join("%.3f" % v for v in theirs),
+                 np.mean(theirs) / np.mean(mine)))
+        print("  " + smoke.plan_line(spec, batch, n_ranks))
+        names = fused_epoch.phase_names(spec, n_ranks)
+        for side, run in (("this tree's", fn), ("the parent's", parents(fn))):
+            by_phase("%s, %s" % (what, side), names, run, device, steps)
+
+
+def bench_train_epoch(lib, device):
+    print("== the flagship's Model.train_epoch(fused='auto'): this tree's "
+          "K2 and the parent's in turns (the host's clock)")
+    seeder.random_seed(0)
+    (train_x, train_y), _ = synthetic_mnist()
+    model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(), Adam(1e-3),
+                  device=device)
+    x_dev, y_dev = model.stage(train_x, one_hot(train_y))
+    steps = len(train_x) // smoke.BATCH
+
+    def mine():
+        model.train_epoch(x_dev, y_dev, batch_size=smoke.BATCH)
+
+    def parents():
+        with parent_k2(lib):
+            mine()
+
+    mine()  # warm-up
+    parents()
+    # in turns: mine, parent's, parent's, mine, mine, parent's
+    t = [wall_s(f, 1) for f in (mine, parents, parents, mine, mine,
+                                parents)]
+    this_t, parent_t = [t[i] for i in (0, 3, 4)], [t[i] for i in (1, 2, 5)]
+    print("train_epoch: this tree's %.1f steps/s (turns %s), the parent's "
+          "%.1f steps/s (turns %s)"
+          % (steps / np.mean(this_t),
+             ", ".join("%.1f" % (steps / x) for x in this_t),
+             steps / np.mean(parent_t),
+             ", ".join("%.1f" % (steps / x) for x in parent_t)))
+
+
 def wall_s(fn, reps):
     """Seconds a call of ``fn``, by the host's clock over ``reps`` calls
     between two ``torch.cuda.synchronize``."""
@@ -229,6 +422,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True,
                         help="root of the parent checkout (git archive)")
+    parser.add_argument("--mode", choices=("k2", "attention"), default="k2",
+                        help="the kernel to compare (default k2)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
@@ -237,16 +432,23 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     print(smoke.card_line())
+    name, bind = (("fused_epoch", fused_epoch._bind) if args.mode == "k2"
+                  else ("attention", attention._bind))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        mine = pool.submit(kernels.load_library, "attention", attention._bind)
-        parent = pool.submit(build_parent, args.parent)
+        mine = pool.submit(kernels.load_library, name, bind)
+        parent = pool.submit(build_parent, args.parent, name,
+                             bind_parent_k2 if args.mode == "k2" else bind)
         libs = {"this": mine.result(), "parent": parent.result()}
-    print("built this tree's and the parent's attention in %.2f s (one nvcc "
-          "each, in parallel)" % (time.perf_counter() - t0))
-    bench_forward(libs, device)
-    bench_pair(libs, device)
-    bench_6b(libs, device)
+    print("built this tree's and the parent's %s in %.2f s (one nvcc each, "
+          "in parallel)" % (name, time.perf_counter() - t0))
+    if args.mode == "k2":
+        bench_epochs(libs["parent"], device)
+        bench_train_epoch(libs["parent"], device)
+    else:
+        bench_forward(libs, device)
+        bench_pair(libs, device)
+        bench_6b(libs, device)
     return 0
 
 

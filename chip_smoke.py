@@ -30,12 +30,13 @@ sharing the card, global batch 128) runs through K2 with its gradient ring
 (K6, csrc/fused_epoch.cu with csrc/ring.cuh, one all-rank exchange a
 step); P3, the ring all-reduce alone (csrc/ring_allreduce.cu), at the JAX
 test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
-(bench_vs_parent.py times K1, P3 and K2 beside an older checkout's.)
+(bench_vs_parent.py times K2, or the attention kernels, beside an older
+checkout's; bench_k2_plans.py times K2 under other launch plans.)
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build: compiles the nine libraries from csrc/ (one nvcc each, started
    together; sm_90a) and prints each kernel's registers, shared memory and
-   spills.
+   spills, and the clusters K2 may take.
 3. kernel vs plain: K1's tile configurations hold the blocks an SM that
    ``MATMUL_TILES`` says. K1 against ``matmul_reference`` on the card at
    every shape the main paths give it (the 14 products of a flagship train
@@ -56,8 +57,9 @@ test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
    atol 1e-6), parameters, Adam slots and the step count (rtol 1e-4, atol
    1e-5); a second run from the same state must give bit-identical losses;
    under bf16 matmul precision losses within rtol 1e-3 that differ from the
-   f32 run. Then both times at the main path's shape, a 390-step epoch,
-   and the kernel's time in each of its phases.
+   f32 run (a bf16 epoch sums each product in one K slice). Then both
+   times at the main path's shape, a 390-step epoch, the plan, and the
+   kernel's time in each of its phases.
 4a. dropout pass vs plain: P1 against ``dropout_reference`` bit for bit at
    tpu_check's 256x256 tile (seeds 1 and 2), the flagship's [128, 200] and
    6b's [4, 2048, 512] (a seed past the int32 wrap); tpu_check's
@@ -128,8 +130,9 @@ test's shape and the flagship's gradients over 2, 3, 4 and 16 ranks.
    every rank's losses and state at K2's gates, a rerun and a rerun with
    rank 1 held back bit-identical; one rank through the ranked wrapper
    bit for bit with K2; the kernel's and the plain version's ms for a
-   390-step epoch of 4 ranks, the kernel's time by phase (the ring's
-   us/step: the all-rank arrival and the pass) beside its bound. Then the
+   390-step epoch of 4 ranks, its plan, the kernel's time by phase (the
+   ring's us/step: the all-rank arrival and the pass) beside its bound.
+   Then the
    main path: ``DataParallel(Model(build_mnist_mlp(),
    ...), mesh=make_mesh(devices=[cuda] * 4)).train_epochs(fused="auto")``
    from seed 0 on synthetic MNIST 50,000/10,000: one ranked K2 launch an
@@ -849,6 +852,7 @@ def check_fused_epoch(device):
           % (EPOCH_STEPS, ms, 1e3 * ms / EPOCH_STEPS, k1, k2, plain_ms, p1, p2,
              bound_ms, bound_by, 100.0 * bound_ms / ms))
     # where the time goes: block 0's clock at each barrier, one more epoch
+    print(plan_line(spec, BATCH))
     phase_ns = torch.zeros(2 * len(spec.layers) + 2, dtype=torch.int64,
                            device=device)
     fused_epoch.cuda_fused_epoch(spec, *pairs, xe, ye, se, phase_ns=phase_ns)
@@ -858,6 +862,19 @@ def check_fused_epoch(device):
                       zip(fused_epoch.phase_names(spec), per_step))
           + "; sum %.2f" % per_step.sum())
     return worst, ms, plain_ms, spec, per_step[-1]
+
+
+def plan_line(spec, batch, n_ranks=1):
+    """The plan K2 launches for ``spec`` at ``batch`` rows a rank: each
+    layer's K-splits (forward, dW, dh), the cluster size, the blocks a rank
+    and the co-resident blocks."""
+    plan = fused_epoch.epoch_plan(spec, batch, n_ranks)
+    grid = fused_epoch.kernel_grid(n_ranks > 1)
+    return ("plan at %d rows a rank, %d rank%s: K-splits (forward, dW, dh) "
+            "%s; clusters of %d, %d blocks a rank of %d co-resident"
+            % (batch, n_ranks, "" if n_ranks == 1 else "s",
+               " ".join("%d/%d/%d" % s for s in plan.splits), plan.cluster,
+               plan.blocks, grid.clusters * grid.cluster))
 
 
 def eager_step(model, xb, yb):
@@ -3260,6 +3277,7 @@ def check_k6(device, k2_ms):
              k2, plain_ms, p1, p2, k2_ms, bound_ms, bound_by,
              100.0 * bound_ms / ms))
     names = fused_epoch.phase_names(spec, DP_RANKS)
+    print("  " + plan_line(spec, DP_LOCAL, DP_RANKS))
     phase_ns = torch.zeros(len(names), dtype=torch.int64, device=device)
     kernel(phase_ns=phase_ns)
     per_step = phase_ns.cpu().numpy() / 1e3 / EPOCH_STEPS
@@ -3416,9 +3434,13 @@ def main():
                 print("    ptxas: %s" % line.split("'")[1][-60:])
             elif "registers" in line or "spill" in line:
                 print("    ptxas: %s" % line.strip())
-    per_sm, sms = fused_epoch.kernel_grid()
-    print("fused_epoch grid: %d blocks/SM x %d SMs = %d blocks of 256 threads"
-          % (per_sm, sms, per_sm * sms))
+    for ranked in (False, True):
+        grid = fused_epoch.kernel_grid(ranked)
+        print("fused_epoch grid%s: %d clusters of %d blocks of 256 threads "
+              "co-resident = %d blocks (%d blocks/SM x %d SMs = %d)"
+              % (" (ranked)" if ranked else "", grid.clusters, grid.cluster,
+                 grid.clusters * grid.cluster, grid.blocks_per_sm, grid.sms,
+                 grid.blocks_per_sm * grid.sms))
 
     phase("kernel vs plain")
     k1_err, k1_ms, k1_plain_ms = check_kernel(device)

@@ -315,6 +315,86 @@ def test_cuda_fused_epoch_matches_reference_at_flagship_width():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan_name", ["default", "single_slice"])
+def test_cuda_fused_epoch_holds_under_its_plan_and_single_slices(plan_name):
+    # K2 under the plan it launches (K split across a cluster's blocks) and
+    # under one forced to one K slice a product: both within the gates of
+    # the plain version in its default order of sums, so the split is not
+    # what keeps the numbers in
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, opt, spec, xb, yb, scalars = _flagship_epoch(dev, 10)
+    plan = fused_epoch.epoch_plan(spec, 128)
+    if plan_name == "default":
+        assert max(max(split) for split in plan.splits) > 1
+    else:
+        plan = fused_epoch.plan_epoch(spec.layers, 128, plan.blocks,
+                                      max_split=1)
+    (kp, ks), (rp, rs) = _state(net, opt), _state(net, opt)
+    got = fused_epoch.cuda_fused_epoch(spec, kp, ks, xb, yb, scalars,
+                                       plan=plan)
+    torch.cuda.synchronize()
+    ref = fused_epoch.fused_epoch_reference(spec, rp, rs, xb, yb, scalars)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    pairs = list(zip(kp, rp)) + [
+        pair for k in ("m", "v") for pair in zip(ks[k], rs[k])]
+    for i, (a, b) in enumerate(pairs):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg="leaf pair %d" % i)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_matches_reference_at_ragged_widths():
+    # inputs of 30 features (rows padded to 32 for the 16-byte copies),
+    # widths 20 and 5 (the kernel's copies of w and its activations padded
+    # to whole float4s), Tanh and a class-weighted loss: K2 against its
+    # plain version at K2's gates
+    from tinynn_autograd_tpu_torch.nn import layers
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.net import Net
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.utils import seeder
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with seeder.scope(3):
+        net = Net([layers.Dense(20, num_in=30), layers.Tanh(),
+                   layers.Dense(5, num_in=20)])
+    net.to(dev)
+    opt = Adam(1e-3)
+    spec = fused_epoch.epoch_spec(net, opt)
+    rng = np.random.RandomState(0)
+    n_steps, batch = 5, 24
+    xb = torch.from_numpy(rng.randn(n_steps, batch, 30).astype(np.float32))
+    yb = torch.from_numpy(np.eye(5, dtype=np.float32)[
+        rng.randint(0, 5, (n_steps, batch))])
+    weight = torch.tensor([0.5, 1.0, 1.5, 2.0, 1.0], device=dev)
+    xb, yb = xb.to(dev), yb.to(dev)
+    scalars = torch.from_numpy(opt.step_scalars(0, n_steps)).to(dev)
+    (kp, ks), (rp, rs) = _state(net, opt), _state(net, opt)
+    got = fused_epoch.cuda_fused_epoch(spec, kp, ks, xb, yb, scalars,
+                                       class_weight=weight)
+    torch.cuda.synchronize()
+    ref = fused_epoch.fused_epoch_reference(spec, rp, rs, xb, yb, scalars,
+                                            class_weight=weight)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    pairs = list(zip(kp, rp)) + [
+        pair for k in ("m", "v") for pair in zip(ks[k], rs[k])]
+    for i, (a, b) in enumerate(pairs):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg="leaf pair %d" % i)
+
+
+@pytest.mark.cuda
 def test_cuda_auto_epoch_is_one_fused_launch():
     from tinynn_autograd_tpu_torch.models import build_mnist_mlp
     from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss

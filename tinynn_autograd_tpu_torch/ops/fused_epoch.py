@@ -32,6 +32,15 @@ features]) asks for ranks: the parameters and slots are then lists with one
 entry per rank, and the losses [n_ranks, n_steps] each rank's mean over
 its shard.
 
+Each product of a step (a layer's forward, its weight gradient dW with db,
+and the input gradient dh) runs on the card as a plan says: ``plan_epoch``
+picks the clusters a rank takes and gives each product a K-split, the
+blocks of a thread block cluster that share one output tile, each summing
+a slice of whole 32-deep stages of K before the slices are added in order
+(a cost model in plain Python, so the CPU tests check it). The plain
+version takes the same plan (``plan=``), and then sums each product slice
+by slice in that order; by default it sums each product at once.
+
 - ``supports``: can the kernel run this (net, optimizer, loss)?
 - ``build_fused_epoch``: ``epoch_fn(params, slots, t0, xb, yb) -> (t,
   losses)``. The parameters and slots are the model's own tensors, updated
@@ -41,6 +50,8 @@ its shard.
 - ``epoch_spec``: what the kernel is told about the net and the optimizer.
 - ``fused_epoch_reference``: the plain PyTorch version, the same arithmetic
   layer by layer (not through the tape). For CPU tensors and the tests.
+- ``plan_epoch``, ``k_slices``, ``grad_layout``: the launch's plan, its
+  K slices and the layout of the gradient rows, in plain Python.
 - ``cuda_fused_epoch``: the kernel's wrapper. It launches or raises, never
   falls back; ``cuda_fused_epoch.launches`` counts its launches.
 - ``cuda_fused_epoch_ranks``: the ranked kernel's wrapper (K2 with K6), the
@@ -49,6 +60,7 @@ its shard.
 
 import dataclasses
 import numbers
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -75,6 +87,30 @@ MAX_LAYERS = 16  # MAX_LAYERS in csrc/fused_epoch.cu
 # (The TPU kernel's VMEM budget of 6 MB is a TPU figure and does not apply.)
 STATE_BUDGET = 24 * 1024 * 1024
 RANK_SEED_STRIDE = 7919  # kRankSeedStride in csrc/hash.cuh
+STAGE = 32    # BK in csrc/fused_epoch.cu: the depth of a K stage
+TILE = 32     # TILE: the edge of an output tile
+CLUSTER = 8   # CLUSTER: the blocks of a cluster, the largest K-split
+
+# The plan's cost model, in microseconds of a phase on the H100, for
+# ranking plans (fitted to the flagship's phases by phase_ns and to its
+# epochs under other plans, bench_k2_plans.py): a round's copies,
+# the k-groups' sums and the epilogue; one 32-deep stage of products; a
+# split's partial rows and cluster barrier; the barrier that ends a phase,
+# which grows with the blocks that arrive at it; and the optimizer's pass
+# over two float4 units a thread.
+_PLAN_LOAD_US = 3.0
+_PLAN_STAGE_US = 0.5
+_PLAN_REDUCE_US = 1.5
+_PLAN_BARRIER_US = 0.5
+_PLAN_BARRIER_BLOCK_US = 0.012
+_PLAN_UPDATE_US = 2.0
+THREADS = 256  # THREADS in csrc/fused_epoch.cu: a block's threads
+
+# What a launch runs: each Dense layer's K-splits of its forward, dW and dh
+# products, the blocks of a cluster, and the blocks a rank takes (whole
+# clusters).
+EpochPlan = namedtuple("EpochPlan", "splits cluster blocks")
+KernelGrid = namedtuple("KernelGrid", "clusters cluster blocks_per_sm sms")
 
 
 def rank_step(t, rank):
@@ -320,6 +356,117 @@ def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
 
 
 # --------------------------------------------------------------------------
+# the plan
+# --------------------------------------------------------------------------
+
+def _stages(k):
+    return -(-int(k) // STAGE)
+
+
+def k_slices(k, split):
+    """The ``split`` K slices of a product over K = ``k``, as (k0, k1): whole
+    32-deep stages, as evenly as they go (slice j takes stages j s / split
+    to (j + 1) s / split of the s stages), the last cut at k. None is empty
+    where ``split`` is at most the stages. ``slice_of`` in
+    csrc/fused_epoch.cu."""
+    stages = _stages(k)
+    if not 1 <= split <= stages:
+        raise ValueError("%d slices of %d stages" % (split, stages))
+    return [(STAGE * (j * stages // split),
+             min(k, STAGE * ((j + 1) * stages // split)))
+            for j in range(split)]
+
+
+def _tiles(m, n):
+    return -(-m // TILE) * -(-n // TILE)
+
+
+def _phase_cost(jobs, group, n_clusters, cluster):
+    """Microseconds the cost model gives a phase whose products ``jobs``
+    ((m, n, k) each) share clusters in groups of ``group`` blocks."""
+    slots = n_clusters * (cluster // group)
+    rounds = -(-sum(_tiles(m, n) for m, n, _ in jobs) // slots)
+    deepest = max(-(-_stages(k) // min(group, _stages(k)))
+                  for _, _, k in jobs)
+    return rounds * (_PLAN_LOAD_US + deepest * _PLAN_STAGE_US
+                     + (_PLAN_REDUCE_US if group > 1 else 0.0))
+
+
+def _best_group(jobs, n_clusters, cluster, max_split):
+    """The group (the phase's largest split) of least cost; the smaller on
+    a tie. A group past every product's stages gains nothing."""
+    top = min(max_split, cluster, max(_stages(k) for _, _, k in jobs))
+    return min(range(1, top + 1),
+               key=lambda g: (_phase_cost(jobs, g, n_clusters, cluster), g))
+
+
+def _plan_at(layers, batch, n_clusters, cluster, max_split, n_ranks):
+    """(the cost model's microseconds a step, the splits) of a launch of
+    ``n_clusters`` clusters a rank on each of ``n_ranks`` ranks."""
+    splits, cost = [], 0.0
+    for l, (d_in, d_out) in enumerate((int(a), int(b)) for a, b, *_ in layers):
+        fwd = [(batch, d_out, d_in)]
+        g_fwd = _best_group(fwd, n_clusters, cluster, max_split)
+        jobs = [(d_in + 1, d_out, batch)]
+        if l > 0:
+            jobs.append((batch, d_in, d_out))
+        group = _best_group(jobs, n_clusters, cluster, max_split)
+        cost += (_phase_cost(fwd, g_fwd, n_clusters, cluster)
+                 + _phase_cost(jobs, group, n_clusters, cluster))
+        splits.append((g_fwd, min(group, _stages(batch)),
+                       min(group, _stages(d_out)) if l > 0 else 1))
+    blocks = n_clusters * cluster
+    units = grad_layout(layers)[1] // 4
+    cost += _PLAN_UPDATE_US * -(-units // (2 * blocks * THREADS))
+    cost += (2 * len(layers) + 2) * (
+        _PLAN_BARRIER_US + _PLAN_BARRIER_BLOCK_US * n_ranks * blocks)
+    return cost, tuple(splits)
+
+
+def plan_epoch(layers, batch, blocks, cluster=CLUSTER, max_split=CLUSTER,
+               n_ranks=1):
+    """The launch of a rank that may take up to ``blocks`` co-resident
+    blocks (whole clusters of ``cluster``) at ``batch`` rows a rank, one of
+    ``n_ranks``, for the Dense layers ``layers`` ((d_in, d_out, ...) each,
+    as ``EpochSpec.layers``): how many clusters it takes and each
+    product's K-split.
+
+    A step's phases run their products on the rank's clusters: the forward
+    of layer l ([batch, d_in] @ [d_in, d_out]) alone, its backward [dW; db]
+    ([d_in + 1, batch] @ [batch, d_out]) with, but for the first layer, dh
+    ([batch, d_out] @ [d_out, d_in]). Each phase takes the group (its
+    largest split, at most ``max_split`` and the cluster) that the cost
+    model ranks first: 32x32 tiles, one a group of each cluster a round;
+    a product's own split is the group cut at its K's stages. The clusters
+    are those of least modelled step time: more clusters give the products
+    more blocks, but every phase's barrier waits for all of them (the
+    ranks' barriers share the card's L2, so the model counts every rank's
+    blocks). Returns an ``EpochPlan``."""
+    most = int(blocks) // cluster
+    if most < 1:
+        raise ValueError("%d blocks hold no cluster of %d" % (blocks, cluster))
+    n_clusters = min(range(1, most + 1), key=lambda n: (_plan_at(
+        layers, batch, n, cluster, max_split, n_ranks)[0], n))
+    _, splits = _plan_at(layers, batch, n_clusters, cluster, max_split,
+                         n_ranks)
+    return EpochPlan(splits, cluster, n_clusters * cluster)
+
+
+def grad_layout(layers):
+    """Where each Dense layer's dW and db start in a rank's row of the
+    gradients, [(w offset, b offset)], and the floats the row uses: the
+    leaves in order w0, b0, w1, ..., each starting on a whole float4 (the
+    kernel's optimizer loads four floats at a time)."""
+    offsets, at = [], 0
+    for d_in, d_out, *_ in layers:
+        w_at = at
+        at += -(-int(d_in) * int(d_out) // 4) * 4
+        offsets.append((w_at, at))
+        at += -(-int(d_out) // 4) * 4
+    return offsets, at
+
+
+# --------------------------------------------------------------------------
 # plain version
 # --------------------------------------------------------------------------
 
@@ -384,14 +531,31 @@ def apply_rule(spec, p, g, slots, s0, s1):
     p.add_(step)
 
 
-def _rank_step(spec, params, x, y, t, mm, class_weight):
+def _sliced(mm, a, b, split):
+    """a @ b, or with ``split`` the products of its K slices added in
+    order."""
+    if split is None:
+        return mm(a, b)
+    out = None
+    for k0, k1 in k_slices(a.shape[1], split):
+        part = mm(a[:, k0:k1], b[k0:k1])
+        out = part if out is None else out + part
+    return out
+
+
+def _rank_step(spec, params, x, y, t, mm, class_weight, splits=None):
     """One rank's forward, loss and backward in the step whose Dropout seed
-    step is ``t``: (the loss, [(gw, gb)] per Dense)."""
+    step is ``t``: (the loss, [(gw, gb)] per Dense). With ``splits`` (a
+    plan's, per Dense (forward, dW, dh)) each product is summed slice by
+    slice."""
     batch = x.shape[0]
     acts = [layer[2] for layer in spec.layers]
+    if splits is None:
+        splits = [(None, None, None)] * len(params)
     ins, zs, hs, masks = [x], [], [], []
-    for (_, _, act, rate, idx), (w, b) in zip(spec.layers, params):
-        zs.append(mm(ins[-1], w) + b)
+    for (_, _, act, rate, idx), (w, b), split in zip(spec.layers, params,
+                                                     splits):
+        zs.append(_sliced(mm, ins[-1], w, split[0]) + b)
         hs.append(_activate(act, zs[-1]))
         mask = None
         out = hs[-1]
@@ -415,9 +579,17 @@ def _rank_step(spec, params, x, y, t, mm, class_weight):
     # backward: every gradient before any weight changes
     grads = [None] * len(params)
     for l in reversed(range(len(params))):
-        grads[l] = (mm(ins[l].T, dz), dz.sum(dim=0, keepdim=True))
+        _, dw_split, dh_split = splits[l]
+        if dw_split is None:
+            gb = dz.sum(dim=0, keepdim=True)
+        else:  # the kernel's row of ones: db summed with dW's slices
+            gb = None
+            for k0, k1 in k_slices(batch, dw_split):
+                part = dz[k0:k1].sum(dim=0, keepdim=True)
+                gb = part if gb is None else gb + part
+        grads[l] = (_sliced(mm, ins[l].T, dz, dw_split), gb)
         if l > 0:
-            g = mm(dz, params[l][0].T)
+            g = _sliced(mm, dz, params[l][0].T, dh_split)
             if masks[l - 1] is not None:
                 scale = dropout.keep_scale(spec.layers[l - 1][3])[1]
                 g = torch.where(masks[l - 1], g * scale, 0.0)
@@ -441,7 +613,7 @@ def _ring_mean(rank_grads):
 
 
 def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
-                          class_weight=None, bf16=False, t0=0):
+                          class_weight=None, bf16=False, t0=0, plan=None):
     """The kernel's function in plain PyTorch: ``params`` ([(w, b)] per
     Dense) and ``slots`` ({name: [(w, b)]} for each of the rule's slots)
     are updated in place over the ``n_steps`` steps of ``xb`` [n_steps, B,
@@ -458,7 +630,13 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
     rank takes its gradients on its shard (Dropout seeds from ``rank_step``),
     then every leaf is summed round the ring and multiplied by 1/n (with
     more than one rank), then each rank clips and applies the rule to its
-    own replica."""
+    own replica.
+
+    ``plan`` (an ``EpochPlan``, None by default) sums each product as the
+    kernel's launch of that plan does: its K slices one after another, in
+    order, db with dW's slices. Without it each product is summed at
+    once."""
+    splits = None if plan is None else plan.splits
     if bf16:
         def mm(a, b):
             return kernels.matmul_reference(a.to(torch.bfloat16).float(),
@@ -477,7 +655,7 @@ def fused_epoch_reference(spec, params, slots, xb, yb, scalars,
         for r in range(n_ranks):
             losses[r, s], grads = _rank_step(
                 spec, params[r], xb[r, s], yb[r, s], rank_step(t, r), mm,
-                class_weight)
+                class_weight, splits)
             rank_grads.append(grads)
         if n_ranks > 1:
             rank_grads = _ring_mean(rank_grads)
@@ -508,28 +686,51 @@ def _bind(lib, ctypes):
     ptr, i32, u32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_float, ctypes.c_longlong)
     lib.tinynn_fused_epoch.argtypes = (
-        [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(u32),
-         ctypes.POINTER(f32), ctypes.POINTER(ptr)] + [ptr] * 8
-        + [i32, ptr, i64, i64, ptr] + [i32, i32, u32, i32] + [f32] * 6
-        + [i32, i32, i64, ptr, ptr])
+        [i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),
+         ctypes.POINTER(u32), ctypes.POINTER(f32), ctypes.POINTER(ptr), ptr,
+         ptr, i32] + [ptr] * 5 + [i32, ptr, i64, i64, ptr]
+        + [i32, i32, u32, i32] + [f32] * 6 + [i32, i32, i64, ptr, ptr])
     lib.tinynn_fused_epoch.restype = i32
-    lib.tinynn_fused_epoch_grid.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.tinynn_fused_epoch_grid.argtypes = [i32] + [ctypes.POINTER(i32)] * 4
     lib.tinynn_fused_epoch_grid.restype = i32
     lib.tinynn_fused_epoch_table_bytes.argtypes = []
     lib.tinynn_fused_epoch_table_bytes.restype = i64
 
 
-def kernel_grid():
-    """(co-resident blocks per SM, SMs): the launch's grid on the current
-    CUDA device. With n ranks each takes blocks per SM x SMs // n."""
+def kernel_grid(ranked=False):
+    """The launch's grid on the current CUDA device, for the one-rank
+    kernel or (``ranked``) the ranked one: a ``KernelGrid`` of the clusters
+    the card holds at once, the blocks a cluster, the blocks an SM holds
+    and the SMs. With n ranks each takes clusters // n clusters."""
     import ctypes
 
     lib = kernels.load_library("fused_epoch", _bind)
-    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.tinynn_fused_epoch_grid(ctypes.byref(per_sm), ctypes.byref(sms))
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.tinynn_fused_epoch_grid(int(bool(ranked)),
+                                      *[ctypes.byref(v) for v in out])
     if err != 0:
         raise RuntimeError("occupancy query failed: CUDA error %d" % err)
-    return per_sm.value, sms.value
+    return KernelGrid(*[v.value for v in out])
+
+
+def epoch_plan(spec, batch, n_ranks=1, bf16=False):
+    """The plan ``cuda_fused_epoch`` (``n_ranks`` 1) or
+    ``cuda_fused_epoch_ranks`` launches for ``spec`` at ``batch`` rows a
+    rank on the current CUDA device: ``plan_epoch`` within a rank's share
+    of the clusters the card holds. A bf16 epoch sums each product in one K
+    slice: splitting K changes the order of the f32 sums that the next
+    product rounds to bf16, a flipped rounding moves an operand by 2^-8,
+    and Adam's first, sign-like steps carry that into lr-sized steps, so
+    the bf16 losses of two orders of sums can part past the bf16 hold's
+    tolerance within the flagship's 10 pinned steps (PERF.md §6)."""
+    grid = kernel_grid(n_ranks > 1)
+    blocks = grid.clusters // n_ranks * grid.cluster
+    if blocks < grid.cluster:
+        raise RuntimeError("the card holds %d clusters of %d blocks: none "
+                           "for each of %d ranks"
+                           % (grid.clusters, grid.cluster, n_ranks))
+    return plan_epoch(spec.layers, batch, blocks, grid.cluster,
+                      max_split=1 if bf16 else grid.cluster, n_ranks=n_ranks)
 
 
 def _check(name, t, device, shape):
@@ -554,19 +755,22 @@ def phase_names(spec, n_ranks=1):
 
 
 def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
-                     class_weight=None, bf16=False, t0=0, phase_ns=None):
+                     class_weight=None, bf16=False, t0=0, phase_ns=None,
+                     plan=None):
     """``fused_epoch_reference``'s function through the hand-written CUDA
     kernel (K2): one cooperative launch for the whole epoch, ``params`` and
     ``slots`` updated in place. Every tensor is a contiguous float32 CUDA
     tensor on one device. ``phase_ns``, an int64 CUDA tensor with one entry
     per ``phase_names(spec)``, accumulates block 0's time in each phase,
-    barrier wait included (a trace; None turns it off). Raises on anything
-    the kernel does not take and when the launch fails; never computes the
-    epoch another way. ``cuda_fused_epoch.launches`` counts its launches."""
+    barrier wait included (a trace; None turns it off). ``plan`` (an
+    ``EpochPlan``; None: ``epoch_plan``'s, one K slice a product with
+    ``bf16``) sets the products' K-splits and the blocks. Raises on anything the kernel does not take and when the
+    launch fails; never computes the epoch another way.
+    ``cuda_fused_epoch.launches`` counts its launches."""
     if xb.ndim != 3 or yb.ndim != 3:
         raise ValueError("xb and yb must be [n_steps, batch, features]")
     losses = _launch(spec, [params], [slots], xb[None], yb[None], scalars,
-                     class_weight, bf16, t0, phase_ns, None)
+                     class_weight, bf16, t0, phase_ns, None, plan)
     cuda_fused_epoch.launches += 1
     return losses[0]
 
@@ -576,7 +780,7 @@ cuda_fused_epoch.launches = 0
 
 def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
                            class_weight=None, bf16=False, t0=0,
-                           phase_ns=None, skew=None):
+                           phase_ns=None, skew=None, plan=None):
     """The ranked kernel (K2 with K6, the data-parallel megakernel): one
     cooperative launch in which each of n ranks runs the epoch on its shard
     of ``xb`` [n_ranks, n_steps, batch, features] (``yb`` likewise) with its
@@ -585,13 +789,14 @@ def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
     step. Returns the losses [n_ranks, n_steps]. ``phase_ns`` (one entry a
     ``phase_names(spec, n_ranks)``) times rank 0's block 0. ``skew`` =
     (rank, microseconds) holds that rank back before each step's arrival
-    (a check of the exchange's flow control). Raises as ``cuda_fused_epoch``
-    does; ``cuda_fused_epoch_ranks.launches`` counts its launches."""
+    (a check of the exchange's flow control). ``plan`` is a rank's, as in
+    ``cuda_fused_epoch``. Raises as ``cuda_fused_epoch`` does;
+    ``cuda_fused_epoch_ranks.launches`` counts its launches."""
     if xb.ndim != 4 or yb.ndim != 4:
         raise ValueError("xb and yb must be [n_ranks, n_steps, batch, "
                          "features]")
     losses = _launch(spec, params, slots, xb, yb, scalars, class_weight,
-                     bf16, t0, phase_ns, skew)
+                     bf16, t0, phase_ns, skew, plan)
     cuda_fused_epoch_ranks.launches += 1
     return losses
 
@@ -599,8 +804,35 @@ def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
 cuda_fused_epoch_ranks.launches = 0
 
 
+def _pitch(width):
+    """A row of ``width`` floats padded to whole float4s."""
+    return -(-int(width) // 4) * 4
+
+
+def _aligned(t):
+    return t.data_ptr() % 16 == 0
+
+
+def _check_plan(plan, spec, batch, grid, n_ranks):
+    if len(plan.splits) != len(spec.layers) or plan.cluster != grid.cluster \
+            or plan.blocks % grid.cluster or not (
+                grid.cluster <= plan.blocks
+                and n_ranks * plan.blocks <= grid.clusters * grid.cluster):
+        raise ValueError("plan %s does not fit %d layers on %d ranks of a "
+                         "card that holds %d clusters of %d"
+                         % (plan, len(spec.layers), n_ranks, grid.clusters,
+                            grid.cluster))
+    for l, ((d_in, d_out, *_), split) in enumerate(zip(spec.layers,
+                                                       plan.splits)):
+        for what, s, k in zip(("forward", "dW", "dh"), split,
+                              (d_in, batch, d_out)):
+            if not 1 <= s <= min(grid.cluster, _stages(k)):
+                raise ValueError("layer %d: a %s split of %r over K = %d"
+                                 % (l, what, s, k))
+
+
 def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
-            phase_ns, skew):
+            phase_ns, skew, plan):
     """Checks the ranked arguments and launches the kernel; returns the
     losses [n_ranks, n_steps]."""
     device = xb.device
@@ -642,19 +874,29 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
 
     import ctypes
 
+    grid = kernel_grid(n_ranks > 1)
+    if plan is None:
+        plan = epoch_plan(spec, batch, n_ranks, bf16)
+    _check_plan(plan, spec, batch, grid, n_ranks)
+    # the kernel copies 16-byte rows: the inputs' rows padded to whole
+    # float4s where they are not
+    x_pitch = _pitch(spec.layers[0][0])
+    if x_pitch != spec.layers[0][0] or not _aligned(xb):
+        xb = torch.nn.functional.pad(xb, (0, x_pitch - spec.layers[0][0]))
     # `scratch` holds the gradients and activations until the launch is
     # queued: freed earlier, the caching allocator would hand one layer's
     # buffers to the next. After the launch it may reuse them: they were
     # allocated on the stream the kernel runs on. With ranks the gradients
     # take three planes (even steps', odd steps', each rank's mean after
-    # the exchange) of rows padded to whole float4s; a rank's gw and gb
-    # point into plane 0, the kernel adds the plane's offset.
-    n_grad = sum(d_in * d_out + d_out for d_in, d_out, *_ in spec.layers)
-    stride = n_grad if n_ranks == 1 else -(-n_grad // 4) * 4
-    grads = torch.empty((1 if n_ranks == 1 else 3, n_ranks, stride),
+    # the exchange); a rank's gw and gb point into plane 0 (grad_layout's
+    # offsets), the kernel adds the plane's offset. z, h, d and dz have
+    # rows of whole float4s, and so does wp, the kernel's copy of a weight
+    # whose own rows are not 16-byte aligned.
+    offsets, n_grad = grad_layout(spec.layers)
+    grads = torch.empty((1 if n_ranks == 1 else 3, n_ranks, n_grad),
                         dtype=torch.float32, device=device)
-    scratch = [grads]
-    dims, drops, drop_scales, ptrs = [], [], [], []
+    scratch = [grads, xb]
+    dims, drops, drop_scales, ptrs, plan_ints = [], [], [], [], []
     prev_out = spec.layers[0][0]
     for l, (d_in, d_out, act, rate, idx) in enumerate(spec.layers):
         if d_in != prev_out or act not in (ACT_NONE, ACT_RELU, ACT_SIGMOID,
@@ -667,19 +909,22 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
                              "the kernel cannot apply" % (l, rate, idx))
         prev_out = d_out
         threshold, scale = dropout.keep_scale(rate)
-        dims += [d_in, d_out, act, int(bool(rate))]
+        dims += [d_in, d_out, act, int(bool(rate)), _pitch(d_out)]
         drops += [max(idx, 0), threshold]
         drop_scales.append(scale)
+        plan_ints += [int(s) for s in plan.splits[l]]
     for r in range(n_ranks):
-        offset = 0
         for l, (d_in, d_out, act, rate, _) in enumerate(spec.layers):
             w, b = params[r][l]
             _check("rank %d w%d" % (r, l), w, device, (d_in, d_out))
             _check("rank %d b%d" % (r, l), b, device, (1, d_out))
-            gw = grads[0, r, offset:offset + d_in * d_out].view(d_in, d_out)
-            offset += d_in * d_out
-            gb = grads[0, r, offset:offset + d_out].view(1, d_out)
-            offset += d_out
+            if not _aligned(b):
+                raise ValueError("rank %d b%d is not 16-byte aligned: the "
+                                 "kernel copies it 16 bytes at a time"
+                                 % (r, l))
+            w_at, b_at = offsets[l]
+            gw = grads[0, r, w_at:w_at + d_in * d_out].view(d_in, d_out)
+            gb = grads[0, r, b_at:b_at + d_out].view(1, d_out)
             leaves = [w, b, gw, gb]
             for name in list(spec.slot_names) + [None] * (
                     2 - len(spec.slot_names)):
@@ -692,19 +937,20 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
                 _check("rank %d %s_b%d" % (r, name, l), sb, device,
                        (1, d_out))
                 leaves += [sw, sb]
-            z = torch.empty((batch, d_out), dtype=torch.float32,
+            pitch = _pitch(d_out)
+            z = torch.empty((batch, pitch), dtype=torch.float32,
                             device=device)
             h = z if act == ACT_NONE else torch.empty_like(z)
+            wp = w if pitch == d_out and _aligned(w) else torch.empty(
+                (d_in, pitch), dtype=torch.float32, device=device)
             leaves += [z, h, torch.empty_like(z) if rate else None,
-                       torch.empty_like(z)]
+                       torch.empty_like(z), wp]
             scratch.append(leaves)
             ptrs += [0 if t is None else t.data_ptr() for t in leaves]
     losses = torch.empty((n_ranks, n_steps), dtype=torch.float32,
                          device=device)
-    row_loss = torch.empty((n_ranks, batch), dtype=torch.float32,
-                           device=device)
-    per_sm, sms = kernel_grid()
-    partial = torch.empty(per_sm * sms, dtype=torch.float32, device=device)
+    partial = torch.empty(n_ranks * plan.blocks, dtype=torch.float32,
+                          device=device)
     sync = torch.zeros(n_ranks * SYNC_WORDS, dtype=torch.int32,
                        device=device)
     skew_rank, skew_us = (-1, 0) if skew is None else skew
@@ -715,18 +961,18 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tinynn_fused_epoch(
-            n_ranks, n_layers, (ctypes.c_int * len(dims))(*dims),
+            n_ranks, plan.blocks, n_layers, (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_int * len(plan_ints))(*plan_ints),
             (ctypes.c_uint * len(drops))(*drops),
             (ctypes.c_float * n_layers)(*drop_scales),
             (ctypes.c_void_p * len(ptrs))(*ptrs), tables.data_ptr(),
-            xb.data_ptr(), yb.data_ptr(),
+            xb.data_ptr(), x_pitch, yb.data_ptr(),
             0 if class_weight is None else class_weight.data_ptr(),
-            scalars.data_ptr(), losses.data_ptr(), row_loss.data_ptr(),
-            partial.data_ptr(), partial.numel(), grads.data_ptr(), n_grad,
-            stride, sync.data_ptr(), batch,
-            n_steps, int(t0) & 0xFFFFFFFF, spec.optimizer, *spec.consts,
-            spec.weight_decay, spec.clip_norm, int(bool(bf16)),
-            int(skew_rank), int(1000 * skew_us),
+            scalars.data_ptr(), losses.data_ptr(), partial.data_ptr(),
+            partial.numel(), grads.data_ptr(), n_grad, n_grad,
+            sync.data_ptr(), batch, n_steps, int(t0) & 0xFFFFFFFF,
+            spec.optimizer, *spec.consts, spec.weight_decay, spec.clip_norm,
+            int(bool(bf16)), int(skew_rank), int(1000 * skew_us),
             0 if phase_ns is None else phase_ns.data_ptr(), stream)
     del scratch, partial, sync, tables
     if err == 801:  # cudaErrorNotSupported
