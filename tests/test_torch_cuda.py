@@ -349,6 +349,50 @@ def test_cuda_fused_epoch_holds_under_its_plan_and_single_slices(plan_name):
 
 
 @pytest.mark.cuda
+def test_cuda_traced_k2_epochs_add_into_the_phase_counter():
+    # two traced epochs with no synchronise between them: K2's phase clock
+    # adds both launches into k2.phase_ns, k2.steps counts both, and K2's
+    # host spans open once a launch; untraced, nothing is recorded
+    from tinynn_autograd_tpu_torch.models import build_mnist_mlp
+    from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
+    from tinynn_autograd_tpu_torch.nn.model import Model
+    from tinynn_autograd_tpu_torch.nn.optimizer import Adam
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+    from tinynn_autograd_tpu_torch.utils import datasets, profiler
+
+    dev = _cuda()
+    n_steps = 20
+    model = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(), Adam(1e-3),
+                  device=dev)
+    (x, y), _ = datasets.synthetic_mnist(n_steps * 128, 10, seed=5)
+    x, y = model.stage(x, datasets.one_hot(y))
+    profiler.reset()
+    model.train_epoch(x, y, fused=True)
+    torch.cuda.synchronize()
+    assert profiler.totals() == {}
+    with profiler.recording():
+        model.train_epoch(x, y, fused=True)
+        one = profiler.totals()
+        profiler.reset()
+        before = fused_epoch.cuda_fused_epoch.launches
+        model.train_epoch(x, y, fused=True)
+        model.train_epoch(x, y, fused=True)
+        assert fused_epoch.cuda_fused_epoch.launches == before + 2
+        two = profiler.totals()
+    profiler.reset()
+    spec = fused_epoch.epoch_spec(model.net, model.optimizer)
+    assert list(one["k2.phase_ns"]) == fused_epoch.phase_names(spec)
+    assert one["k2.steps"] == n_steps and two["k2.steps"] == 2 * n_steps
+    assert all(v > 0 for v in two["k2.phase_ns"].values())
+    ratio = sum(two["k2.phase_ns"].values()) / sum(one["k2.phase_ns"].values())
+    assert 1.5 < ratio < 2.5
+    for name in ("tinynn.epoch", "tinynn.k2.scalars", "tinynn.k2.plan",
+                 "tinynn.k2.launch"):
+        assert two[name]["count"] == 2
+    assert two["tinynn.k2.plan"]["ns"] <= two["tinynn.k2.launch"]["ns"]
+
+
+@pytest.mark.cuda
 def test_cuda_fused_epoch_matches_reference_at_ragged_widths():
     # inputs of 30 features (rows padded to 32 for the 16-byte copies),
     # widths 20 and 5 (the kernel's copies of w and its activations padded

@@ -36,6 +36,10 @@ copy of the weights on the device each step. Every parameter and every input
 lives on ``device``, which has no default: a model never lands on the CPU
 because no GPU was found.
 
+While ``utils/profiler`` records, ``train_epochs``, ``evaluate_batch`` and
+``train_step`` and their phases are spans (``tinynn.epoch``, ``tinynn.eval``,
+``tinynn.step`` and their children).
+
 Checkpoints (``save``/``load``) use the JAX package's pickle format
 ``tinynn_tpu_ckpt_v1``, so a checkpoint written by either package loads in
 the other.
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from tinynn_autograd_tpu_torch.core.tensor import Tensor, to_torch
-from tinynn_autograd_tpu_torch.utils import seeder
+from tinynn_autograd_tpu_torch.utils import profiler, seeder
 from tinynn_autograd_tpu_torch.utils.convert import (
     params_from_jax, params_to_numpy,
 )
@@ -102,15 +106,19 @@ class Model:
     def evaluate_batch(self, x, y, evaluator):
         """TEST-phase forward + argmax for classification eval; restores
         the prior phase."""
-        prev = self._phase
-        if prev != "TEST":
-            self.set_phase("TEST")
-        preds = self.predict(x)
-        if prev != "TEST":
-            self.set_phase(prev)
-        pred_idx = np.argmax(preds.numpy(), axis=1)
-        targets = y.numpy() if isinstance(y, Tensor) else np.asarray(y)
-        return evaluator.evaluate(pred_idx, targets)
+        with profiler.span("tinynn.eval"):
+            prev = self._phase
+            if prev != "TEST":
+                self.set_phase("TEST")
+            with profiler.span("tinynn.eval.forward"):
+                preds = self.predict(x)
+            if prev != "TEST":
+                self.set_phase(prev)
+            with profiler.span("tinynn.eval.readback"):
+                logits = preds.numpy()
+            pred_idx = np.argmax(logits, axis=1)
+            targets = y.numpy() if isinstance(y, Tensor) else np.asarray(y)
+            return evaluator.evaluate(pred_idx, targets)
 
     # ---------------------------------------------------------- train step
 
@@ -133,11 +141,15 @@ class Model:
             for p in param.values():
                 p.grad = None
         state = self.optimizer.state_dict()
-        pred = self.net.forward(Tensor(xb),
-                                rng=0 if state is None else state["t"])
-        loss_t = self.loss.loss(pred, Tensor(yb))
-        loss_t.backward()
-        self._apply_grads(self.net.collect_grads())
+        with profiler.span("tinynn.step.forward"):
+            pred = self.net.forward(Tensor(xb),
+                                    rng=0 if state is None else state["t"])
+        with profiler.span("tinynn.step.loss"):
+            loss_t = self.loss.loss(pred, Tensor(yb))
+        with profiler.span("tinynn.step.backward"):
+            loss_t.backward()
+        with profiler.span("tinynn.step.update"):
+            self._apply_grads(self.net.collect_grads())
         return loss_t.data
 
     def train_step(self, x, y, accum_steps=1):
@@ -147,11 +159,12 @@ class Model:
             raise NotImplementedError(
                 "accum_steps > 1 is not ported to the PyTorch package yet "
                 "(see ROADMAP.md, queue 1)")
-        x, y = self.stage(x, y)
-        self._ensure_init(x.shape)
-        if self._phase != "TRAIN":
-            self.set_phase("TRAIN")
-        return self._step(x, y)
+        with profiler.span("tinynn.step"):
+            x, y = self.stage(x, y)
+            self._ensure_init(x.shape)
+            if self._phase != "TRAIN":
+                self.set_phase("TRAIN")
+            return self._step(x, y)
 
     def train_epoch(self, x_all, y_all, batch_size=128, shuffle=True,
                     fused="auto"):
@@ -172,49 +185,57 @@ class Model:
     def train_epochs(self, x_all, y_all, n_epochs, batch_size=128,
                      shuffle=True, fused="auto"):
         """``n_epochs`` full epochs over data staged on the device; returns
-        the loss trace [n_epochs, n_steps] on the device."""
+        the loss trace [n_epochs, n_steps] on the device. The call is one
+        ``tinynn.epoch`` span."""
         if fused not in ("auto", True, False, "stream"):
             raise ValueError("fused must be 'auto', False, True or 'stream', "
                              "got %r" % (fused,))
-        x_all, y_all = self.stage(x_all, y_all)
-        feat, label_feat = tuple(x_all.shape[1:]), tuple(y_all.shape[1:])
-        batch_shape = (batch_size,) + feat
-        self._ensure_init(batch_shape)
-        if self._phase != "TRAIN":
-            self.set_phase("TRAIN")
+        with profiler.span("tinynn.epoch"):
+            x_all, y_all = self.stage(x_all, y_all)
+            feat = tuple(x_all.shape[1:])
+            label_feat = tuple(y_all.shape[1:])
+            batch_shape = (batch_size,) + feat
+            self._ensure_init(batch_shape)
+            if self._phase != "TRAIN":
+                self.set_phase("TRAIN")
 
-        n = x_all.shape[0]
-        n_steps = n // batch_size
-        if n_steps == 0:
-            raise ValueError(
-                "dataset of %d samples is smaller than batch_size=%d "
-                "(the ragged tail is dropped; nothing would train)"
-                % (n, batch_size))
-        epoch_fn = self._whole_epoch_kernel(fused, n_steps, batch_shape,
-                                            (batch_size,) + label_feat)
-        step_fn = (self._streaming_step(fused, batch_shape)
-                   if epoch_fn is None else None) or self._step
-        used = n_steps * batch_size
-        losses = torch.empty((n_epochs, n_steps), device=self.device)
-        for epoch in range(n_epochs):
-            if shuffle:
-                perm = torch.randperm(n, generator=self._shuffle_generator(),
-                                      device=self.device)[:used]
-                xs, ys = x_all[perm], y_all[perm]
-            else:
-                xs, ys = x_all[:used], y_all[:used]
-            xs = xs.reshape((n_steps, batch_size) + feat)
-            ys = ys.reshape((n_steps, batch_size) + label_feat)
-            if epoch_fn is not None:
-                state = self.optimizer.state_dict()
-                state["t"], losses[epoch] = epoch_fn(
-                    self.net.params_tree(), state["slots"], state["t"],
-                    xs.to(torch.float32).contiguous(),
-                    ys.to(torch.float32).contiguous())
-                continue
-            for s in range(n_steps):
-                losses[epoch, s] = step_fn(xs[s], ys[s])
-        return losses
+            n = x_all.shape[0]
+            n_steps = n // batch_size
+            if n_steps == 0:
+                raise ValueError(
+                    "dataset of %d samples is smaller than batch_size=%d "
+                    "(the ragged tail is dropped; nothing would train)"
+                    % (n, batch_size))
+            with profiler.span("tinynn.epoch.tier"):
+                epoch_fn = self._whole_epoch_kernel(
+                    fused, n_steps, batch_shape, (batch_size,) + label_feat)
+                step_fn = (self._streaming_step(fused, batch_shape)
+                           if epoch_fn is None else None) or self._step
+            used = n_steps * batch_size
+            losses = torch.empty((n_epochs, n_steps), device=self.device)
+            for epoch in range(n_epochs):
+                with profiler.span("tinynn.epoch.shuffle"):
+                    if shuffle:
+                        perm = torch.randperm(
+                            n, generator=self._shuffle_generator(),
+                            device=self.device)[:used]
+                        xs, ys = x_all[perm], y_all[perm]
+                    else:
+                        xs, ys = x_all[:used], y_all[:used]
+                    xs = xs.reshape((n_steps, batch_size) + feat)
+                    ys = ys.reshape((n_steps, batch_size) + label_feat)
+                    if epoch_fn is not None:
+                        xs = xs.to(torch.float32).contiguous()
+                        ys = ys.to(torch.float32).contiguous()
+                if epoch_fn is not None:
+                    state = self.optimizer.state_dict()
+                    state["t"], losses[epoch] = epoch_fn(
+                        self.net.params_tree(), state["slots"], state["t"],
+                        xs, ys)
+                    continue
+                for s in range(n_steps):
+                    losses[epoch, s] = step_fn(xs[s], ys[s])
+            return losses
 
     def _whole_epoch_kernel(self, fused, n_steps, batch_shape, label_shape):
         """The K2 ``epoch_fn`` when this call takes the whole-epoch kernel,

@@ -46,7 +46,10 @@ by slice in that order; by default it sums each product at once.
   losses)``. The parameters and slots are the model's own tensors, updated
   IN PLACE: that saves a copy of the state (2.2 MB for the flagship with
   Adam) per epoch. On a CUDA device it launches the kernel; on the CPU it
-  runs the plain version.
+  runs the plain version. While ``utils/profiler`` records, the host's
+  scalars, plan and launch are spans (``tinynn.k2.*``) and the kernel's
+  phase clock adds into the device counter ``k2.phase_ns``, its steps
+  into ``k2.steps``.
 - ``epoch_spec``: what the kernel is told about the net and the optimizer.
 - ``fused_epoch_reference``: the plain PyTorch version, the same arithmetic
   layer by layer (not through the tape). For CPU tensors and the tests.
@@ -72,6 +75,7 @@ from tinynn_autograd_tpu_torch.ops.optim_rules import (
 from tinynn_autograd_tpu_torch.ops.ring_allreduce import (
     MAX_RANKS, SYNC_WORDS, ring_all_reduce_reference,
 )
+from tinynn_autograd_tpu_torch.utils import profiler
 
 SOURCE = kernels.CSRC_DIR / "fused_epoch.cu"
 
@@ -332,11 +336,18 @@ def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
         ranks = () if n_ranks is None else (n_ranks,)
         xb = xb.reshape(ranks + (n_steps, batch, features))
         yb = yb.reshape(ranks + (n_steps, batch, spec.layers[-1][1]))
-        scalars = torch.from_numpy(
-            optimizer.step_scalars(t0, n_steps)).to(xb.device)
+        with profiler.span("tinynn.k2.scalars"):
+            scalars = torch.from_numpy(
+                optimizer.step_scalars(t0, n_steps)).to(xb.device)
         run = (fused_epoch_reference if xb.device.type == "cpu"
                else cuda_fused_epoch if n_ranks is None
                else cuda_fused_epoch_ranks)
+        # while traced, the kernel's phase clock adds into a device counter
+        traced = {}
+        if xb.device.type != "cpu" and profiler.enabled():
+            traced["phase_ns"] = profiler.device_counter(
+                "k2.phase_ns", phase_names(spec, n_ranks or 1), xb.device)
+            profiler.count("k2.steps", n_steps)
 
         def pairs(slot_trees):
             return {name: dense_leaves(net, slot_trees[name])
@@ -349,7 +360,8 @@ def build_fused_epoch(net, loss_fn, optimizer, n_steps, batch_shape,
             slot_leaves = [pairs(s) for s in slots]
         losses = run(spec, leaves, slot_leaves, xb, yb, scalars,
                      None if weight is None else weight.to(xb.device),
-                     bf16=kernels.matmul_precision() == "bf16", t0=t0)
+                     bf16=kernels.matmul_precision() == "bf16", t0=t0,
+                     **traced)
         return t0 + n_steps, losses
 
     return epoch_fn
@@ -769,8 +781,10 @@ def cuda_fused_epoch(spec, params, slots, xb, yb, scalars,
     ``cuda_fused_epoch.launches`` counts its launches."""
     if xb.ndim != 3 or yb.ndim != 3:
         raise ValueError("xb and yb must be [n_steps, batch, features]")
-    losses = _launch(spec, [params], [slots], xb[None], yb[None], scalars,
-                     class_weight, bf16, t0, phase_ns, None, plan)
+    with profiler.span("tinynn.k2.launch"):
+        losses = _launch(spec, [params], [slots], xb[None], yb[None],
+                         scalars, class_weight, bf16, t0, phase_ns, None,
+                         plan)
     cuda_fused_epoch.launches += 1
     return losses[0]
 
@@ -795,8 +809,9 @@ def cuda_fused_epoch_ranks(spec, params, slots, xb, yb, scalars,
     if xb.ndim != 4 or yb.ndim != 4:
         raise ValueError("xb and yb must be [n_ranks, n_steps, batch, "
                          "features]")
-    losses = _launch(spec, params, slots, xb, yb, scalars, class_weight,
-                     bf16, t0, phase_ns, skew, plan)
+    with profiler.span("tinynn.k2.launch"):
+        losses = _launch(spec, params, slots, xb, yb, scalars, class_weight,
+                         bf16, t0, phase_ns, skew, plan)
     cuda_fused_epoch_ranks.launches += 1
     return losses
 
@@ -874,10 +889,11 @@ def _launch(spec, params, slots, xb, yb, scalars, class_weight, bf16, t0,
 
     import ctypes
 
-    grid = kernel_grid(n_ranks > 1)
-    if plan is None:
-        plan = epoch_plan(spec, batch, n_ranks, bf16)
-    _check_plan(plan, spec, batch, grid, n_ranks)
+    with profiler.span("tinynn.k2.plan"):
+        grid = kernel_grid(n_ranks > 1)
+        if plan is None:
+            plan = epoch_plan(spec, batch, n_ranks, bf16)
+        _check_plan(plan, spec, batch, grid, n_ranks)
     # the kernel copies 16-byte rows: the inputs' rows padded to whole
     # float4s where they are not
     x_pitch = _pitch(spec.layers[0][0])
