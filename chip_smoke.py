@@ -46,12 +46,17 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    step at the f32 gate, and on unit-normal operands at the f32 gate where
    K <= 256 and at K = 1,024 and 8,192 (where one f32 chain of K products
    reaches the gate's atol) against float64 within 4x cuBLAS's f32 error, a
-   limit cuBLAS's TF32 must miss, and at the bf16 gate; split-K reruns
-   bit-identical. Then each product's device time through the kernel and
-   torch.matmul (cuBLAS, TF32 off: the plain version) in turns, with its
-   plan (tile, split, cluster) and bound, and the sums of a flagship step,
-   the eval, a config-8 step and a 6b step; the flagship step's 14 back to
-   back.
+   limit cuBLAS's TF32 must miss, and at the bf16 gate; 6b's nine block
+   layouts (the forward over 8,192 tokens, dX through the weights'
+   transposed views, dW folded over the tokens at K = 8,192) each planned
+   on the tensor-core tile and launched there (``tc_launches``), against
+   float64 within the same 4x cuBLAS's f32 error that TF32 must miss;
+   split-K reruns bit-identical. Then each product's device time through
+   the kernel and torch.matmul (cuBLAS, TF32 off: the plain version) in
+   turns, with its plan (tile, split, cluster) and bound, and the sums of
+   a flagship step, the eval, a config-8 step, and a 6b step's 36 block
+   products and all its 39 (bounds at 3xTF32); the flagship step's 14
+   back to back.
 4. fused epoch vs plain: K2 against ``fused_epoch_reference`` on the card
    for 10 flagship steps from pinned seed-1 weights: losses (rtol 1e-5,
    atol 1e-6), parameters, Adam slots and the step count (rtol 1e-4, atol
@@ -165,15 +170,19 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    f32 FMA beside them).
 9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
    device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
-   step launches each attention kernel twice (two blocks) and K1 three
-   times (the head Dense), K2, K3 and K3b never; finite losses; the steps/s
-   of epochs 2-3; an evaluate_batch on 32 held-out sequences. Then 5 Adam
-   steps with attn="fused" against 5 with attn="tape" from the same weights
-   (losses within rtol 1e-4) and a timed attn="tape" epoch.
+   step launches each attention kernel twice (two blocks) and K1 39 times
+   (each block's six Dense products forward, dX and dW, 36 on the
+   tensor-core tile, and the head Dense's three), each eval forward K1 13
+   times (12 on the tile), K2, K3 and K3b never; finite losses; the
+   steps/s of epochs 2-3; an evaluate_batch on 32 held-out sequences. Then
+   5 Adam steps with attn="fused" against 5 with attn="tape" from the same
+   weights (losses within rtol 1e-4) and a timed attn="tape" epoch (K1 39
+   a step; its batched score products stay torch.matmul).
 9a. transformer slice with dropout: config 6b with dropout=0.1 and
    attn_dropout=0.1, one epoch: P1 twice a block a step (the residual
    sites; the attention probabilities drop inside K4 and K4d), each
-   attention kernel once a block, K1 3 a step; finite losses.
+   attention kernel once a block, K1 39 a step (36 on the tensor-core
+   tile); finite losses.
 10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
    versions at config 8's shape (zero initial states) and a ragged one
    (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
@@ -278,10 +287,26 @@ CONFIG8_SHAPES = [(8192, 64, 1024, False, False),
                   (256, 8192, 1024, True, False),
                   (64, 8192, 1024, True, False),
                   (256, 8192, 1024, True, False)]
-# 6b's three 2-D products a step (its head: [4, 512] @ [512, 16] and both
-# gradients; the blocks' products are 3-D and stay torch.matmul)
+# 6b's head's three products a step ([4, 512] @ [512, 16] and both
+# gradients), on the CUDA-core tiles
 CONFIG6B_SHAPES = [(4, 512, 16, False, False), (512, 4, 16, True, False),
                    (4, 16, 512, False, True)]
+# 6b's block products as the tape hands them to K1, each with its count in
+# a block (two blocks a step: 36 products), all on the tensor-core tile:
+# the forward over the step's 8,192 tokens ([8192, 512] @ [512, 512] for
+# q, k, v and the output projection, the MLP's [512, 2048] and [2048,
+# 512]); the input gradients through the weights' transposed views; the
+# weight gradients X^T @ G folded over all the tokens (K = 8,192), X^T the
+# transposed view of the [4, 2048, .] activations
+CONFIG6B_BLOCK = [((8192, 512, 512, False, False), 4),
+                  ((8192, 512, 2048, False, False), 1),
+                  ((8192, 2048, 512, False, False), 1),
+                  ((8192, 512, 512, False, True), 4),
+                  ((8192, 2048, 512, False, True), 1),
+                  ((8192, 512, 2048, False, True), 1),
+                  ((512, 8192, 512, True, False), 4),
+                  ((512, 8192, 2048, True, False), 1),
+                  ((2048, 8192, 512, True, False), 1)]
 # config 8's products past K = LONG_K on unit-normal operands: there the
 # rounding of an f32 sum reaches the f32 gate's atol (on the H100 K1's one
 # chain of K products an output errs by 2.6-3.9e-4 against float64 at
@@ -532,12 +557,15 @@ def launch_us(fn, reps=200, warmup=20):
 
 
 def device_kernels(prof):
-    """(device us, launches, name) of every device kernel in a profile."""
+    """(device us, launches, name) of every device kernel in a profile;
+    not the program's spans (``tinynn.*``), which the profiler also lays
+    on the device's timeline, over the kernels they enclose."""
     from torch.autograd import DeviceType
 
     return [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
+            if ev.device_type == DeviceType.CUDA
+            and not ev.key.startswith("tinynn.")]
 
 
 def product_name(m, k, n, ta, tb):
@@ -594,31 +622,95 @@ def config8_operands(device):
     return seen
 
 
-def time_products(shapes, operand_pairs):
+def time_products(shapes, operand_pairs, counts=None, bound_of=bound):
     """Device us of each product through the kernel and torch.matmul
     (cuBLAS, f32, TF32 off; also the plain version), in turns: cuBLAS,
-    kernel, kernel, cuBLAS. Prints each with its plan; returns the sums
-    (kernel, cuBLAS, bound)."""
+    kernel, kernel, cuBLAS. Prints each with its plan and its bound
+    (``bound_of``: at the f32 FMA peak by default); returns the sums
+    (kernel, cuBLAS, bound), each product taken ``counts`` times (once
+    each by default)."""
     total = np.zeros(3)
-    for shape, (a, b) in zip(shapes, operand_pairs):
+    for i, (shape, (a, b)) in enumerate(zip(shapes, operand_pairs)):
         fns = (lambda: torch.matmul(a, b), lambda: kernels.cuda_matmul(a, b))
-        lib, new, new2, lib2 = (device_us(fns[i]) for i in (0, 1, 1, 0))
+        lib, new, new2, lib2 = (device_us(fns[j]) for j in (0, 1, 1, 0))
         m, k, n = shape[:3]
         times = np.array([(new + new2) / 2, (lib + lib2) / 2,
-                          1e3 * bound(*product_cost(m, k, n))[0]])
-        total += times
-        plan = kernels.plan_matmul(m, n, k)
+                          1e3 * bound_of(*product_cost(m, k, n))[0]])
+        count = 1 if counts is None else counts[i]
+        total += count * times
+        plan = kernels.plan_matmul(m, n, k,
+                                   aligned=kernels.tc_aligned(a, b))
         print("  %-24s %9.2f %9.2f %9.3f   config %d (%dx%d tile), "
-              "split %d (cluster of %d, K slices of %d)"
+              "split %d (cluster of %d, K slices of %d)%s"
               % ((product_name(*shape),) + tuple(times)
                  + (plan.config, plan.bm, plan.bn, plan.split, plan.split,
-                    plan.k_chunk)))
+                    plan.k_chunk, "" if counts is None
+                    else "; %d a step" % count)))
     return total
 
 
+def check_6b_block_products(device, gen):
+    """6b's nine block layouts (``CONFIG6B_BLOCK``) through K1's wrapper:
+    each must plan the tensor-core tile and launch it (``tc_launches``
+    counts both launches of a rerun, which must be bit-identical). Held
+    against float64 within LONG_K_FACTOR times cuBLAS's f32 error (its K
+    is 512 to 8,192, where one f32 chain of K products reaches the f32
+    gate's atol), a limit cuBLAS's TF32 must miss; the largest difference
+    from the plain version (``matmul_reference``) is printed beside it.
+    Returns the operand pairs."""
+    pairs = []
+    for shape, _ in CONFIG6B_BLOCK:
+        m, k, n = shape[:3]
+        a, b = operands(*shape, torch.float32, device, gen)
+        plan = kernels.plan_matmul(m, n, k, aligned=kernels.tc_aligned(a, b))
+        if plan.config != kernels.MATMUL_TC:
+            raise AssertionError("6b's %s plans %s, not the tensor-core tile"
+                                 % (product_name(*shape), plan))
+        before = (kernels.cuda_matmul.launches,
+                  kernels.cuda_matmul.tc_launches)
+        got = kernels.cuda_matmul(a, b)
+        again = kernels.cuda_matmul(a, b)
+        torch.cuda.synchronize()
+        after = (kernels.cuda_matmul.launches,
+                 kernels.cuda_matmul.tc_launches)
+        if after != (before[0] + 2, before[1] + 2):
+            raise AssertionError("6b's %s: two calls counted as %s launches "
+                                 "and %s on the tensor-core tile" % (
+                                     product_name(*shape),
+                                     after[0] - before[0],
+                                     after[1] - before[1]))
+        if not torch.equal(got, again):
+            raise AssertionError("6b's %s: a rerun differs"
+                                 % product_name(*shape))
+        mine, f32, tf32 = long_k_errors(a, b, got)
+        plain = float((got - kernels.matmul_reference(a, b)).abs().max())
+        print("  6b %-24s plan %s: max |C - A B| against float64: kernel "
+              "%.3g, cuBLAS f32 %.3g, cuBLAS TF32 %.3g; limit %.3g (%g x "
+              "cuBLAS f32); max |C - plain| %.3g"
+              % (product_name(*shape), tuple(plan), mine, f32, tf32,
+                 LONG_K_FACTOR * f32, LONG_K_FACTOR, plain))
+        if not mine <= LONG_K_FACTOR * f32:
+            raise AssertionError("6b's %s: the kernel's error %.3g is past "
+                                 "%g x cuBLAS's %.3g" % (
+                                     product_name(*shape), mine,
+                                     LONG_K_FACTOR, f32))
+        if not tf32 > LONG_K_FACTOR * f32:
+            raise AssertionError("6b's %s: TF32's error %.3g is within the "
+                                 "limit %.3g: the check cannot tell f32 from "
+                                 "TF32" % (product_name(*shape), tf32,
+                                           LONG_K_FACTOR * f32))
+        pairs.append((a, b))
+    print("6b's %d block layouts on the tensor-core tile: within %g x "
+          "cuBLAS f32's error against float64, TF32 past it, reruns "
+          "bit-identical, each launch counted in tc_launches"
+          % (len(CONFIG6B_BLOCK), LONG_K_FACTOR))
+    return pairs
+
+
 def check_kernel(device):
-    """K1 against its plain version at the main paths' shapes, and timed
-    beside torch.matmul (cuBLAS). Returns
+    """K1 against its plain version at the main paths' shapes (6b's block
+    products against float64), and timed beside torch.matmul (cuBLAS).
+    Returns
     the f32 max abs error and the sums (device ms) of a flagship train
     step's 14 products through the kernel and the plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -683,13 +775,15 @@ def check_kernel(device):
           "config 8 on a step's operands, and on unit-normal ones where K <= "
           "%d), bf16 %.3g (tol rtol 2e-2 atol 2e-1)"
           % (worst[torch.float32], LONG_K, worst[torch.bfloat16]))
+    block_pairs = check_6b_block_products(device, gen)
     # split-K reruns
     split = 0
     for shape in STEP_SHAPES + CONFIG8_SHAPES + CONFIG6B_SHAPES + RAGGED:
         m, k, n = shape[:3]
-        if kernels.plan_matmul(m, n, k).split == 1:
-            continue
         a, b = operands(*shape, torch.float32, device, gen)
+        if kernels.plan_matmul(m, n, k, aligned=kernels.tc_aligned(
+                a, b)).split == 1:
+            continue
         if not torch.equal(kernels.cuda_matmul(a, b),
                            kernels.cuda_matmul(a, b)):
             raise AssertionError("%s: a split-K rerun differs" % (shape,))
@@ -708,12 +802,24 @@ def check_kernel(device):
     evals = time_products([EVAL_SHAPE], [operands(*EVAL_SHAPE, torch.float32,
                                                   device, gen)])
     c8 = time_products(CONFIG8_SHAPES, real)
-    c6b = time_products(CONFIG6B_SHAPES, [
-        operands(*s, torch.float32, device, gen) for s in CONFIG6B_SHAPES])
+    print("  6b's step, bounds at 3xTF32 on the tensor cores (%.1f TFLOP/s)"
+          % (PEAK_TF32_FLOPS / 3e12))
+    c6b_head = time_products(CONFIG6B_SHAPES, [
+        operands(*s, torch.float32, device, gen) for s in CONFIG6B_SHAPES],
+        bound_of=bound_3xtf32)
+    depth = TRANSFORMER["depth"]
+    c6b_blocks = time_products(
+        [s for s, _ in CONFIG6B_BLOCK], block_pairs,
+        counts=[depth * c for _, c in CONFIG6B_BLOCK], bound_of=bound_3xtf32)
+    n_blocks = depth * sum(c for _, c in CONFIG6B_BLOCK)
     for what, t in (("one flagship train step's 14 products", step),
                     ("the 10,000-row eval product", evals),
                     ("one config-8 step's 10 products", c8),
-                    ("one 6b step's 3 products", c6b)):
+                    ("one 6b step's %d block products (tensor-core tile; "
+                     "bound at 3xTF32)" % n_blocks, c6b_blocks),
+                    ("one 6b step's %d products (bound at 3xTF32)"
+                     % (n_blocks + len(CONFIG6B_SHAPES)),
+                     c6b_blocks + c6b_head)):
         print("%s: device us kernel %.2f, cuBLAS %.2f; bound %.3f us; "
               "kernel at %.1f%% of the bound, %.2fx cuBLAS's time"
               % ((what,) + tuple(t) + (100.0 * t[2] / t[0], t[0] / t[1])))
@@ -914,6 +1020,18 @@ def launch_counts():
 def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    kernels.cuda_matmul.tc_launches = 0
+
+
+def transformer_k1(steps, forwards=0):
+    """K1's launches in ``steps`` 6b train steps and ``forwards`` eval
+    forwards, and those of them on the tensor-core tile: a step's block
+    products (six Dense products a block, forward, dX and dW) on the tile
+    and the head Dense's three beside them; a forward's six a block on the
+    tile and the head's one beside them."""
+    depth = TRANSFORMER["depth"]
+    tc = 6 * depth * (3 * steps + forwards)
+    return tc + 3 * steps + forwards, tc
 
 
 def only(**counts):
@@ -1845,6 +1963,7 @@ def run_transformer_slice(device):
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
     train_counts = launch_counts()
+    train_tc = kernels.cuda_matmul.tc_launches
     res = model.evaluate_batch(ex, ey, AccEvaluator)
     logits = model.predict(ex)
     counts = launch_counts()
@@ -1859,21 +1978,26 @@ def run_transformer_slice(device):
                                     first_s, timed_s, rate, 1e3 / rate,
                                     np.array2string(losses.mean(axis=1),
                                                     precision=5)))
-    print("launches over the %d train steps: %s; K1 %.1f a step (the head "
-          "Dense's forward, dW and dx)" % (steps, train_counts,
-                                          train_counts["matmul"] / steps))
+    print("launches over the %d train steps: %s; K1 %.1f a step (each "
+          "block's six Dense products forward, dX and dW, and the head "
+          "Dense's three), %.1f a step on the tensor-core tile"
+          % (steps, train_counts, train_counts["matmul"] / steps,
+             train_tc / steps))
     print("evaluate_batch on %d held-out sequences: accuracy %.4f (random "
-          "labels: chance 1/16); two forwards, launches then %s"
-          % (T_EVAL, res["accuracy"], counts))
+          "labels: chance 1/16); two forwards, launches then %s, K1 on the "
+          "tensor-core tile %d" % (T_EVAL, res["accuracy"], counts,
+                                   kernels.cuda_matmul.tc_launches))
     # per step each of the `depth` blocks runs one forward and one backward
     # of each attention kernel; the two eval forwards one forward a block
+    k1, tc = transformer_k1(steps, forwards=2)
     want = only(attention_forward=depth * (steps + 2),
                 attention_backward_dq=depth * steps,
-                attention_backward_dkv=depth * steps,
-                matmul=3 * steps + 2)
-    if counts != want:
-        raise AssertionError("launch counts %s, expected %s and K1 3 a step"
-                             % (counts, want))
+                attention_backward_dkv=depth * steps, matmul=k1)
+    if counts != want or kernels.cuda_matmul.tc_launches != tc:
+        raise AssertionError("launch counts %s and %d on the tensor-core "
+                             "tile, expected %s and %d" % (
+                                 counts, kernels.cuda_matmul.tc_launches,
+                                 want, tc))
     if not np.all(np.isfinite(losses)):
         raise AssertionError("non-finite loss")
     if tuple(logits.shape) != (T_EVAL, TRANSFORMER["num_out"]) or \
@@ -1914,11 +2038,17 @@ def check_fused_vs_tape(device):
     counts = launch_counts()
     n_steps = int(trace.shape[0])
     print("attn='tape' epoch: %d steps in %.3f s = %.2f steps/s; peak device "
-          "memory %.2f GB; launches %s" % (
+          "memory %.2f GB; launches %s, K1 on the tensor-core tile %d" % (
               n_steps, tape_s, n_steps / tape_s,
-              torch.cuda.max_memory_allocated() / 1e9, counts))
-    if counts != only(matmul=3 * n_steps):
-        raise AssertionError("the tape epoch launched %s" % counts)
+              torch.cuda.max_memory_allocated() / 1e9, counts,
+              kernels.cuda_matmul.tc_launches))
+    k1, tc = transformer_k1(n_steps)
+    if counts != only(matmul=k1) or kernels.cuda_matmul.tc_launches != tc:
+        raise AssertionError("the tape epoch launched %s, %d on the "
+                             "tensor-core tile; expected K1 %d, %d on the "
+                             "tile" % (counts,
+                                       kernels.cuda_matmul.tc_launches,
+                                       k1, tc))
     if not torch.isfinite(trace).all():
         raise AssertionError("non-finite tape loss")
     return n_steps / tape_s
@@ -2946,7 +3076,8 @@ def run_transformer_dropout(device):
     """Config 6b with dropout=0.1 and attn_dropout=0.1 for one epoch from
     seed 0: per step P1 twice a block (the residual sites; the attention
     probabilities drop inside K4 and K4d), each attention kernel once a
-    block, K1 three times. Returns the launch counts and the steps/s."""
+    block, K1 39 times (36 on the tensor-core tile). Returns the launch
+    counts and the steps/s."""
     tx, ty, _, _ = transformer_data()
     with seeder.scope(0):
         net = build_tiny_transformer(dropout=0.1, attn_dropout=0.1,
@@ -2964,15 +3095,20 @@ def run_transformer_dropout(device):
     depth = TRANSFORMER["depth"]
     print("6b with dropout 0.1 and attn_dropout 0.1: %d steps in %.3f s = "
           "%.2f steps/s; losses %.5f -> %.5f; "
-          "launches %s" % (steps, epoch_s, steps / epoch_s, float(losses[0]),
-                           float(losses[-1]),
-                           {k: v for k, v in counts.items() if v}))
+          "launches %s, K1 on the tensor-core tile %d"
+          % (steps, epoch_s, steps / epoch_s, float(losses[0]),
+             float(losses[-1]), {k: v for k, v in counts.items() if v},
+             kernels.cuda_matmul.tc_launches))
+    k1, tc = transformer_k1(steps)
     want = only(attention_forward=depth * steps,
                 attention_backward_dq=depth * steps,
                 attention_backward_dkv=depth * steps,
-                matmul=3 * steps, dropout=2 * depth * steps)
-    if counts != want:
-        raise AssertionError("launch counts %s, expected %s" % (counts, want))
+                matmul=k1, dropout=2 * depth * steps)
+    if counts != want or kernels.cuda_matmul.tc_launches != tc:
+        raise AssertionError("launch counts %s and %d on the tensor-core "
+                             "tile, expected %s and %d" % (
+                                 counts, kernels.cuda_matmul.tc_launches,
+                                 want, tc))
     if not torch.isfinite(losses).all():
         raise AssertionError("non-finite loss")
     return counts, steps / epoch_s
@@ -2982,11 +3118,12 @@ def check_block(device):
     """K7 through the probe's entry point, ``probe_shape``, at its four
     shapes, each shape's launch counts set to 0 before it and read after
     it: K7 at least once and nothing but K7 and the tape forward's
-    attention kernel; the kernel held to its plain version and to the tape
-    forward, the library call to the plain version (the probe's tolerance);
-    the timed shapes' times beside the bound. Then two more launches at
-    each shape, bit-identical, each counted once. Returns K7's launches in
-    the probe's runs and the kernels-line numbers (at 6b's block)."""
+    attention kernel and K1 (its six Dense products a call); the kernel
+    held to its plain version and to the tape forward, the library call to
+    the plain version (the probe's tolerance); the timed shapes' times
+    beside the bound. Then two more launches at each shape, bit-identical,
+    each counted once. Returns K7's launches in the probe's runs and the
+    kernels-line numbers (at 6b's block)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows, launches = {}, 0
@@ -2996,9 +3133,10 @@ def check_block(device):
                                              timed=name in BLOCK_TIMED)
         counts = launch_counts()
         print("  %s" % json.dumps(rows[name]))
-        others = {k: v for k, v in counts.items()
-                  if v and k not in ("block_forward", "attention_forward")}
-        if counts["block_forward"] < 1 or others:
+        others = {k: v for k, v in counts.items() if v and k not in (
+            "block_forward", "attention_forward", "matmul")}
+        if counts["block_forward"] < 1 or others or counts["matmul"] < 6 \
+                or counts["matmul"] % 6:
             raise AssertionError("%s: launch counts %s" % (name, counts))
         launches += counts["block_forward"]
     for name in BLOCK_TIMED:

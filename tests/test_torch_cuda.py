@@ -232,10 +232,159 @@ def test_cuda_matmul_refuses_a_bad_plan():
     for plan in (kernels.MatmulPlan(0, 64, 64, 9, 16),   # past 8 blocks
                  kernels.MatmulPlan(0, 64, 64, 2, 112),  # an empty slice
                  kernels.MatmulPlan(0, 64, 64, 2, 32),   # K not covered
-                 kernels.MatmulPlan(4, 64, 64, 1, 100)):  # no such tile
+                 kernels.MatmulPlan(5, 64, 64, 1, 100),   # no such tile
+                 # the tensor-core tile: slices not of whole 32-deep stages
+                 kernels.MatmulPlan(4, 128, 128, 1, 100)):
         with pytest.raises(RuntimeError, match="launch failed"):
             kernels.cuda_matmul(a, b, plan)
+    # the tensor-core tile refuses operands it cannot read: rows off 16-byte
+    # alignment, and bf16
+    tc = kernels.MatmulPlan(4, 128, 128, 1, 128)
+    gen = torch.Generator().manual_seed(2)
+    off = torch.randn(64 * 100 + 1, generator=gen).to(dev)[1:].view(64, 100)
+    for x, y in ((off, b), (a.to(torch.bfloat16), b.to(torch.bfloat16))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.cuda_matmul(x, y, tc)
     assert kernels.cuda_matmul.launches == before
+
+
+# config 6b's block products as the tape hands them to K1, (m, k, n, a
+# transposed, b transposed): the forward [8192, 512] @ [512, 512 | 2048]
+# and [8192, 2048] @ [2048, 512]; the input gradients through the weights'
+# transposed views; the folded weight gradients, X^T @ G over all 8,192
+# tokens (both operands views of [4, 2048, .] activations); and ragged
+# shapes on the tensor-core tile
+TC_SHAPES = [(8192, 512, 512, False, False), (8192, 512, 2048, False, False),
+             (8192, 2048, 512, False, False), (8192, 512, 512, False, True),
+             (8192, 2048, 512, False, True), (8192, 512, 2048, False, True),
+             (512, 8192, 512, True, False), (512, 8192, 2048, True, False),
+             (2048, 8192, 512, True, False), (1000, 516, 1028, False, False),
+             (332, 1028, 260, True, True)]
+TC_FACTOR = 4.0  # the contract of the attention kernels and of long K
+
+
+def _tc_operands(m, k, n, ta, tb, dev, seed=0):
+    """The 6b layouts: a transposed A is the [tokens, m] activations of a
+    [4, tokens / 4, m] tensor, folded and transposed; B likewise."""
+    gen = torch.Generator().manual_seed(seed)
+    if ta:
+        a = torch.randn(4, k // 4, m, generator=gen).to(dev)
+        a = a.reshape(-1, m).T
+    else:
+        a = torch.randn(m, k, generator=gen).to(dev)
+    b = torch.randn((n, k) if tb else (k, n), generator=gen).to(dev)
+    return a, (b.T if tb else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+def test_cuda_tensor_core_tile_holds_against_float64(shape):
+    # 3xTF32 within TC_FACTOR times the f32 plain version's (cuBLAS, TF32
+    # off) error against float64; plain TF32 misses that; reruns of a plan
+    # are bit-identical; tc_launches counts each launch
+    from tinynn_autograd_tpu_torch.ops import tf32
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n, ta, tb = shape
+    a, b = _tc_operands(*shape, dev)
+    assert kernels.tc_aligned(a, b)
+    plan = kernels.plan_matmul(m, n, k, aligned=True)
+    assert plan.config == kernels.MATMUL_TC, plan
+    before = (kernels.cuda_matmul.launches, kernels.cuda_matmul.tc_launches)
+    got = kernels.cuda_matmul(a, b)
+    again = kernels.cuda_matmul(a, b)
+    torch.cuda.synchronize()
+    assert (kernels.cuda_matmul.launches, kernels.cuda_matmul.tc_launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    exact = torch.matmul(a.double(), b.double())
+    mine, f32, plain_tf32 = [
+        float((c.double() - exact).abs().max())
+        for c in (got, kernels.matmul_reference(a, b), tf32.matmul_tf32(a, b))]
+    assert mine <= TC_FACTOR * f32, (shape, mine, f32)
+    assert plain_tf32 > TC_FACTOR * f32, (shape, plain_tf32, f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_cuda_tensor_core_tile_matches_reference_at_every_split(split):
+    # the tensor-core tile at these splits over the four layouts it reads,
+    # with ragged edges in m, n and k
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ragged against the 128x128 tile and the 32-deep stages, and every
+    # stride a multiple of 4 (the tile's 16-byte rows)
+    m, k, n = 2 * 128 + 4, 32 * 5 * split - 20, 128 + 12
+    slices, chunk = kernels._k_slices(k, split, kernels.MATMUL_TC_BK)
+    assert slices == split
+    plan = kernels.MatmulPlan(kernels.MATMUL_TC, 128, 128, split, chunk)
+    for ta in (False, True):
+        for tb in (False, True):
+            a, b = _operands(m, k, n, ta, tb, dev, torch.float32)
+            assert kernels.tc_aligned(a, b)
+            _hold_matmul(a, b, torch.float32, "%s %s" % (ta, tb), plan)
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_products_keep_the_cuda_core_tiles():
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(1000 * 517 + 1, generator=gen).to(dev)[1:].view(1000, 517)
+    b = torch.randn(517, 300, generator=gen).to(dev)
+    assert not kernels.tc_aligned(a, b)
+    before = kernels.cuda_matmul.tc_launches
+    _hold_matmul(a, b, torch.float32, "unaligned")
+    assert kernels.cuda_matmul.tc_launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_folded_products_go_through_the_kernel():
+    # a Dense on a sequence: [4, 2048, 512] @ [512, 2048] is one launch of
+    # the tensor-core tile, and its dW one more, through dot_
+    from tinynn_autograd_tpu_torch.core.tensor import Tensor
+    from tinynn_autograd_tpu_torch.ops import primitives
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    x = Tensor(torch.randn(4, 2048, 512, generator=gen).to(dev),
+               requires_grad=True)
+    w = Tensor(torch.randn(512, 2048, generator=gen).to(dev) * 0.05,
+               requires_grad=True)
+    before = (kernels.cuda_matmul.launches, kernels.cuda_matmul.tc_launches)
+    y = primitives.dot_(x, w)
+    y.backward(torch.ones(4, 2048, 2048, device=dev))
+    torch.cuda.synchronize()
+    assert (kernels.cuda_matmul.launches - before[0],
+            kernels.cuda_matmul.tc_launches - before[1]) == (3, 3)
+    xs, ws = x.data.reshape(-1, 512), w.data
+    np.testing.assert_allclose(y.data.reshape(-1, 2048).cpu().numpy(),
+                               kernels.matmul_reference(xs, ws).cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    g = torch.ones(8192, 2048, device=dev)
+    np.testing.assert_allclose(
+        w.grad.cpu().numpy(), kernels.matmul_reference(xs.T, g).cpu().numpy(),
+        rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_folded_rows_past_the_grid_launch_in_runs():
+    # [2, rows / 2, 16] @ [16, 24] with more rows than a launch's grid holds:
+    # two launches through matmul, one result
+    dev = _cuda()
+    rows = kernels.MATMUL_MAX_ROWS + 200
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(2, rows // 2, 16, generator=gen).to(dev)
+    b = torch.randn(16, 24, generator=gen).to(dev)
+    before = kernels.cuda_matmul.launches
+    got = kernels.matmul(a, b)
+    torch.cuda.synchronize()
+    assert kernels.cuda_matmul.launches == before + 2
+    assert tuple(got.shape) == (2, rows // 2, 24)
+    want = kernels.matmul_reference(a.reshape(-1, 16), b)
+    torch.testing.assert_close(got.reshape(-1, 24), want, rtol=1e-5,
+                               atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -847,12 +996,15 @@ def test_cuda_transformer_step_launches_the_attention_kernels():
            fused_epoch.cuda_fused_epoch, se.cuda_stream_forward,
            se.cuda_stream_backward)
     before = [f.launches for f in fns]
+    tc = kernels.cuda_matmul.tc_launches
     losses = model.train_epoch(x, y, batch_size=4)
     torch.cuda.synchronize()
-    # per step: two blocks, so two of each attention kernel; the head
-    # Dense's forward, dW and dx on K1
-    assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 4, 6, 0,
+    # per step: two blocks, so two of each attention kernel; on K1 each
+    # block's six Dense products forward, dW and dx (36, on the tensor-core
+    # tile) and the head Dense's three
+    assert [f.launches - n for f, n in zip(fns, before)] == [4, 4, 4, 78, 0,
                                                              0, 0]
+    assert kernels.cuda_matmul.tc_launches - tc == 72
     assert losses.shape == (2,) and torch.isfinite(losses).all()
 
 

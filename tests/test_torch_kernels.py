@@ -119,6 +119,84 @@ def test_plan_is_a_valid_launch(m, k, n):
         kernels.H100_SMS * per_sm)
 
 
+# config 6b's 36 block products a step, as (m, k, n): each block's six
+# forward products, their input gradients (through the weights' transposed
+# views) and their weight gradients over all 8,192 tokens (K = 8,192)
+CONFIG6B_BLOCK_PRODUCTS = [
+    (8192, 512, 512), (8192, 512, 2048), (8192, 2048, 512),
+    (8192, 512, 512), (8192, 2048, 512), (8192, 512, 2048),
+    (512, 8192, 512), (512, 8192, 2048), (2048, 8192, 512)]
+
+
+@pytest.mark.parametrize("m,k,n", CONFIG6B_BLOCK_PRODUCTS)
+def test_plan_puts_6b_block_products_on_the_tensor_cores(m, k, n):
+    plan = kernels.plan_matmul(m, n, k, aligned=True)
+    assert plan.config == kernels.MATMUL_TC
+    # unaligned operands keep the CUDA-core tiles
+    assert kernels.plan_matmul(m, n, k).config != kernels.MATMUL_TC
+
+
+@pytest.mark.parametrize("m,k,n", STEP_PRODUCTS + CONFIG6B_PRODUCTS)
+def test_plan_keeps_latency_bound_products_on_the_cuda_cores(m, k, n):
+    # the flagship's train-step products and 6b's head, even where their
+    # operands would fit the tensor-core tile
+    assert kernels.plan_matmul(m, n, k, aligned=True).config \
+        != kernels.MATMUL_TC
+
+
+@pytest.mark.parametrize("m,k,n", ALL_PRODUCTS + CONFIG6B_BLOCK_PRODUCTS)
+def test_tensor_core_plan_is_a_valid_launch(m, k, n):
+    plan = kernels.plan_matmul(m, n, k, aligned=True)
+    bm, bn, per_sm, _ = kernels.MATMUL_TILES[plan.config]
+    assert (plan.bm, plan.bn) == (bm, bn)
+    assert 1 <= plan.split <= kernels.MATMUL_MAX_SPLIT
+    stage = (kernels.MATMUL_TC_BK if plan.config == kernels.MATMUL_TC
+             else kernels.MATMUL_BK)
+    assert plan.k_chunk % stage == 0
+    assert (plan.split - 1) * plan.k_chunk < k <= plan.split * plan.k_chunk
+    tiles = -(-m // bm) * -(-n // bn)
+    assert plan.split == 1 or tiles * (plan.split - 1) < (
+        kernels.H100_SMS * per_sm)
+
+
+def test_tc_aligned_reads_the_operands_layout():
+    a = torch.randn(64, 32)
+    b = torch.randn(32, 48)
+    assert kernels.tc_aligned(a, b)
+    # transposed views: the unit stride along the rows (A^T, W^T)
+    assert kernels.tc_aligned(torch.randn(32, 64).T, torch.randn(48, 32).T)
+    # rows off 16-byte alignment, a stride that is no multiple of 4, no
+    # unit stride, other dtypes
+    off = torch.randn(64 * 32 + 1)[1:].view(64, 32)
+    assert not kernels.tc_aligned(off, b)
+    assert not kernels.tc_aligned(a, torch.randn(32, 50)[:, :48])
+    assert not kernels.tc_aligned(torch.randn(64, 64)[:, ::2], b)
+    assert not kernels.tc_aligned(a.to(torch.bfloat16), b)
+    assert not kernels.tc_aligned(a, b.double())
+
+
+@pytest.mark.parametrize("rows", [
+    64 * 65536,                        # a Dense on 64 x 65,536 tokens
+    kernels.MATMUL_MAX_ROWS,           # one launch's most rows
+    kernels.MATMUL_MAX_ROWS + 1,
+    3 * kernels.MATMUL_MAX_ROWS + 100])
+def test_folded_rows_past_the_grid_launch_in_runs(rows):
+    # a folded product's rows past the grid's 65535 row tiles are launched
+    # in runs that cover them in order, each a valid launch of any tile,
+    # each starting on a multiple of 64 rows (as aligned as the whole)
+    runs = kernels.matmul_row_runs(rows)
+    assert runs[0][0] == 0 and runs[-1][1] == rows
+    assert all(end == start for (_, end), (start, _) in zip(runs, runs[1:]))
+    assert len(runs) == -(-rows // kernels.MATMUL_MAX_ROWS)
+    for r0, r1 in runs:
+        assert r0 % 64 == 0 and 0 < r1 - r0 <= kernels.MATMUL_MAX_ROWS
+        for aligned in (False, True):
+            plan = kernels.plan_matmul(r1 - r0, 512, 512, aligned=aligned)
+            assert -(-(r1 - r0) // plan.bm) <= 65535
+    assert kernels.MATMUL_MAX_ROWS == 65535 * min(
+        t[0] for t in kernels.MATMUL_TILES)
+
+
 def test_plan_refuses_empty_products():
     with pytest.raises(ValueError, match="positive"):
         kernels.plan_matmul(0, 4, 4)
@@ -159,12 +237,28 @@ def test_bf16_precision_mode_returns_f32():
         kernels.set_matmul_precision("tf32")
 
 
-def test_non_2d_products_stay_torch_matmul():
+def test_non_2d_products_stay_torch_matmul(monkeypatch):
+    # an N-D operand times a 2-D weight is one 2-D product over its folded
+    # rows (a view of them); two N-D operands stay torch.matmul
+    seen, reference = [], kernels.matmul_reference
+
+    def record(a, b):
+        seen.append((tuple(a.shape), tuple(b.shape), a.data_ptr()))
+        return reference(a, b)
+
+    monkeypatch.setattr(kernels, "matmul_reference", record)
     a = torch.randn(2, 5, 7)
     b = torch.randn(7, 3)
     before = kernels.cuda_matmul.launches
-    np.testing.assert_allclose(kernels.matmul(a, b).numpy(),
-                               torch.matmul(a, b).numpy(), rtol=1e-6)
+    got = kernels.matmul(a, b)
+    assert tuple(got.shape) == (2, 5, 3)
+    np.testing.assert_allclose(got.numpy(), torch.matmul(a, b).numpy(),
+                               rtol=1e-6)
+    assert seen == [((10, 7), (7, 3), a.data_ptr())]
+    batched = torch.randn(2, 7, 3)
+    np.testing.assert_allclose(kernels.matmul(a, batched).numpy(),
+                               torch.matmul(a, batched).numpy(), rtol=1e-6)
+    assert len(seen) == 1
     assert kernels.cuda_matmul.launches == before
 
 

@@ -84,6 +84,9 @@ CASES = {
     "dot_transposed_view": (lambda o, a, b: a.T @ b, [randn(13, 9), randn(13, 6)], RED),
     "dot_batched": (lambda o, a, b: a @ b, [randn(2, 5, 7), randn(7, 3)], RED),
     "dot_batched_broadcast": (lambda o, a, b: a @ b, [randn(2, 1, 5, 7), randn(3, 7, 4)], RED),
+    "dot_4d_2d": (lambda o, a, b: a @ b, [randn(2, 3, 5, 7), randn(7, 4)], RED),
+    "dot_3d_3d": (lambda o, a, b: a @ b, [randn(2, 5, 7), randn(2, 7, 3)], RED),
+    "dot_broadcast_weight": (lambda o, a, b: a @ b, [randn(2, 5, 7), randn(1, 7, 3)], RED),
     "exp": (lambda o, a: o.exp(a), [randn(3, 4)], EW),
     "log": (lambda o, a: a.log(), [positive(3, 4)], EW),
     "sum_all": (lambda o, a: a.sum(), [randn(3, 4, 5)], RED),
@@ -146,6 +149,47 @@ def test_primitive_matches_jax(name):
         assert tg.shape == jg.shape, (i, tg.shape, jg.shape)
         np.testing.assert_allclose(tg, jg, err_msg="grad of input %d" % i,
                                    **tol)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7), (2, 3, 5, 7)], ids=str)
+def test_folded_dot_matches_the_batched_and_summed_form(shape):
+    # an N-D a times a 2-D w: the forward and dX as one 2-D product over
+    # a's rows, dW as one 2-D product over them (not B products summed)
+    rng = np.random.RandomState(5)
+    a_np = rng.randn(*shape).astype(np.float32)
+    w_np = rng.randn(shape[-1], 4).astype(np.float32)
+    cot = rng.randn(*shape[:-1], 4).astype(np.float32)
+    a = TTensor(a_np, requires_grad=True)
+    w = TTensor(w_np, requires_grad=True)
+    out = tops.dot_(a, w)
+    out.backward(cot)
+    ta, tw, tc = (torch.from_numpy(x) for x in (a_np, w_np, cot))
+    np.testing.assert_allclose(out.numpy(), torch.matmul(ta, tw).numpy(),
+                               **RED)
+    np.testing.assert_allclose(np.asarray(a.grad),
+                               torch.matmul(tc, tw.T).numpy(), **RED)
+    batched = torch.matmul(ta.transpose(-1, -2), tc)
+    summed = batched.reshape(-1, *batched.shape[-2:]).sum(0)
+    np.testing.assert_allclose(np.asarray(w.grad), summed.numpy(), **RED)
+
+
+@pytest.mark.parametrize("w_shape", [(2, 7, 3), (1, 7, 3)],
+                         ids=["3d_3d", "broadcast_weight"])
+def test_n_d_weights_keep_torch_matmul(monkeypatch, w_shape):
+    # both operands N-D: the forward and both VJPs stay torch.matmul
+    from tinynn_autograd_tpu_torch.ops import kernels
+
+    calls = []
+    reference = kernels.matmul_reference
+    monkeypatch.setattr(kernels, "matmul_reference",
+                        lambda a, b: calls.append(1) or reference(a, b))
+    rng = np.random.RandomState(6)
+    a = TTensor(rng.randn(2, 5, 7).astype(np.float32), requires_grad=True)
+    w = TTensor(rng.randn(*w_shape).astype(np.float32), requires_grad=True)
+    out = tops.dot_(a, w)
+    out.backward(np.ones(out.shape, np.float32))
+    assert calls == []
+    assert tuple(np.asarray(w.grad).shape) == w_shape
 
 
 def test_backward_accumulates_into_leaves():

@@ -90,7 +90,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
+
+using tinynn::split_tf32;
 
 constexpr unsigned GOLDEN = 2654435761u;
 
@@ -159,17 +163,6 @@ constexpr int THREADS = 128;
 template <int D>
 __host__ __device__ constexpr int pitch() {
   return D + 4;
-}
-
-// f32 -> TF32 as the CPU emulation's `split_tf32` does it: hi rounded to
-// nearest, ties away from zero, on the 13 dropped mantissa bits (an
-// integer add of half their range, then a mask); lo the remainder x - hi
-// (exact in f32) cut to TF32 by the same mask, towards zero. hi + lo holds
-// x to within 2^-21 of |x|.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
 }
 
 // c += a b on one m16n8k8 tile: TF32 operands, f32 accumulators.

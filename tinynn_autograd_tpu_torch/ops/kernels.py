@@ -2,24 +2,32 @@
 PyTorch version on the CPU.
 
 The FLOP sink of the framework is matmul: the forward of ``dot_`` and both of
-its VJPs. On a CUDA device every 2-D float product goes to the tiled kernel in
-``csrc/matmul.cu`` (the counterpart of the JAX package's Pallas
-``_mm_kernel``); on the CPU it goes to ``matmul_reference``, the same
-arithmetic in plain PyTorch. Products that are not 2-D stay ``torch.matmul``.
+its VJPs. On a CUDA device every float product of a 2-D operand by a 2-D
+weight goes to the tiled kernel in ``csrc/matmul.cu`` (the counterpart of
+the JAX package's Pallas ``_mm_kernel``); on the CPU it goes to
+``matmul_reference``, the same arithmetic in plain PyTorch. An
+``[..., m, k] @ [k, n]`` product (a Dense on a sequence) is the 2-D
+product ``[(... m), k] @ [k, n]``, reshaped back. Products of two N-D
+operands stay ``torch.matmul``.
 
-Each product's launch follows a host-side plan, ``plan_matmul(m, n, k)``:
-one of the kernel's four tile configurations and a K-split (the blocks of
-a thread block cluster that share an output tile), chosen so that the
-product puts about a wave of blocks on the card's SMs. It is plain Python,
-so the CPU tests check it.
+Each product's launch follows a host-side plan, ``plan_matmul(m, n, k,
+aligned=...)``: one of the kernel's tile configurations and a K-split (the
+blocks of a thread block cluster that share an output tile), chosen so
+that the product puts about a wave of blocks on the card's SMs. Four
+configurations multiply on the CUDA cores; the fifth, for f32 operands
+that ``tc_aligned`` admits, on the tensor cores in 3xTF32. The plan
+weighs them by a cost model of what it sees: the sizes and whether the
+operands' layout fits the tensor-core tile. It is plain Python, so the
+CPU tests check it.
 
 Dispatch policy
 ---------------
 ``matmul(a, b)``:
-  - both operands 2-D floats on a CUDA device: ``cuda_matmul`` (the kernel).
-    It launches or raises; nothing falls back to ``torch.matmul`` or to the
-    CPU when the build, the launch or the device is missing.
-  - both operands 2-D floats on the CPU: ``matmul_reference``.
+  - a 2-D float ``b`` and a float ``a`` of 2 or more dims on a CUDA device:
+    ``cuda_matmul`` (the kernel). It launches or raises; nothing falls back
+    to ``torch.matmul`` or to the CPU when the build, the launch or the
+    device is missing.
+  - the same on the CPU: ``matmul_reference``.
   - anything else: ``torch.matmul``, accumulating sub-32-bit floats in f32.
 
 Every kernel of the package (``csrc/<name>.cu``) is compiled with ``nvcc`` at
@@ -98,16 +106,26 @@ MATMUL_BK = 16        # BK in csrc/matmul.cu: the depth of a stage
 MATMUL_MAX_SPLIT = 8  # MAX_SPLIT: the portable cluster size
 H100_SMS = 132
 
-# The kernel's tile configurations (Small, Wide, Large, Large1 in
-# csrc/matmul.cu): (rows, columns) of a block's output tile, the blocks an
-# SM holds at once, and the share of an SM's f32 FMA peak that 1, 2, ...
-# co-resident blocks reach together. Measured on the H100 at config 8's and
-# the eval's products (bench_matmul_plans.py): a block alone on an SM (8
-# warps) hides too little latency, but for Large1, whose registers are not
-# cut to fit two blocks an SM. chip_smoke.py and bench_matmul_plans.py fail
-# where the card holds other blocks an SM than these (matmul_occupancy).
+# The kernel's tile configurations (Small, Wide, Large, Large1 and the
+# tensor-core tile in csrc/matmul.cu): (rows, columns) of a block's output
+# tile, the blocks an SM holds at once, and the share of an SM's f32 FMA
+# peak that 1, 2, ... co-resident blocks reach together. Measured on the
+# H100 at config 8's and the eval's products (bench_matmul_plans.py): a
+# block alone on an SM (8 warps) hides too little latency, but for Large1,
+# whose registers are not cut to fit two blocks an SM. The tensor-core
+# tile's share is above 1: 3xTF32 on the tensor cores outruns the FMA peak
+# (1.1-1.3 at config 6b's block products). chip_smoke.py and
+# bench_matmul_plans.py fail where the card holds other blocks an SM than
+# these (matmul_occupancy).
 MATMUL_TILES = ((64, 64, 3, (0.3, 0.37, 0.36)), (128, 64, 2, (0.3, 0.5)),
-                (128, 128, 2, (0.3, 0.5)), (128, 128, 1, (0.55,)))
+                (128, 128, 2, (0.3, 0.5)), (128, 128, 1, (0.55,)),
+                (128, 128, 1, (1.25,)))
+MATMUL_TC = 4      # the tensor-core tile's configuration
+MATMUL_TC_BK = 32  # tc::BK in csrc/matmul.cu: its stages' depth
+# A launch's row tiles run along grid y, at most 65535 of them: a product
+# of more than 65535 of the smallest tile's 64 rows (a Dense over more than
+# 4.19M folded tokens) is launched once for each run of that many rows
+MATMUL_MAX_ROWS = 65535 * 64
 
 # Clusters of more than this many blocks only for launches of at most
 # MATMUL_WIDE_CLUSTER_BLOCKS blocks: on the H100 clusters of 7 and 8 ran
@@ -120,37 +138,59 @@ MATMUL_WIDE_CLUSTER_BLOCKS = 64
 # The plan's cost model, in microseconds of one block on one SM: an SM's
 # share of the H100's f32 FMA peak (67 TFLOP/s over 132 SMs, in
 # multiply-adds a microsecond), the latency before a block's first FMA (its
-# first loads), and a split's cluster barriers and its reads of the other
+# first loads; the tensor-core tile's deeper stages and larger epilogue
+# take longer), and a split's cluster barriers and its reads of the other
 # blocks' partial tiles through distributed shared memory (bytes a
 # microsecond). Estimates, for ranking plans.
 _FMA_PER_US = 67e12 / 2 / H100_SMS / 1e6
 _FIRST_LOAD_US = 1.5
+_TC_FIRST_LOAD_US = 3.0
 _CLUSTER_SYNC_US = 0.5
 _DSMEM_BYTES_PER_US = 100e3
 
 MatmulPlan = namedtuple("MatmulPlan", "config bm bn split k_chunk")
 
 
-def _k_slices(k, split):
+def _k_slices(k, split, bk=MATMUL_BK):
     """(the slices K is cut into, each slice's length): slices of whole
-    stages, every one non-empty, at most ``split`` of them."""
+    stages of ``bk``, every one non-empty, at most ``split`` of them."""
     per_slice = -(-k // split)
-    chunk = -(-per_slice // MATMUL_BK) * MATMUL_BK
+    chunk = -(-per_slice // bk) * bk
     return -(-k // chunk), chunk
 
 
+def _tc_readable(ptr, s_rows, s_k):
+    return ptr % 16 == 0 and ((s_k == 1 and s_rows % 4 == 0)
+                              or (s_rows == 1 and s_k % 4 == 0))
+
+
+def tc_aligned(a, b):
+    """Whether the tensor-core tile can read ``a`` [m, k] @ ``b`` [k, n]:
+    both f32, each with a unit stride along K or along its rows (A's m,
+    B's n), the other stride a multiple of 4 elements, and a 16-byte
+    aligned start, so that every row it reads is read 16 bytes at a time.
+    The rule of ``tc_unit`` in csrc/matmul.cu."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        return False
+    (sa_m, sa_k), (sb_k, sb_n) = a.stride(), b.stride()
+    return (_tc_readable(a.data_ptr(), sa_m, sa_k)
+            and _tc_readable(b.data_ptr(), sb_n, sb_k))
+
+
 @functools.lru_cache(maxsize=4096)
-def plan_matmul(m, n, k, sms=H100_SMS):
+def plan_matmul(m, n, k, sms=H100_SMS, aligned=False):
     """The launch of one [m, k] @ [k, n] product: a ``MatmulPlan`` of the
     tile configuration (its index and its bm x bn output tile), the K-split
     (the blocks of a cluster that share a tile, each a slice of ``k_chunk``
-    of K) and the slice length. Among the configurations and the splits of
-    1 to 8 it takes the least modelled time: the launch's waves of blocks
-    over ``sms`` SMs, in each the most blocks an SM runs at once times a
-    block's multiply-adds at the share of the SM's peak that many reach,
-    after the latency of the first loads, plus the split's reduction. A
-    split is tried only while the next smaller one leaves room on the SMs,
-    so a product whose tiles fill the card is never split, and clusters past
+    of K) and the slice length. ``aligned``: the operands fit the
+    tensor-core tile (``tc_aligned``); without it the plan keeps to the
+    CUDA-core tiles. Among the configurations and the splits of 1 to 8 it
+    takes the least modelled time: the launch's waves of blocks over
+    ``sms`` SMs, in each the most blocks an SM runs at once times a block's
+    multiply-adds at the share of the SM's peak that many reach, after the
+    latency of the first loads, plus the split's reduction. A split is
+    tried only while the next smaller one leaves room on the SMs, so a
+    product whose tiles fill the card is never split, and clusters past
     ``MATMUL_WIDE_CLUSTER`` blocks only in small launches; ties go to fewer
     splits, then to larger tiles."""
     if min(m, n, k) < 1:
@@ -158,13 +198,18 @@ def plan_matmul(m, n, k, sms=H100_SMS):
                          % (m, n, k))
     best = None
     for config, (bm, bn, per_sm, shares) in enumerate(MATMUL_TILES):
+        tensor_cores = config == MATMUL_TC
+        if tensor_cores and not aligned:
+            continue
+        bk, first_load = ((MATMUL_TC_BK, _TC_FIRST_LOAD_US) if tensor_cores
+                          else (MATMUL_BK, _FIRST_LOAD_US))
         tiles = -(-m // bm) * -(-n // bn)
         for split in range(1, MATMUL_MAX_SPLIT + 1):
             if tiles * (split - 1) >= sms * per_sm or (
                     split > MATMUL_WIDE_CLUSTER
                     and tiles * split > MATMUL_WIDE_CLUSTER_BLOCKS):
                 break
-            slices, chunk = _k_slices(k, split)
+            slices, chunk = _k_slices(k, split, bk)
             if slices == split:
                 us, left = 0.0, tiles * split
                 while left > 0:
@@ -172,7 +217,7 @@ def plan_matmul(m, n, k, sms=H100_SMS):
                     at_once = -(-wave // sms)
                     us += (at_once * bm * bn * chunk
                            / (shares[at_once - 1] * _FMA_PER_US)
-                           + _FIRST_LOAD_US)
+                           + first_load)
                     left -= wave
                 if split > 1:
                     us += _CLUSTER_SYNC_US + 4 * bm * bn / _DSMEM_BYTES_PER_US
@@ -292,13 +337,18 @@ def cuda_matmul(a, b, plan=None):
     ``a`` [M, K] and ``b`` [K, N] are CUDA tensors of float32 or bfloat16 on
     one device, in any strided layout (transposed views are read in place).
     Returns a new contiguous [M, N] tensor in ``promote(a, b)``, launched as
-    ``plan`` says (default ``plan_matmul`` for the device's SM count).
-    Raises on anything the kernel does not take; never computes the product
-    another way. ``cuda_matmul.launches`` counts the launches."""
-    if a.device.type != "cuda" or b.device.type != "cuda":
+    ``plan`` says (default ``plan_matmul`` for the device's SM count and
+    the operands' layout); a product of more than ``MATMUL_MAX_ROWS`` rows
+    launches once for each run of rows (``matmul_row_runs``). Raises on
+    anything the kernel does not take; never computes the product another
+    way. ``cuda_matmul.launches``
+    counts the launches, ``cuda_matmul.tc_launches`` those on the
+    tensor-core tile."""
+    if not (a.is_cuda and b.is_cuda):
         raise ValueError("cuda_matmul needs CUDA tensors, got %s and %s"
                          % (a.device, b.device))
-    if a.device != b.device:
+    index = a.get_device()
+    if b.get_device() != index:
         raise ValueError("operands on different devices: %s and %s"
                          % (a.device, b.device))
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
@@ -309,7 +359,7 @@ def cuda_matmul(a, b, plan=None):
                         % (a.dtype, b.dtype))
     m, k = a.shape
     n = b.shape[1]
-    if (m + 63) // 64 > 65535 or max(m, n, k) >= 2 ** 31:
+    if max(n, k) >= 2 ** 31:
         raise ValueError("shape %s @ %s exceeds the kernel's 32-bit sizes"
                          % (tuple(a.shape), tuple(b.shape)))
     out = torch.empty((m, n), dtype=torch.promote_types(a.dtype, b.dtype),
@@ -318,24 +368,47 @@ def cuda_matmul(a, b, plan=None):
         return out
     if k == 0:
         return out.zero_()
-    if plan is None:
-        index = a.device.index
-        plan = plan_matmul(m, n, k, _sm_count(
-            torch.cuda.current_device() if index is None else index))
     lib = load_library("matmul", _bind_matmul)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.tinynn_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[b.dtype], plan.config,
-        plan.split, plan.k_chunk, stream)
-    if err != 0:
-        raise RuntimeError("matmul kernel launch failed: CUDA error %d" % err)
-    cuda_matmul.launches += 1
+    # the current stream's raw handle: torch.cuda.current_stream builds a
+    # Stream object, 9 of this wrapper's 26 us a call on the H100's host,
+    # where a 6b step makes 39 calls
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if m <= MATMUL_MAX_ROWS:
+        _launch_matmul(lib, a, b, out, plan, index, stream)
+    else:
+        for r0, r1 in matmul_row_runs(m):
+            _launch_matmul(lib, a[r0:r1], b, out[r0:r1], plan, index, stream)
     return out
 
 
+def matmul_row_runs(m):
+    """The (first, end) rows of each launch of an ``m``-row product: runs
+    of ``MATMUL_MAX_ROWS``, the last one shorter. A run starts on a
+    multiple of 64 rows, so a run of rows is as aligned as the whole."""
+    return [(r0, min(r0 + MATMUL_MAX_ROWS, m))
+            for r0 in range(0, m, MATMUL_MAX_ROWS)]
+
+
+def _launch_matmul(lib, a, b, out, plan, index, stream):
+    """One launch of K1 for ``out`` = ``a`` @ ``b`` (``out`` contiguous
+    rows), as ``plan`` says or as ``plan_matmul`` plans it."""
+    (m, k), n = a.shape, b.shape[1]
+    if plan is None:
+        plan = plan_matmul(m, n, k, _sm_count(index), tc_aligned(a, b))
+    (sa_m, sa_k), (sb_k, sb_n) = a.stride(), b.stride()
+    err = lib.tinynn_matmul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, sa_m, sa_k,
+        sb_k, sb_n, _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[b.dtype],
+        plan.config, plan.split, plan.k_chunk, stream)
+    if err != 0:
+        raise RuntimeError("matmul kernel launch failed: CUDA error %d" % err)
+    cuda_matmul.launches += 1
+    if plan.config == MATMUL_TC:
+        cuda_matmul.tc_launches += 1
+
+
 cuda_matmul.launches = 0
+cuda_matmul.tc_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -351,14 +424,18 @@ def _acc_type(a, b):
 
 def matmul(a, b):
     """Device-dispatching matmul used by the ``dot_`` primitive and its VJPs.
-    Semantics are numpy.matmul (f32 accumulation always)."""
+    Semantics are numpy.matmul (f32 accumulation always). An N-D ``a`` times
+    a 2-D ``b`` is one 2-D product over ``a``'s rows folded together (a view
+    where its leading dims allow one)."""
     a, b, forced_out = _cast_inputs(a, b)
-    if (a.ndim == 2 and b.ndim == 2 and a.is_floating_point()
+    if (a.ndim >= 2 and b.ndim == 2 and a.is_floating_point()
             and b.is_floating_point()):
+        rows = a.reshape(-1, a.shape[-1])
         if a.is_cuda or b.is_cuda:
-            out = cuda_matmul(a, b)
+            out = cuda_matmul(rows, b)
         else:
-            out = matmul_reference(a, b)
+            out = matmul_reference(rows, b)
+        out = out.reshape(*a.shape[:-1], b.shape[1])
         return out if forced_out is None else out.to(forced_out)
     out_t = forced_out if forced_out is not None else _acc_type(a, b)
     if out_t is None:

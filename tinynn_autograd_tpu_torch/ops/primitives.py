@@ -136,8 +136,9 @@ def _swap_last2(x):
 
 def dot_(ts1, ts2):
     """c = a @ b with numpy.matmul semantics: 1-D operands and batched N-D
-    matmul with broadcast batch dims. A 2-D float product and both of its
-    VJPs go through ``kernels.matmul`` (the CUDA kernel on a GPU)."""
+    matmul with broadcast batch dims. A float product by a 2-D ``b`` (``a``
+    2-D or N-D, its rows folded into one 2-D product) and both of its VJPs
+    go through ``kernels.matmul`` (the CUDA kernel on a GPU)."""
     a, b = ts1.data, ts2.data
     values = kernels.matmul(a, b)
 
@@ -167,8 +168,17 @@ def dot_(ts1, ts2):
         def grad_fn_ts1(grad):
             return unbroadcast(kernels.matmul(grad, _swap_last2(b)), ts1.shape)
 
-        def grad_fn_ts2(grad):
-            return unbroadcast(kernels.matmul(_swap_last2(a), grad), ts2.shape)
+        if b.ndim == 2 and a.ndim > 2:
+            # (..., m, k) @ (k, n): dW is one 2-D product over every row of
+            # a, [k, (... m)] @ [(... m), n], not a batch of products summed
+            def grad_fn_ts2(grad):
+                return kernels.matmul(
+                    _swap_last2(a.reshape(-1, a.shape[-1])),
+                    grad.reshape(-1, grad.shape[-1]))
+        else:
+            def grad_fn_ts2(grad):
+                return unbroadcast(kernels.matmul(_swap_last2(a), grad),
+                                   ts2.shape)
 
     return build_binary_ops_tensor(ts1, ts2, grad_fn_ts1, grad_fn_ts2, values)
 

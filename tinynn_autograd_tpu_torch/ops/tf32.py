@@ -1,6 +1,8 @@
 """TF32 rounding and the 3xTF32 product in plain PyTorch: the arithmetic of
-the attention kernels' tensor-core products (``csrc/attention.cu``: the
-forward and the backward pair), so that the CPU tests can hold it.
+the tensor-core products of the attention kernels (``csrc/attention.cu``:
+the forward and the backward pair) and of K1's tensor-core tile
+(``csrc/matmul.cu``, configuration 4; the split is ``csrc/tf32.cuh``'s),
+so that the CPU tests can hold it.
 
 A TF32 value is an f32 whose 13 lowest mantissa bits are zero (10 explicit
 bits of mantissa, f32's exponent). The kernels split each f32 operand x into
@@ -14,9 +16,9 @@ cores is their own. Plain TF32 (one term, ``matmul_tf32``) keeps about
 three decimal digits.
 
 Nothing on the main path calls these: the kernels do this arithmetic on the
-card, and the plain versions of the kernels (``attention.py``) compute in
-f32. The tests use them to check the kernels' scheme against float64 and the
-JAX package.
+card, and the plain versions of the kernels (``attention.py``,
+``kernels.matmul_reference``) compute in f32. The tests use them to check
+the kernels' scheme against float64 and the JAX package.
 """
 
 import torch
