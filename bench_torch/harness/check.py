@@ -95,7 +95,9 @@ def program_readings(model, data, traffic, config):
 def reference_readings(config, traffic, seed, device, precision="f32",
                        fault=None):
     """The plain reference's readings of the same steps and eval, from its
-    own weights and data made again from the seed."""
+    own weights and data made again from the seed, trained on the
+    reference module's ``loss(logits, y)`` where it has one, else on
+    ``common.cross_entropy`` (one-hot rows)."""
     from reference import common
 
     common.exact()
@@ -106,8 +108,9 @@ def reference_readings(config, traffic, seed, device, precision="f32",
     def forward(p, x, prec):
         return ref.forward(p, config, x, prec)
 
-    out = common.train_readings(forward, params,
-                                _batches(data, traffic["batch"]),
+    out = common.train_readings(forward, getattr(ref, "loss",
+                                                 common.cross_entropy),
+                                params, _batches(data, traffic["batch"]),
                                 config["optimizer"], precision, fault)
     out["logits"] = None
     if traffic.get("eval"):

@@ -8,6 +8,7 @@ so the data do not depend on the weights' sizes, nor the order of the
 batches on either.
 """
 
+import importlib
 import math
 
 import torch
@@ -23,50 +24,11 @@ def generator(seed, stream, device):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
-def synthetic_mnist(gen, n_train, n_test, dim, classes, device):
-    """``utils/datasets.synthetic_mnist``'s task drawn on the device: a shared
-    sparse background and a sparse signature per class make 10
-    prototypes; each row keeps half its prototype's pixels at random and
-    adds uniform noise of 0.85 at most, clipped to [0, 1]. Returns the
-    train rows [n_train, dim] with one-hot labels [n_train, classes], and
-    the test rows with their class indices."""
-    shared = (torch.rand(dim, generator=gen, device=device) > 0.8).float()
-    signature = (torch.rand((classes, dim), generator=gen, device=device)
-                 > 0.9).float()
-    prototypes = torch.clamp(shared * 0.5 + signature * 0.38, 0.0, 1.0)
-
-    def split(n):
-        labels = torch.randint(0, classes, (n,), generator=gen, device=device)
-        keep = torch.rand((n, dim), generator=gen, device=device) > 0.5
-        noise = 0.85 * torch.rand((n, dim), generator=gen, device=device)
-        x = torch.clamp(prototypes[labels] * keep + noise, 0.0, 1.0)
-        return x, labels
-
-    x, labels = split(n_train)
-    x_test, labels_test = split(n_test)
-    onehot = torch.nn.functional.one_hot(labels, classes).float()
-    return {"x": x, "y": onehot, "x_test": x_test, "labels_test": labels_test}
-
-
-def random_tokens(gen, n_seq, seq_len, vocab, classes, device):
-    """Config 6b's data: uniform token ids [n_seq, seq_len] and uniform
-    labels, one-hot [n_seq, classes]."""
-    x = torch.randint(0, vocab, (n_seq, seq_len), generator=gen,
-                      device=device)
-    labels = torch.randint(0, classes, (n_seq,), generator=gen, device=device)
-    return {"x": x, "y": torch.nn.functional.one_hot(labels, classes).float()}
-
-
 def make_data(config, traffic, seed, device):
-    data = traffic["data"]
-    gen = generator(seed, DATA, device)
-    if data["kind"] == "synthetic_mnist":
-        return synthetic_mnist(gen, data["n_train"], data["n_test"],
-                               config["num_in"], config["num_out"], device)
-    if data["kind"] == "random_tokens":
-        return random_tokens(gen, data["n_seq"], traffic["seq_len"],
-                             config["vocab"], config["num_out"], device)
-    raise ValueError("unknown data kind %r" % data["kind"])
+    """The run's data, drawn by the traffic's data kind
+    (``data/<kind>.py``) from the seed's data stream."""
+    kind = importlib.import_module("data.%s" % traffic["data"]["kind"])
+    return kind.make(generator(seed, DATA, device), config, traffic, device)
 
 
 def make_params(spec, seed, device):

@@ -79,7 +79,8 @@ class Loop:
                 (self.steps_per_epoch, self.batch)
                 + tuple(self.data["x"].shape[1:]))
             self._ys = self.data["y"][perm].reshape(
-                (self.steps_per_epoch, self.batch, -1))
+                (self.steps_per_epoch, self.batch)
+                + tuple(self.data["y"].shape[1:]))
         self._prev = self._event()
         self._pos = 0
 

@@ -2,9 +2,23 @@
 the files it names, found by name.
 
 - a configuration: ``bench_torch/configs/<config>.json`` (the entry's
-  ``file``), its sizes and its reference's family;
+  ``file``), its sizes and its ``family``;
+- a family, by the configuration's ``family``: the program side,
+  ``bench_torch/families/<family>.py`` with ``net(config, traffic)`` (the
+  port's ``Net``, built through the port's own model functions),
+  ``loss(config)`` (the port's loss object, which takes the targets as the
+  data kind makes them) and ``small(config, traffic)`` (the CPU tests'
+  cut); and the plain reference, ``bench_torch/reference/<family>.py``
+  with ``param_spec(config, traffic)``, ``forward(params, config, x,
+  precision)`` and, where its targets are not one-hot rows, ``loss(logits,
+  y)`` (``reference/common.py``'s ``cross_entropy`` otherwise);
 - a traffic mix: ``bench_torch/traffic/<traffic>.json``, the parameters
   that the one general generator (``harness/loop.py``) reads;
+- a data kind, by the traffic's ``data["kind"]``:
+  ``bench_torch/data/<kind>.py`` with ``make(gen, config, traffic,
+  device)``, which draws the data from the seed's generator on the device;
+  its targets ``y`` may be one-hot rows or class ids of any shape, such as
+  next-token ids [n, T];
 - a cell's correctness limits: ``bench_torch/workloads/<cell>.json``;
 - a metric, end to end or per layer: ``bench_torch/metrics/<name>.py``, a
   reader with ``read(ctx) -> float | None`` and, where it reads kernel
@@ -14,8 +28,10 @@ the files it names, found by name.
   ``bench_torch/metrics/<base>.py``, taken where no file of its own name
   exists.
 
-A later cell or metric is a set of new files and new entries here; no
-file of the harness changes.
+A later cell, metric, configuration, family or data kind is a set of new
+files and new entries here; no file of the harness changes. A new cell
+joins a metric that has a ``workloads`` list by having its name appended
+to that list.
 """
 
 import importlib.util

@@ -1,18 +1,18 @@
 """The program under test, the PyTorch and CUDA port, as the benchmark uses
-it: a ``Model`` built through the port's own model functions, losses and
-optimizers, with the benchmark's seeded weights bound in place of the
-functions' draws, and what the checks read back from it.
+it: a ``Model`` of the configuration's family (``families/<family>.py``:
+the net built through the port's own model functions, and the family's
+loss) with the port's Adam, the benchmark's seeded weights bound in place
+of the functions' draws, and what the checks read back from it.
 
-This is the one module of the harness that imports the program.
+This module and ``families/`` are the harness modules that import the
+program.
 """
+
+import importlib
 
 import torch
 
-from tinynn_autograd_tpu_torch.models import (
-    build_mnist_mlp, build_tiny_transformer,
-)
 from tinynn_autograd_tpu_torch.nn.evaluator import AccEvaluator
-from tinynn_autograd_tpu_torch.nn.losses import SoftmaxCrossEntropyLoss
 from tinynn_autograd_tpu_torch.nn.model import Model
 from tinynn_autograd_tpu_torch.nn.optimizer import Adam
 from tinynn_autograd_tpu_torch.utils import seeder
@@ -20,18 +20,10 @@ from tinynn_autograd_tpu_torch.utils import seeder
 EVALUATOR = AccEvaluator
 
 
-def _net(config, traffic):
-    if config["family"] == "mlp":
-        return build_mnist_mlp(num_in=config["num_in"],
-                               hidden=tuple(config["hidden"]),
-                               num_out=config["num_out"])
-    if config["family"] == "transformer":
-        return build_tiny_transformer(
-            vocab=config["vocab"], seq_len=traffic["seq_len"],
-            dim=config["dim"], heads=config["heads"], depth=config["depth"],
-            num_out=config["num_out"], causal=config["causal"],
-            mlp_ratio=config["mlp_ratio"])
-    raise ValueError("unknown family %r" % config["family"])
+def family(config):
+    """The module of ``families/<family>.py``: the program side of the
+    configuration's family."""
+    return importlib.import_module("families.%s" % config["family"])
 
 
 def build(config, traffic, params, seed, device):
@@ -40,7 +32,8 @@ def build(config, traffic, params, seed, device):
     net's own leaf in shape. The program's generator, which seeds its
     on-device shuffle, is seeded from ``seed``."""
     seeder.random_seed(int(seed) % 2 ** 32)
-    net = _net(config, traffic)
+    fam = family(config)
+    net = fam.net(config, traffic)
     tree = net.params_tree()
     names = {"%d.%s" % (i, k) for i, leaves in enumerate(tree)
              for k in leaves}
@@ -56,7 +49,7 @@ def build(config, traffic, params, seed, device):
         tree[int(i)][k] = value.clone()
     net.bind_params(tree)
     opt = config["optimizer"]
-    return Model(net, SoftmaxCrossEntropyLoss(),
+    return Model(net, fam.loss(config),
                  Adam(lr=opt["lr"], beta1=opt["beta1"], beta2=opt["beta2"],
                       epsilon=opt["eps"]), device=device)
 
@@ -94,6 +87,4 @@ def logits(model, x):
 def counter(module, attr):
     """The launch counter of the program's kernel wrapper ``attr`` of
     ``module``."""
-    import importlib
-
     return getattr(importlib.import_module(module), attr)

@@ -1,6 +1,7 @@
 """What the references share: the product in a stated precision, the
-softmax cross-entropy, Adam, and the readings of a model's first three
-train steps.
+softmax cross-entropy on one-hot rows (the default loss: a reference
+module may define its own ``loss(logits, y)``), Adam, and the readings of
+a model's first three train steps.
 
 ``precision`` is "f32" (TF32 off: the configurations' own precision) or
 "tf32", the nearest precision below it, which serves as the control: each
@@ -14,7 +15,8 @@ test of their own reach):
 - "half_batch": each step uses the first half of its batch, the mean taken
   over it;
 - "wrong_label": a token altered where it is produced: the first step's
-  batch carries its last row's label moved to the next class;
+  batch carries its last row's targets moved to the next class (a one-hot
+  row rolled by one; ids plus one, modulo the width of the logits);
 - "wrong_answer": an answer altered where it is produced: the eval's first
   row reports the second row's logits;
 - "fresh_state": the optimizer's state lost between calls: the second
@@ -78,6 +80,14 @@ def cross_entropy(logits, onehot):
     return -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=1).mean()
 
 
+def wrong_label(y, width):
+    """``y`` with its last row's targets moved to the next class: one-hot
+    rows (float) rolled by one, class ids plus one modulo ``width``."""
+    y = y.clone()
+    y[-1] = y[-1].roll(1) if y.is_floating_point() else (y[-1] + 1) % width
+    return y
+
+
 def adam_(p, g, m, v, t, opt):
     """One Adam step of leaf ``p`` in place (Kingma and Ba, with the bias
     corrections)."""
@@ -89,12 +99,13 @@ def adam_(p, g, m, v, t, opt):
     p.sub_(opt["lr"] * m_hat / (v_hat.sqrt() + opt["eps"]))
 
 
-def train_readings(forward, params, batches, opt, precision="f32",
+def train_readings(forward, loss_fn, params, batches, opt, precision="f32",
                    fault=None):
-    """The readings of the train steps on ``batches`` [(x, onehot)] from
-    ``params`` ({name: tensor}, copied): each step's loss, the first
-    step's gradient, each leaf's change after the first step and after
-    the last, and Adam's moments after the last."""
+    """The readings of the train steps on ``batches`` [(x, y)] from
+    ``params`` ({name: tensor}, copied), each step's loss
+    ``loss_fn(logits, y)``: each step's loss, the first step's gradient,
+    each leaf's change after the first step and after the last, and Adam's
+    moments after the last."""
     if fault == "wrong_beta2":
         opt = dict(opt, beta2=0.99)
     p = {k: v.detach().clone().requires_grad_(True)
@@ -105,15 +116,15 @@ def train_readings(forward, params, batches, opt, precision="f32",
     for step, (x, y) in enumerate(batches, 1):
         if fault == "half_batch":
             x, y = x[:len(x) // 2], y[:len(y) // 2]
-        if fault == "wrong_label" and step == 1:
-            y = y.clone()
-            y[-1] = y[-1].roll(1)
         if fault == "fresh_state" and step == 2:
             t = 0
             for k in params:
                 m[k].zero_()
                 v2[k].zero_()
-        loss = cross_entropy(forward(p, x, precision), y)
+        logits = forward(p, x, precision)
+        if fault == "wrong_label" and step == 1:
+            y = wrong_label(y, logits.shape[-1])
+        loss = loss_fn(logits, y)
         grads = torch.autograd.grad(loss, list(p.values()))
         losses.append(float(loss.detach()))
         if grad is None:

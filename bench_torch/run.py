@@ -15,8 +15,10 @@ follows the check's steps; each number compared is printed beside its
 limit on standard error, and under "checks", last, in the result line,
 which is the last line of standard output.
 
-Exits 2, printing no result, without enough CUDA devices, and 3 where the
-checkout lacks the program.
+Exits 2, printing no result, without enough CUDA devices, 3 where the
+checkout lacks the program, and 4 where, once the window has closed, the
+process holds JAX, its libraries or the JAX package (``FORBIDDEN``, by
+whole top-level names).
 """
 
 import time
@@ -33,6 +35,13 @@ from pathlib import Path  # noqa: E402
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 PROGRAM = "tinynn_autograd_tpu_torch"
+FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "tinynn_autograd_tpu"})
+
+
+def forbidden_modules():
+    """The top-level names in ``sys.modules`` that ``FORBIDDEN`` lists."""
+    return sorted({name.split(".", 1)[0] for name in sys.modules}
+                  & FORBIDDEN)
 
 
 def power_limit():
@@ -84,6 +93,11 @@ def main(argv=None):
 
     result = runner.run(bench, args.workload, args.seed, args.seconds,
                          bool(args.trace), "cuda", T_START)
+    found = forbidden_modules()
+    if found:
+        print("no result: the process holds %s" % ", ".join(found),
+              file=sys.stderr)
+        return 4
     if args.trace:
         result["device"]["power_limit_w"] = power_limit()
     checks = result.pop("checks")

@@ -9,9 +9,8 @@ import pytest
 
 import control
 from harness import check, manifest, runner
+from plant import plant
 from small import BENCH, sizes
-from tinynn_autograd_tpu_torch.nn.model import Model
-from tinynn_autograd_tpu_torch.nn.optimizer import Adam
 
 CELLS = [c["name"] for c in BENCH["workloads"]]
 SEED = 2 ** 31 + 977
@@ -35,72 +34,13 @@ def test_sound_run_is_correct(cell):
     assert {"setup_s"} < set(result["metrics"]) <= want
 
 
-_CALLS = []
-
-
-def _lose_state_on_second_call(cls, name, monkeypatch):
-    """Wrap the entry ``name`` so that the second call into either entry
-    starts from a fresh optimizer state."""
-    call = getattr(cls, name)
-
-    def planted(self, *args, **kwargs):
-        _CALLS.append(name)
-        if len(_CALLS) == 2:
-            self.optimizer.reset()
-        return call(self, *args, **kwargs)
-
-    monkeypatch.setattr(cls, name, planted)
-
-
-def _plant(fault, monkeypatch):
-    _CALLS.clear()
-    if fault == "frozen":
-        monkeypatch.setattr(Model, "_apply_grads", lambda self, grads: None)
-        return
-    if fault == "fresh_state":
-        for name in ("train_epochs", "train_step"):
-            _lose_state_on_second_call(Model, name, monkeypatch)
-        return
-    if fault == "wrong_beta2":
-        init = Adam.__init__
-
-        def wrong(self, *args, **kwargs):
-            init(self, *args, **kwargs)
-            self._b2 = 0.99
-
-        monkeypatch.setattr(Adam, "__init__", wrong)
-        return
-    if fault == "wrong_answer":
-        predict = Model.predict
-
-        def wrong(self, x):
-            out = predict(self, x)
-            out.data[0] = out.data[1].clone()
-            return out
-
-        monkeypatch.setattr(Model, "predict", wrong)
-        return
-    step, calls = Model._step, []
-
-    def planted(self, xb, yb):
-        if fault == "half_batch":
-            return step(self, xb[:len(xb) // 2], yb[:len(yb) // 2])
-        if not calls:
-            yb = yb.clone()
-            yb[-1] = yb[-1].roll(1)
-        calls.append(1)
-        return step(self, xb, yb)
-
-    monkeypatch.setattr(Model, "_step", planted)
-
-
 FAULT_CASES = [(cell, fault) for cell in CELLS
                for fault in control.sides(sizes(cell)[1])[2:]]
 
 
 @pytest.mark.parametrize("cell, fault", FAULT_CASES)
 def test_fault_is_not_correct(cell, fault, monkeypatch):
-    _plant(fault, monkeypatch)
+    plant(fault, monkeypatch)
     result = _run(cell)
     assert not result["correct"], (fault, result["checks"])
 

@@ -1,13 +1,15 @@
 """The manifest: BENCHMARK.json against the benchmark's contract, and the
 loader finding each cell's and each metric's files by name."""
 
+import importlib
 import math
 import re
+import sys
 from pathlib import Path
 
 import pytest
 
-from harness import manifest
+from harness import check, manifest, program
 from reference import mlp, transformer
 
 BENCH = manifest.load()
@@ -45,7 +47,13 @@ def test_each_cell_finds_its_files():
         config = manifest.config(BENCH, cell["config"])
         traffic = manifest.traffic(cell["traffic"])
         limits = manifest.limits(cell["name"])
-        assert config["family"] in ("mlp", "transformer")
+        family = program.family(config)
+        assert all(callable(getattr(family, f))
+                   for f in ("net", "loss", "small"))
+        ref = check.reference_module(config)
+        assert callable(ref.param_spec) and callable(ref.forward)
+        kind = importlib.import_module("data.%s" % traffic["data"]["kind"])
+        assert callable(kind.make)
         assert traffic["entry"] in ("train_epoch", "train_step")
         assert {"grad", "state"} <= set(limits)
         assert ("logits" in limits) == bool(traffic.get("eval"))
@@ -69,7 +77,9 @@ def test_loader_by_name():
     names = [m["name"] for m in manifest.metrics(BENCH,
                                                  "mlp_mnist.epochs_eval", 1)]
     assert names == ["mfu.mlp", "eval_ms_p95", "k2_roofline",
-                     "k1_roofline.eval", "device_idle.mlp"]
+                     "k1_roofline.eval", "device_idle.mlp", "epoch_host_ms",
+                     "eval_host_ms", "k2_phase_us.forward",
+                     "k2_phase_us.backward", "k2_phase_us.optimizer"]
     reader = manifest.reader("k2_roofline")
     assert "fused_epoch_kernel" in reader.KERNELS
 
@@ -82,6 +92,25 @@ def test_split_metrics_share_a_reader():
     assert shared.__file__.endswith("device_idle.py")
     own = manifest.reader("k1_roofline.eval")
     assert own.__file__.endswith("k1_roofline.eval.py")
+
+
+def test_t256_metrics_read_as_their_namesakes():
+    """t256's throughput and per-layer metrics are the t2048 cell's
+    readings under names of their own (``<name>.t256``), so that t256's
+    throughput takes a bound of its own."""
+    by_name = {m["name"]: m for m in BENCH["end_to_end"] + BENCH["per_layer"]}
+    parts = [n for n in by_name if n.endswith(".t256")]
+    assert len(parts) == 8
+    for name in parts:
+        base = by_name[name[:-len(".t256")]]
+        assert by_name[name]["workloads"] == ["transformer_6b.train_t256"]
+        assert base["workloads"] == ["transformer_6b.train_t2048"]
+        assert by_name[name].get("moves") == (
+            base["moves"] + ".t256" if "moves" in base else None)
+        mine, theirs = manifest.reader(name), manifest.reader(base["name"])
+        assert mine.read.__code__.co_filename == \
+            theirs.read.__code__.co_filename
+        assert getattr(mine, "KERNELS", {}) == getattr(theirs, "KERNELS", {})
 
 
 def test_parameter_counts():
@@ -98,6 +127,19 @@ def test_no_jax():
                          r"(?!_torch)", re.M)
     for path in manifest.BENCH_DIR.rglob("*.py"):
         assert not pattern.search(path.read_text()), path
+
+
+def test_forbidden_modules(monkeypatch):
+    import run
+
+    clean = {name: module for name, module in sys.modules.items()
+             if name.split(".", 1)[0] not in run.FORBIDDEN}
+    monkeypatch.setattr(sys, "modules", clean)
+    assert run.forbidden_modules() == []
+    for name in ("jax.numpy", "flax", "tinynn_autograd_tpu.ops",
+                 "tinynn_autograd_tpu_torch_x", "jaxtyping"):
+        clean[name] = None
+    assert run.forbidden_modules() == ["flax", "jax", "tinynn_autograd_tpu"]
 
 
 def test_references_import_no_program():
