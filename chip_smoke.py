@@ -50,13 +50,15 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    layouts (the forward over 8,192 tokens, dX through the weights'
    transposed views, dW folded over the tokens at K = 8,192) each planned
    on the tensor-core tile and launched there (``tc_launches``), against
-   float64 within the same 4x cuBLAS's f32 error that TF32 must miss;
-   split-K reruns bit-identical. Then each product's device time through
-   the kernel and torch.matmul (cuBLAS, TF32 off: the plain version) in
-   turns, with its plan (tile, split, cluster) and bound, and the sums of
-   a flagship step, the eval, a config-8 step, and a 6b step's 36 block
-   products and all its 39 (bounds at 3xTF32); the flagship step's 14
-   back to back.
+   float64 within the same 4x cuBLAS's f32 error that TF32 must miss, and
+   so Mellum 2's six expert layouts (an expert's nine products) at a
+   ragged M of 4,093 rows, K or N of 896; split-K reruns bit-identical.
+   Then each product's device time through the kernel and torch.matmul
+   (cuBLAS, TF32 off: the plain version) in turns, with its plan (tile,
+   split, cluster) and bound, and the sums of a flagship step, the eval, a
+   config-8 step, a 6b step's 36 block products and all its 39, and a
+   Mellum 2 expert's nine (bounds at 3xTF32); the flagship step's 14 back
+   to back.
 4. fused epoch vs plain: K2 against ``fused_epoch_reference`` on the card
    for 10 flagship steps from pinned seed-1 weights: losses (rtol 1e-5,
    atol 1e-6), parameters, Adam slots and the step count (rtol 1e-4, atol
@@ -158,9 +160,11 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    every shape of ATTN_SHAPES (config 6b's, the TPU's K4b and K4c shapes,
    config 6's, windows of 512 and of 40 over a ragged 300, GQA 8q/2kv,
    cross attention 256/384, dropout 0.1, head dims 128 with GQA and
-   dropout, and 40), o and lse at rtol 1e-4/atol 1e-5, dq/dk/dv at rtol
-   1e-4 and an atol of 1e-4 of their own largest plain value, reruns
-   bit-identical; at config 6b and K4c's shape the three kernels (3xTF32
+   dropout, and 40, Mellum 2's 32:4 GQA of head dim 128 over 4 x 8,192
+   tokens banded to 1,024 keys and full; the plain versions a (batch row,
+   kv head) group at a time there), o and lse at rtol 1e-4/atol 1e-5,
+   dq/dk/dv at rtol 1e-4 and an atol of 1e-4 of their own largest plain
+   value, reruns bit-identical; at config 6b and K4c's shape the three kernels (3xTF32
    on the tensor cores) against a float64 plain version, o, lse, dq, dk
    and dv each within 4x the f32 plain version's error, a limit the plain
    version with TF32 allowed must miss; then at config 6b, K4b's and K4c's
@@ -307,6 +311,18 @@ CONFIG6B_BLOCK = [((8192, 512, 512, False, False), 4),
                   ((512, 8192, 512, True, False), 4),
                   ((512, 8192, 2048, True, False), 1),
                   ((2048, 8192, 512, True, False), 1)]
+# Mellum 2's expert products as ``grouped_swiglu_`` hands them to K1, on one
+# held expert's block of a ragged M = 4,093 rows (~4,096 tokens an expert
+# a step), each with its count an expert: the forward's gate and up
+# ([M, 2304] @ [2304, 896]) and down ([M, 896] @ [896, 2304]); dh through
+# down's transposed view, dX's two through gate's and up's; ddown as
+# (act * up)^T @ dE and dgate, dup as X^T @ dG, folded over the M rows
+MELLUM2_EXPERT = [((4093, 2304, 896, False, False), 2),
+                  ((4093, 896, 2304, False, False), 1),
+                  ((4093, 2304, 896, False, True), 1),
+                  ((4093, 896, 2304, False, True), 2),
+                  ((896, 4093, 2304, True, False), 1),
+                  ((2304, 4093, 896, True, False), 2)]
 # config 8's products past K = LONG_K on unit-normal operands: there the
 # rounding of an f32 sum reaches the f32 gate's atol (on the H100 K1's one
 # chain of K products an output errs by 2.6-3.9e-4 against float64 at
@@ -391,7 +407,9 @@ T_PARITY_STEPS = 5
 # dropout): config 6b's shape (K4's row-band forward and K4d's gridded
 # backward on the TPU), the shapes that take K4b (T=512) and K4c (non-causal
 # T=2048) there, config 6's, a 512 window over 2048 (config 6d), a window
-# narrower than a tile over a ragged T, GQA 8q/2kv, cross attention, dropout
+# narrower than a tile over a ragged T, GQA 8q/2kv, cross attention, dropout,
+# and Mellum 2's two layer kinds at its step (32:4 GQA of head dim 128 over
+# 4 x 8,192 tokens, banded to 1,024 keys, or full)
 ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "k4b_t512": (4, 8, 8, 512, 512, 64, True, None, 0.0),
                "k4c_noncausal": (4, 8, 8, 2048, 2048, 64, False, None, 0.0),
@@ -402,7 +420,15 @@ ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "cross_256_384": (2, 4, 4, 256, 384, 64, False, None, 0.0),
                "dropout": (1, 4, 4, 2048, 2048, 64, True, None, 0.1),
                "d128_gqa_dropout": (1, 4, 2, 200, 200, 128, True, None, 0.1),
-               "d40": (1, 2, 1, 100, 100, 40, False, None, 0.0)}
+               "d40": (1, 2, 1, 100, 100, 40, False, None, 0.0),
+               "mellum2_sliding": (4, 32, 4, 8192, 8192, 128, True, 1024,
+                                   0.0),
+               "mellum2_full": (4, 32, 4, 8192, 8192, 128, True, None, 0.0)}
+# the plain versions hold [B, H, Tq, Tk] scores whole; past PLAIN_SCORES
+# elements (Mellum 2's 34 GB a tensor) they run one (batch row, kv head)
+# group at a time: its query heads against its kv head, dk and dv summed
+# over the group whole
+PLAIN_SCORES = 2 ** 30
 ATTN_MAIN = "config6b"
 # timed too: the shapes that take K4b and K4c on the TPU
 ATTN_TIMED = ("k4b_t512", "k4c_noncausal")
@@ -649,23 +675,23 @@ def time_products(shapes, operand_pairs, counts=None, bound_of=bound):
     return total
 
 
-def check_6b_block_products(device, gen):
-    """6b's nine block layouts (``CONFIG6B_BLOCK``) through K1's wrapper:
-    each must plan the tensor-core tile and launch it (``tc_launches``
-    counts both launches of a rerun, which must be bit-identical). Held
-    against float64 within LONG_K_FACTOR times cuBLAS's f32 error (its K
-    is 512 to 8,192, where one f32 chain of K products reaches the f32
-    gate's atol), a limit cuBLAS's TF32 must miss; the largest difference
-    from the plain version (``matmul_reference``) is printed beside it.
-    Returns the operand pairs."""
+def check_tc_products(device, gen, layouts, label):
+    """``layouts`` [((m, k, n, ta, tb), count)] through K1's wrapper: each
+    must plan the tensor-core tile and launch it (``tc_launches`` counts
+    both launches of a rerun, which must be bit-identical). Held against
+    float64 within LONG_K_FACTOR times cuBLAS's f32 error (K of 512 and
+    more, where one f32 chain of K products reaches the f32 gate's atol), a
+    limit cuBLAS's TF32 must miss; the largest difference from the plain
+    version (``matmul_reference``) is printed beside it. Returns the
+    operand pairs."""
     pairs = []
-    for shape, _ in CONFIG6B_BLOCK:
+    for shape, _ in layouts:
         m, k, n = shape[:3]
         a, b = operands(*shape, torch.float32, device, gen)
         plan = kernels.plan_matmul(m, n, k, aligned=kernels.tc_aligned(a, b))
         if plan.config != kernels.MATMUL_TC:
-            raise AssertionError("6b's %s plans %s, not the tensor-core tile"
-                                 % (product_name(*shape), plan))
+            raise AssertionError("%s's %s plans %s, not the tensor-core tile"
+                                 % (label, product_name(*shape), plan))
         before = (kernels.cuda_matmul.launches,
                   kernels.cuda_matmul.tc_launches)
         got = kernels.cuda_matmul(a, b)
@@ -674,36 +700,36 @@ def check_6b_block_products(device, gen):
         after = (kernels.cuda_matmul.launches,
                  kernels.cuda_matmul.tc_launches)
         if after != (before[0] + 2, before[1] + 2):
-            raise AssertionError("6b's %s: two calls counted as %s launches "
+            raise AssertionError("%s's %s: two calls counted as %s launches "
                                  "and %s on the tensor-core tile" % (
-                                     product_name(*shape),
+                                     label, product_name(*shape),
                                      after[0] - before[0],
                                      after[1] - before[1]))
         if not torch.equal(got, again):
-            raise AssertionError("6b's %s: a rerun differs"
-                                 % product_name(*shape))
+            raise AssertionError("%s's %s: a rerun differs"
+                                 % (label, product_name(*shape)))
         mine, f32, tf32 = long_k_errors(a, b, got)
         plain = float((got - kernels.matmul_reference(a, b)).abs().max())
-        print("  6b %-24s plan %s: max |C - A B| against float64: kernel "
+        print("  %s %-24s plan %s: max |C - A B| against float64: kernel "
               "%.3g, cuBLAS f32 %.3g, cuBLAS TF32 %.3g; limit %.3g (%g x "
               "cuBLAS f32); max |C - plain| %.3g"
-              % (product_name(*shape), tuple(plan), mine, f32, tf32,
+              % (label, product_name(*shape), tuple(plan), mine, f32, tf32,
                  LONG_K_FACTOR * f32, LONG_K_FACTOR, plain))
         if not mine <= LONG_K_FACTOR * f32:
-            raise AssertionError("6b's %s: the kernel's error %.3g is past "
+            raise AssertionError("%s's %s: the kernel's error %.3g is past "
                                  "%g x cuBLAS's %.3g" % (
-                                     product_name(*shape), mine,
+                                     label, product_name(*shape), mine,
                                      LONG_K_FACTOR, f32))
         if not tf32 > LONG_K_FACTOR * f32:
-            raise AssertionError("6b's %s: TF32's error %.3g is within the "
+            raise AssertionError("%s's %s: TF32's error %.3g is within the "
                                  "limit %.3g: the check cannot tell f32 from "
-                                 "TF32" % (product_name(*shape), tf32,
+                                 "TF32" % (label, product_name(*shape), tf32,
                                            LONG_K_FACTOR * f32))
         pairs.append((a, b))
-    print("6b's %d block layouts on the tensor-core tile: within %g x "
-          "cuBLAS f32's error against float64, TF32 past it, reruns "
-          "bit-identical, each launch counted in tc_launches"
-          % (len(CONFIG6B_BLOCK), LONG_K_FACTOR))
+    print("%s's %d layouts on the tensor-core tile: within %g x cuBLAS "
+          "f32's error against float64, TF32 past it, reruns bit-identical, "
+          "each launch counted in tc_launches"
+          % (label, len(layouts), LONG_K_FACTOR))
     return pairs
 
 
@@ -775,7 +801,9 @@ def check_kernel(device):
           "config 8 on a step's operands, and on unit-normal ones where K <= "
           "%d), bf16 %.3g (tol rtol 2e-2 atol 2e-1)"
           % (worst[torch.float32], LONG_K, worst[torch.bfloat16]))
-    block_pairs = check_6b_block_products(device, gen)
+    block_pairs = check_tc_products(device, gen, CONFIG6B_BLOCK, "6b")
+    expert_pairs = check_tc_products(device, gen, MELLUM2_EXPERT,
+                                     "Mellum 2 expert")
     # split-K reruns
     split = 0
     for shape in STEP_SHAPES + CONFIG8_SHAPES + CONFIG6B_SHAPES + RAGGED:
@@ -812,6 +840,9 @@ def check_kernel(device):
         [s for s, _ in CONFIG6B_BLOCK], block_pairs,
         counts=[depth * c for _, c in CONFIG6B_BLOCK], bound_of=bound_3xtf32)
     n_blocks = depth * sum(c for _, c in CONFIG6B_BLOCK)
+    expert = time_products(
+        [s for s, _ in MELLUM2_EXPERT], expert_pairs,
+        counts=[c for _, c in MELLUM2_EXPERT], bound_of=bound_3xtf32)
     for what, t in (("one flagship train step's 14 products", step),
                     ("the 10,000-row eval product", evals),
                     ("one config-8 step's 10 products", c8),
@@ -819,7 +850,9 @@ def check_kernel(device):
                      "bound at 3xTF32)" % n_blocks, c6b_blocks),
                     ("one 6b step's %d products (bound at 3xTF32)"
                      % (n_blocks + len(CONFIG6B_SHAPES)),
-                     c6b_blocks + c6b_head)):
+                     c6b_blocks + c6b_head),
+                    ("one Mellum 2 expert's %d products at M 4,093 (bound at "
+                     "3xTF32)" % sum(c for _, c in MELLUM2_EXPERT), expert)):
         print("%s: device us kernel %.2f, cuBLAS %.2f; bound %.3f us; "
               "kernel at %.1f%% of the bound, %.2fx cuBLAS's time"
               % ((what,) + tuple(t) + (100.0 * t[2] / t[0], t[0] / t[1])))
@@ -1669,13 +1702,56 @@ def hold_grad(what, got, want):
     return float(np.max(np.abs(got - want)))
 
 
+def plain_groups(q, k, rate):
+    """None where the plain versions take the shape whole; past
+    PLAIN_SCORES score elements the index pairs (batch row and query heads,
+    batch row and kv head) of each (batch row, kv head) group."""
+    b, h, tq, _ = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if b * h * tq * tk <= PLAIN_SCORES:
+        return None
+    if rate:
+        raise ValueError("the plain keep mask needs every head at once")
+    group = h // hkv
+    return [((slice(i, i + 1), slice(j * group, (j + 1) * group)),
+             (slice(i, i + 1), slice(j, j + 1)))
+            for i in range(b) for j in range(hkv)]
+
+
+def plain_forward(q, k, v, **kw):
+    """``attention_forward_reference``, a group at a time past
+    PLAIN_SCORES."""
+    groups = plain_groups(q, k, kw["dropout_rate"])
+    if groups is None:
+        return attention.attention_forward_reference(q, k, v, **kw)
+    o, lse = torch.empty_like(q), q.new_empty(q.shape[:3] + (1,))
+    for qi, ki in groups:
+        o[qi], lse[qi] = attention.attention_forward_reference(
+            q[qi], k[ki], v[ki], **kw)
+    return o, lse
+
+
+def plain_backward(q, k, v, do, lse, delta, **kw):
+    """``attention_backward_reference``, a group at a time past
+    PLAIN_SCORES."""
+    groups = plain_groups(q, k, kw["dropout_rate"])
+    if groups is None:
+        return attention.attention_backward_reference(q, k, v, do, lse,
+                                                      delta, **kw)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for qi, ki in groups:
+        dq[qi], dk[ki], dv[ki] = attention.attention_backward_reference(
+            q[qi], k[ki], v[ki], do[qi], lse[qi], delta[qi], **kw)
+    return dq, dk, dv
+
+
 def check_attention_shape(device, name):
     """The three attention kernels against the plain versions at one shape;
     each rerun must be bit-identical. Returns each kernel's max abs err."""
     q, k, v, do, kw = attn_inputs(device, name)
     o, lse = attention.cuda_attention_forward(q, k, v, **kw)
     torch.cuda.synchronize()
-    o_r, lse_r = attention.attention_forward_reference(q, k, v, **kw)
+    o_r, lse_r = plain_forward(q, k, v, **kw)
     for what, a, b in (("o", o, o_r), ("lse", lse, lse_r)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    err_msg="%s: %s" % (name, what),
@@ -1697,8 +1773,7 @@ def check_attention_shape(device, name):
         runs.append((dq, dk, dv))
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("%s: two backward runs differ" % name)
-    want = attention.attention_backward_reference(q, k, v, do, lse_r, delta,
-                                                  **kw)
+    want = plain_backward(q, k, v, do, lse_r, delta, **kw)
     grads = [hold_grad("%s: %s" % (name, what), a, b)
              for what, a, b in zip(("dq", "dk", "dv"), runs[0], want)]
     errs["attention_backward_dq"] = grads[0]

@@ -190,5 +190,10 @@ def test_span_names_keep_to_the_rule():
     root = Path(tinynn_autograd_tpu_torch.__file__).parent
     names = {m for path in root.rglob("*.py") for m in re.findall(
         r"profiler\.span\(\"([^\"]+)\"\)", path.read_text())}
-    assert set(SPANS) | {"tinynn.k2.plan", "tinynn.k2.launch"} == names
+    # the expert language model's spans, which tests/test_torch_mellum.py
+    # records
+    moe_lm = {"tinynn.moe", "tinynn.moe.route", "tinynn.moe.dispatch",
+              "tinynn.moe.experts", "tinynn.moe.combine", "tinynn.attn.rope"}
+    assert set(SPANS) | {"tinynn.k2.plan", "tinynn.k2.launch"} | moe_lm \
+        == names
     assert all(n.startswith("tinynn.") and "_kernel" not in n for n in names)

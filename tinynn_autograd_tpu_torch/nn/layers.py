@@ -1,8 +1,10 @@
 """Network layers and activations: the MLP trainers', the transformer
 classifier's and the recurrent classifier's subset of the JAX package's
-nn/layers.py (Layer, Dense, DenseStack, LayerNorm, Embedding,
+nn/layers.py (Layer, Dense, DenseStack, LayerNorm, RMSNorm, Embedding,
 PositionalEmbedding, TransformerBlock, GlobalAvgPool1D, LSTM, GRU,
-Bidirectional, Flatten, Dropout, Activation, ReLU, Sigmoid, Tanh, GELU).
+Bidirectional, Flatten, Dropout, Activation, ReLU, Sigmoid, Tanh, GELU),
+and the mixture-of-experts language model's two decoder sublayers,
+AttentionBlock and TokenChoiceMoE, which the JAX package does not have.
 
 Every layer's forward is Tensor algebra over the tape primitives. Layers own
 their parameters as tape Tensors (so they are the framework's own classes,
@@ -20,7 +22,7 @@ from tinynn_autograd_tpu_torch.core.tensor import Tensor, to_torch
 from tinynn_autograd_tpu_torch.nn.initializer import (
     NormalInit, OnesInit, XavierUniformInit, ZerosInit,
 )
-from tinynn_autograd_tpu_torch.utils import seeder
+from tinynn_autograd_tpu_torch.utils import profiler, seeder
 
 
 def _init_scope(seed):
@@ -63,12 +65,14 @@ class Dense(Layer):
     """y = x @ w + b; w: [num_in, num_out], b: [1, num_out]. ``num_in`` may
     be omitted and is inferred from the first input (lazy init). ``seed``
     pins the layer's parameter draws to a dedicated generator.
+    ``bias=False`` leaves b out: y = x @ w.
 
     Parameters are drawn on the CPU; ``Net.to`` moves them to the device.
     ``compute_dtype`` (mixed precision) is not ported yet and raises."""
 
     def __init__(self, num_out, num_in=None,
-                 w_init=None, b_init=None, seed=None, compute_dtype=None):
+                 w_init=None, b_init=None, seed=None, compute_dtype=None,
+                 bias=True):
         super().__init__("Linear")
         if compute_dtype is not None:
             raise NotImplementedError(
@@ -81,6 +85,8 @@ class Dense(Layer):
         }
         self.shapes = {"w": [num_in, num_out], "b": [1, num_out]}
         self.params = {"w": None, "b": None}
+        if not bias:
+            del self.shapes["b"], self.params["b"]
         self._seed = seed
 
         self._is_init = False
@@ -94,6 +100,8 @@ class Dense(Layer):
     def forward(self, inputs):
         if not self._is_init:
             self._init_parameters(inputs.shape[-1])
+        if "b" not in self.params:
+            return inputs @ self.params["w"]
         return inputs @ self.params["w"] + self.params["b"]
 
     def init_params(self, input_shape):
@@ -105,8 +113,8 @@ class Dense(Layer):
     def _init_parameters(self, input_size):
         self.shapes["w"][0] = int(input_size)
         with _init_scope(self._seed):
-            self.params["w"] = self.initializers["w"](self.shapes["w"])
-            self.params["b"] = self.initializers["b"](self.shapes["b"])
+            for k in self.params:
+                self.params[k] = self.initializers[k](self.shapes[k])
         self._is_init = True
 
 
@@ -208,6 +216,43 @@ class LayerNorm(Layer):
         self.params["gamma"] = self.initializers["gamma"](self.shapes["gamma"])
         self.params["beta"] = self.initializers["beta"](self.shapes["beta"])
         self._is_init = True
+
+
+class RMSNorm(Layer):
+    """RMS normalization over the last axis with a learned scale g [1, dim]
+    (``ops.rms_norm_``, hand VJPs), as the JAX package's RMSNorm. ``dim``
+    may be omitted and is inferred from the first input (lazy init)."""
+
+    def __init__(self, dim=None, eps=1e-6, gamma_init=None):
+        super().__init__("RMSNorm")
+        self.eps = eps
+        self.initializers = {
+            "g": gamma_init if gamma_init is not None else OnesInit(),
+        }
+        self.shapes = {"g": [1, dim]}
+        self.params = {"g": None}
+        self._is_init = False
+        if dim is not None:
+            self._init_parameters(dim)
+
+    @property
+    def is_init(self):
+        return self._is_init
+
+    def init_params(self, input_shape):
+        if not self._is_init:
+            self._init_parameters(input_shape[-1])
+        return tuple(input_shape)
+
+    def _init_parameters(self, dim):
+        self.shapes = {"g": [1, int(dim)]}
+        self.params["g"] = self.initializers["g"](self.shapes["g"])
+        self._is_init = True
+
+    def forward(self, inputs):
+        if not self._is_init:
+            self._init_parameters(inputs.shape[-1])
+        return ops.rms_norm_(inputs, self.params["g"], eps=self.eps)
 
 
 class Embedding(Layer):
@@ -405,6 +450,185 @@ class TransformerBlock(Layer):
         if drop and self.dropout > 0.0:
             y = ops.dropout_(y, self.dropout, seeds[2])
         return x + y
+
+
+def _draw(shapes, seed):
+    """{key: a leaf of ``shapes[key]``}: Xavier uniform weights (each 2-D,
+    so each draws with its own fans) and unit scales for the keys "g"."""
+    init, ones = XavierUniformInit(), OnesInit()
+    with _init_scope(seed):
+        return {k: ones(shape) if k == "g" else init(shape)
+                for k, shape in shapes.items()}
+
+
+class AttentionBlock(Layer):
+    """The attention half of a pre-RMSNorm decoder layer, no biases:
+    x + o(attn(rmsnorm(x))) on x [B, T, dim].
+
+    q [dim, num_heads * head_dim], k and v [dim, num_kv_heads * head_dim]
+    and o [num_heads * head_dim, dim] are separate projections, so the
+    query width need not be ``dim``; ``num_kv_heads`` divides
+    ``num_heads`` (grouped-query attention, run as such by
+    ``ops.flash_attention_``). q and k are rotated by ``ops.rope_``
+    (half-split) with the tables of ``rope_theta``, or YaRN's where
+    ``yarn`` gives its parameters (``ops.rope_tables``). The attention is
+    causal, scaled by 1/sqrt(head_dim), and with ``window`` banded to the
+    keys in (p - window, p]. While ``utils/profiler`` records, the two
+    rotations are the span ``tinynn.attn.rope``."""
+
+    def __init__(self, dim, num_heads, num_kv_heads, head_dim, window=None,
+                 rope_theta=10000.0, yarn=None, eps=1e-6, seed=None):
+        super().__init__("AttentionBlock")
+        if num_heads % num_kv_heads:
+            raise ValueError("num_kv_heads %d does not divide num_heads %d"
+                             % (num_kv_heads, num_heads))
+        self.dim, self.head_dim = dim, head_dim
+        self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+        self.window, self.eps = window, eps
+        self.rope_theta, self.yarn = float(rope_theta), yarn
+        self._tables = {}
+        q, kv = num_heads * head_dim, num_kv_heads * head_dim
+        self.shapes = {"g": [1, dim], "wq": [dim, q], "wk": [dim, kv],
+                       "wv": [dim, kv], "wo": [q, dim]}
+        self.params = _draw(self.shapes, seed)
+
+    def init_params(self, input_shape):
+        return tuple(input_shape)
+
+    def _rope(self, t, device):
+        """cos, sin [t, 1, head_dim / 2] on ``device``, made once."""
+        key = (t, str(device))
+        if key not in self._tables:
+            self._tables[key] = tuple(
+                table.to(device)[:, None, :] for table in ops.rope_tables(
+                    t, self.head_dim, self.rope_theta, self.yarn))
+        return self._tables[key]
+
+    def forward(self, inputs):
+        p = self.params
+        b, t, _ = inputs.shape
+        h, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        xn = ops.rms_norm_(inputs, p["g"], eps=self.eps)
+        q = (xn @ p["wq"]).reshape((b, t, h, hd))
+        k = (xn @ p["wk"]).reshape((b, t, hkv, hd))
+        v = (xn @ p["wv"]).reshape((b, t, hkv, hd))
+        cos, sin = self._rope(t, inputs.device)
+        with profiler.span("tinynn.attn.rope"):
+            q, k = ops.rope_(q, cos, sin), ops.rope_(k, cos, sin)
+        heads = (0, 2, 1, 3)  # [B, T, H, hd] -> [B, H, T, hd], a view
+        ctx = ops.flash_attention_(
+            q.transpose(heads), k.transpose(heads), v.transpose(heads),
+            causal=True, scale=1.0 / np.sqrt(hd), window=self.window)
+        return inputs + ctx.transpose(heads).reshape((b, t, h * hd)) @ p["wo"]
+
+
+class TokenChoiceMoE(Layer):
+    """The expert half of a pre-RMSNorm decoder layer, no biases:
+    x + moe(rmsnorm(x)), with ``num_experts`` SwiGLU experts of width
+    ``width`` and ``top_k`` of them a token, no capacity limit (no token is
+    dropped) and no auxiliary loss.
+
+    The router, W_r [dim, num_experts], gives s = softmax(x W_r); a token
+    goes to the experts S of its ``top_k`` largest s, with weights
+    w_j = s_j / sum over S of s (the weights renormalised over S).
+
+    The layer holds the experts ``experts_held`` (global ids; the leaves
+    "e<id>_gate" [dim, width], "e<id>_up" [dim, width] and "e<id>_down"
+    [width, dim]), as one rank of expert parallelism does: it routes over
+    all the experts and adds only its own experts' part,
+    sum over S and held of w_j * down_j(silu(gate_j x) * up_j x). On one
+    device the exchange of an expert-parallel layer has nothing to do.
+    The router takes its gradient through the held experts' w_j, the
+    whole top-k denominator included.
+
+    The dispatch sorts the (token, expert) pairs of the held experts by
+    expert on the device and reads the experts' counts back to the host,
+    once a call (the layer's one host sync); the tokens' rows are
+    gathered into one block, each expert's three products run on its
+    contiguous rows (``ops.grouped_swiglu_``), and the weighted rows are
+    added back to their tokens. While ``utils/profiler`` records, a call
+    is the span ``tinynn.moe`` with the children ``.route``, ``.dispatch``,
+    ``.experts`` and ``.combine``, and adds to the counters
+    ``moe.routed_pairs`` (the pairs computed), ``moe.max_expert_tokens``
+    (the busiest held expert's tokens) and ``moe.syncs`` (read-backs)."""
+
+    def __init__(self, dim, width, num_experts, top_k, experts_held=None,
+                 eps=1e-6, seed=None):
+        super().__init__("TokenChoiceMoE")
+        held = sorted(range(num_experts) if experts_held is None
+                      else {int(e) for e in experts_held})
+        if not held or held[0] < 0 or held[-1] >= num_experts:
+            raise ValueError("experts_held %s are not experts of %d"
+                             % (experts_held, num_experts))
+        if not 1 <= top_k <= num_experts:
+            raise ValueError("top_k %d of %d experts" % (top_k, num_experts))
+        self.dim, self.width = dim, width
+        self.num_experts, self.top_k = num_experts, top_k
+        self.experts_held, self.eps = held, eps
+        self._local = {}
+        self.shapes = {"g": [1, dim], "wr": [dim, num_experts]}
+        for e in held:
+            self.shapes.update({"e%d_gate" % e: [dim, width],
+                                "e%d_up" % e: [dim, width],
+                                "e%d_down" % e: [width, dim]})
+        self.params = _draw(self.shapes, seed)
+
+    def init_params(self, input_shape):
+        return tuple(input_shape)
+
+    def forward(self, inputs):
+        shape = inputs.shape
+        with profiler.span("tinynn.moe"):
+            x = inputs.reshape((-1, self.dim))
+            y = self.experts_part(ops.rms_norm_(x, self.params["g"],
+                                                eps=self.eps))
+        return inputs + y.reshape(shape)
+
+    def _local_ids(self, device):
+        """[num_experts] int64 on ``device``: a held expert's place among the
+        held ones, len(held) for the others."""
+        key = str(device)
+        if key not in self._local:
+            ids = torch.full((self.num_experts,), len(self.experts_held),
+                             dtype=torch.int64)
+            ids[self.experts_held] = torch.arange(len(self.experts_held))
+            self._local[key] = ids.to(device)
+        return self._local[key]
+
+    def _dispatch(self, top):
+        """(the held pairs' places in the flat [tokens * top_k] routing, by
+        expert and then by token; each held expert's count on the host)."""
+        n_held = len(self.experts_held)
+        key = self._local_ids(top.device)[top.reshape(-1)]
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=n_held + 1)[:n_held].tolist()
+        routed = sum(counts)
+        profiler.count("moe.syncs")
+        profiler.count("moe.routed_pairs", routed)
+        profiler.count("moe.max_expert_tokens", max(counts))
+        return order[:routed], counts
+
+    def experts_part(self, xn):
+        """The held experts' part of the layer's output for normalised rows
+        xn [n, dim]: [n, dim], zero on the rows no held expert takes."""
+        p, k = self.params, self.top_k
+        n = xn.shape[0]
+        with profiler.span("tinynn.moe.route"):
+            probs = ops.softmax_(xn @ p["wr"], axis=-1)
+            top = ops.top_k_(probs, k)
+            weights = ops.take_along_axis_(probs, top)
+            weights = weights / weights.sum(axis=-1, keepdims=True)
+        with profiler.span("tinynn.moe.dispatch"):
+            pairs, counts = self._dispatch(top)
+            tokens = torch.div(pairs, k, rounding_mode="floor")
+            rows = ops.gather_rows_(xn, tokens)
+            pair_w = ops.gather_rows_(weights.reshape((n * k, 1)), pairs)
+        with profiler.span("tinynn.moe.experts"):
+            out = ops.grouped_swiglu_(rows, counts, [
+                (p["e%d_gate" % e], p["e%d_up" % e], p["e%d_down" % e])
+                for e in self.experts_held])
+        with profiler.span("tinynn.moe.combine"):
+            return ops.scatter_add_rows_(out * pair_w, tokens, n)
 
 
 class GlobalAvgPool1D(Layer):

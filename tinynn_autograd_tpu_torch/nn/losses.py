@@ -1,6 +1,7 @@
 """Loss functions: ``BaseLoss``, the per-row, numerically stable
 ``SoftmaxCrossEntropyLoss`` with its class-weight path, and ``MSELoss``, as
-in the JAX package's nn/losses.py."""
+in the JAX package's nn/losses.py; and ``SparseSoftmaxCrossEntropyLoss``,
+the same cross-entropy on class ids (a language model's next-token ids)."""
 
 import torch
 
@@ -41,6 +42,20 @@ class SoftmaxCrossEntropyLoss(BaseLoss):
             per_sample_w = (labels * self._weight).sum(axis=1, keepdims=True)
             nll = nll * per_sample_w
         return nll.sum() / m
+
+
+class SparseSoftmaxCrossEntropyLoss(BaseLoss):
+    """L = mean over every position of -log_softmax(logits)[id]: logits
+    [..., C] and int class ids [...] of the same leading shape (a language
+    model's next-token ids [B, T] against its logits [B, T, vocab]). No
+    one-hot rows are made."""
+
+    def loss(self, logits, ids):
+        logits = as_tensor(logits)
+        n_classes = logits.shape[-1]
+        log_p = ops.log_softmax_(logits.reshape((-1, n_classes)), axis=-1)
+        index = to_torch(ids).to(log_p.device).reshape(-1, 1)
+        return -ops.take_along_axis_(log_p, index).mean()
 
 
 class MSELoss(BaseLoss):

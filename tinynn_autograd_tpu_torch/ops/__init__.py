@@ -1,6 +1,7 @@
 """Functional op namespace: the primitives of the MLP trainers, the
-transformer classifier and the recurrent classifier plus coercing wrappers,
-as in the JAX package's ``ops`` namespace."""
+transformer classifier, the recurrent classifier and the mixture-of-experts
+language model, plus coercing wrappers, as in the JAX package's ``ops``
+namespace."""
 
 from tinynn_autograd_tpu_torch.core.tensor import as_tensor as _as_tensor
 from tinynn_autograd_tpu_torch.ops import kernels
@@ -20,8 +21,10 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     exp_,
     flash_attention_,
     flatten_,
+    gather_rows_,
     gelu_,
     getitem_,
+    grouped_swiglu_,
     layer_norm_,
     log_,
     log_softmax_,
@@ -33,11 +36,18 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     pow_,
     relu_,
     reshape_,
+    rms_norm_,
+    rope_,
+    rope_tables,
+    scatter_add_rows_,
     sigmoid_,
+    silu_,
     softmax_,
     sub_,
     sum_,
+    take_along_axis_,
     tanh_,
+    top_k_,
     transpose_,
     unbroadcast,
     where_,
@@ -104,6 +114,10 @@ def relu(obj):
 
 def gelu(obj):
     return gelu_(_as_tensor(obj))
+
+
+def silu(obj):
+    return silu_(_as_tensor(obj))
 
 
 def log_softmax(obj, axis=-1):

@@ -204,6 +204,8 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None,
             return ("layer %s sets compute_dtype: the kernel runs f32 math"
                     % layer.name)
         if isinstance(layer, Dense):
+            if "b" not in layer.params:
+                return "a Dense layer has no bias: the kernel's carry one"
             prev_dense = True
         elif _activation_code(layer) is not None:
             if not prev_dense:

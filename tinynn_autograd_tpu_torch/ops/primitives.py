@@ -2,12 +2,13 @@
 
 PyTorch counterpart of the JAX package's primitives (tinynn_autograd_tpu/ops/
 primitives.py), for the ops the MLP trainers and the transformer classifier
-use. Each primitive computes its forward value with torch calls (the 2-D
-matmul goes to the hand-written CUDA kernel on a GPU, see ``ops/kernels.py``;
-attention to the flash kernels, see ``ops/attention.py``) and registers
-hand-written VJP
-closures on the output Tensor. ``torch.autograd`` is NOT used; reverse mode
-is the framework's own tape (see ``core/tensor.py``).
+use, and the expert language model's routing ops and grouped experts (no
+JAX counterpart). Each primitive computes its forward value with torch
+calls (the 2-D matmul goes to the hand-written CUDA kernel on a GPU, see
+``ops/kernels.py``; attention to the flash kernels, see
+``ops/attention.py``) and registers hand-written VJP closures on the output
+Tensor. ``torch.autograd`` is NOT used; reverse mode is the framework's own
+tape (see ``core/tensor.py``).
 
 Broadcasting semantics: every binary VJP funnels through a single
 ``unbroadcast`` helper that reproduces numpy broadcasting reduction exactly.
@@ -18,6 +19,8 @@ Semantics kept from the JAX package where torch's built-ins differ:
 - reduce max/min send the FULL incoming gradient to every tied extreme.
 - ``getitem_`` accumulates gradients for repeated indices (scatter-add).
 """
+
+import math
 
 import numpy as np
 import torch
@@ -565,6 +568,230 @@ def layer_norm_(ts_x, ts_gamma, ts_beta, eps=1e-5):
                                           (ts_gamma, grad_fn_gamma),
                                           (ts_beta, grad_fn_beta))
                   if ts.requires_grad]
+    return ts_x.__class__(values, bool(dependency), dependency)
+
+
+def rms_norm_(ts_x, ts_gamma, eps=1e-6):
+    """RMS normalization over the LAST axis with a learned scale (no
+    centering, no shift; the llama-family norm), as the JAX package's:
+    y = x * rsqrt(mean(x^2) + eps) * gamma. Hand VJPs, with
+    r = rsqrt(mean(x^2) + eps) and xhat = x * r:
+      dx     = (gamma*g - xhat * mean(gamma*g * xhat)) * r
+      dgamma = sum over leading axes of g * xhat
+    """
+    x, gamma = ts_x.data, ts_gamma.data
+    r = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    xhat = x * r
+    values = xhat * gamma
+
+    def grad_fn_x(grad):
+        gg = grad * gamma
+        m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+        return (gg - xhat * m2) * r
+
+    def grad_fn_gamma(grad):
+        return unbroadcast(grad * xhat, ts_gamma.shape)
+
+    dependency = [(ts, fn) for ts, fn in ((ts_x, grad_fn_x),
+                                          (ts_gamma, grad_fn_gamma))
+                  if ts.requires_grad]
+    return ts_x.__class__(values, bool(dependency), dependency)
+
+
+def _silu(x):
+    """(x * sigmoid(x), sigmoid(x)) of a raw tensor."""
+    s = torch.sigmoid(x)
+    return x * s, s
+
+
+def _silu_grad(x, s):
+    """d silu(x) / dx, with s = sigmoid(x)."""
+    return s * (1.0 + x * (1.0 - s))
+
+
+def silu_(ts):
+    """SiLU (swish), x * sigmoid(x), the gate of SwiGLU MLPs; with
+    s = sigmoid(x), d/dx = s * (1 + x * (1 - s))."""
+    x = ts.data
+    values, s = _silu(x)
+
+    def grad_fn(grad):
+        return grad * _silu_grad(x, s)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def rope_tables(t, head_dim, theta, yarn=None):
+    """The rotary tables (cos, sin) [t, head_dim // 2] of positions 0..t-1,
+    computed in float64 and rounded to float32: angle(p, i) = p * f_i with
+    f_i = theta^(-2i / head_dim).
+
+    ``yarn`` (a dict of "factor", "original_max_position_embeddings",
+    "beta_fast", "beta_slow" and "attention_factor", as a model's
+    ``rope_parameters`` give them) takes YaRN's frequencies instead:
+    f_i = f_i / factor * (1 - m_i) + f_i * m_i, with the ramp
+    m_i = 1 - clamp((i - low) / (high - low), 0, 1) between the dims
+    low = floor(c(beta_fast)) and high = ceil(c(beta_slow)), clamped to
+    [0, head_dim - 1], where c(r) = head_dim * ln(orig / (2 pi r)) /
+    (2 ln theta); both tables are then scaled by ``attention_factor``."""
+    half = head_dim // 2
+    i = torch.arange(half, dtype=torch.float64)
+    freq = float(theta) ** (-2.0 * i / head_dim)
+    scale = 1.0
+    if yarn is not None:
+        orig = yarn["original_max_position_embeddings"]
+
+        def dim_of(rotations):
+            return (head_dim * math.log(orig / (2.0 * math.pi * rotations))
+                    / (2.0 * math.log(theta)))
+
+        low = max(math.floor(dim_of(yarn["beta_fast"])), 0)
+        high = min(math.ceil(dim_of(yarn["beta_slow"])), head_dim - 1)
+        if high == low:
+            high += 0.001
+        m = 1.0 - ((i - low) / (high - low)).clamp(0.0, 1.0)
+        freq = freq / yarn["factor"] * (1.0 - m) + freq * m
+        scale = yarn["attention_factor"]
+    angle = torch.arange(t, dtype=torch.float64)[:, None] * freq[None, :]
+    return ((torch.cos(angle) * scale).float(),
+            (torch.sin(angle) * scale).float())
+
+
+def rope_(ts, cos, sin):
+    """Rotary position embedding over the LAST axis, half-split (GPT-NeoX /
+    llama, ``rotate_half``) convention: lane i pairs with lane i + d/2, and
+      y1 = x1*cos - x2*sin ;  y2 = x2*cos + x1*sin
+    with ``cos``/``sin`` (``rope_tables``) broadcast against the halves,
+    e.g. [T, 1, d/2] for x [B, T, H, d]. The tables are constants. Hand
+    VJP, the transposed map:
+      g1' = g1*cos + g2*sin ;  g2' = g2*cos - g1*sin
+    """
+    x = ts.data
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    values = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    def grad_fn(grad):
+        g1, g2 = grad[..., :half], grad[..., half:]
+        return torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin], dim=-1)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+# --------------------------------------------------------------------------
+# routing: top-k selection, gathers and scatters of rows
+# --------------------------------------------------------------------------
+
+def top_k_(ts, k):
+    """The indices [..., k] of the ``k`` largest entries along the last
+    axis, largest first (``torch.topk``): a plain int64 tensor, not
+    differentiated (a selection has no gradient)."""
+    x = ts.data if isinstance(ts, Tensor) else ts
+    return torch.topk(x, k, dim=-1).indices
+
+
+def take_along_axis_(ts, index):
+    """out[..., j] = x[..., index[..., j]] along the last axis (``index`` an
+    int64 tensor of x's leading shape); the VJP scatter-adds the gradient
+    back (an index taken twice gets both)."""
+    x = ts.data
+    values = torch.gather(x, -1, index)
+
+    def grad_fn(grad):
+        return torch.zeros_like(x).scatter_add_(-1, index, grad)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def gather_rows_(ts, index):
+    """Rows ``index`` (int64 [n]) of x along its first axis, in order; the
+    VJP index-adds each gradient row back to its source row (a row taken
+    twice gets both)."""
+    x = ts.data
+    values = x.index_select(0, index)
+
+    def grad_fn(grad):
+        return torch.zeros_like(x).index_add_(0, index, grad)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def scatter_add_rows_(ts, index, n):
+    """[n, ...] zeros with row i of x added into row ``index[i]`` (rows
+    with one index sum); the VJP gathers the gradient's rows ``index``."""
+    x = ts.data
+    values = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                         device=x.device).index_add_(0, index, x)
+
+    def grad_fn(grad):
+        return grad.index_select(0, index)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def grouped_swiglu_(ts_x, counts, experts):
+    """SwiGLU experts over rows grouped by expert, as ONE primitive: the
+    first ``counts[0]`` rows of x [P, D] go to ``experts[0]``, the next
+    ``counts[1]`` to ``experts[1]``, and so on; each expert is a
+    (gate [D, F], up [D, F], down [F, D]) triple of Tensors, and its rows r
+    give e_r = (silu(x_r @ gate) * (x_r @ up)) @ down. ``counts`` are host
+    ints.
+
+    Every product runs through ``kernels.matmul`` on a contiguous block of
+    rows (a view: on a GPU, K1; its tensor-core tile takes any number of
+    rows where D and F are multiples of 4), three an expert forward and
+    six backward (dh, ddown, dx's two, dgate, dup); an expert with no rows
+    launches none and gets zero gradients. The 3E + 1 grad_fns share one
+    memoised backward, as ``dense_stack_``'s do."""
+    x = ts_x.data
+    bounds = np.cumsum([0] + [int(c) for c in counts])
+    if bounds[-1] != x.shape[0] or len(counts) != len(experts):
+        raise ValueError("grouped_swiglu_: counts %s do not cover %d rows of "
+                         "%d experts" % (list(counts), x.shape[0],
+                                         len(experts)))
+    saved, blocks = [], []
+    for (gate, up, down), lo, hi in zip(experts, bounds[:-1], bounds[1:]):
+        if lo == hi:
+            saved.append(None)
+            continue
+        xj = x[lo:hi]
+        g = kernels.matmul(xj, gate.data)
+        u = kernels.matmul(xj, up.data)
+        saved.append((g, u))
+        blocks.append(kernels.matmul(_silu(g)[0] * u, down.data))
+    values = torch.cat(blocks) if blocks else torch.zeros_like(x)
+
+    def backward(grad):
+        dx, dws = [], []
+        for triple, gu, lo, hi in zip(experts, saved, bounds[:-1],
+                                      bounds[1:]):
+            if gu is None:
+                dws += [torch.zeros_like(w.data) for w in triple]
+                continue
+            (gate, up, down), (g, u) = triple, gu
+            xj, dej = x[lo:hi], grad[lo:hi]
+            act, s = _silu(g)
+            dh = kernels.matmul(dej, _swap_last2(down.data))
+            ddown = kernels.matmul(_swap_last2(act * u), dej)
+            dg = dh * u * _silu_grad(g, s)
+            du = dh * act
+            dxj = kernels.matmul(dg, _swap_last2(gate.data))
+            dxj += kernels.matmul(du, _swap_last2(up.data))
+            dx.append(dxj)
+            dws += [kernels.matmul(_swap_last2(xj), dg),
+                    kernels.matmul(_swap_last2(xj), du), ddown]
+        return [torch.cat(dx) if dx else torch.zeros_like(x)] + dws
+
+    cache = []  # [grad_object, grads] (see dense_stack_)
+
+    def memo(grad):
+        if not cache or cache[0] is not grad:
+            cache[:] = [grad, backward(grad)]
+        return cache[1]
+
+    leaves = [ts_x] + [w for triple in experts for w in triple]
+    dependency = [(ts, lambda grad, i=i: memo(grad)[i])
+                  for i, ts in enumerate(leaves) if ts.requires_grad]
     return ts_x.__class__(values, bool(dependency), dependency)
 
 
