@@ -33,6 +33,16 @@ dk/dv) against a parent's ``csrc/attention.cu`` (the same C interface):
   the attention kernels twice a step each) with this tree's attention
   library and the parent's, steps/s by the host's clock.
 
+``--mode dkv``: the dk/dv kernel alone at Mellum 2's two layer kinds
+(``chip_smoke.ATTN_DKV_TIMED``: 32:4 GQA of head dim 128 over 4 x 8,192
+tokens, banded to 1,024 keys and full), in turns (this, parent, parent,
+this, this, parent), beside its bound and the largest difference of dk and
+dv from the parent's. lse and delta come from this tree's forward.
+
+Both attention modes take a parent whose dk/dv entry point has no design
+argument (a tree before ``dkv_design``): the parent's kernel is the one
+that parent launches at the head dim.
+
 Commit a9c3485 has the CUDA-core forward (64 x 64 score tiles of 256
 threads) and the tensor-core pair of this tree; ec60c57 has CUDA-core
 kernels throughout. Unpack the parent into a git-ignored directory and
@@ -41,6 +51,7 @@ point --parent there:
     mkdir -p _parent && git archive <commit> | tar -x -C _parent
     python3 bench_vs_parent.py --parent _parent   # K2, ~1 min
     python3 bench_vs_parent.py --parent _parent --mode attention  # ~2 min
+    python3 bench_vs_parent.py --parent _parent --mode dkv  # ~1 min
 
 Without a CUDA device it exits 1.
 """
@@ -74,7 +85,8 @@ SHAPES = ("config6b", "k4b_t512", "k4c_noncausal")
 
 def build_parent(root, name, bind):
     """The parent checkout's ``csrc/<name>.cu``, built into this tree's
-    git-ignored build directory and bound by ``bind(lib, ctypes)``."""
+    git-ignored build directory and bound by ``bind(lib, ctypes)`` (what
+    ``bind`` returns, if anything, stands for the library)."""
     source = Path(root) / "tinynn_autograd_tpu_torch" / "csrc" / (
         "%s.cu" % name)
     out = kernels.BUILD_DIR / ("libtinynn_parent_%s.so" % name)
@@ -86,8 +98,7 @@ def build_parent(root, name, bind):
         raise RuntimeError("nvcc failed building the parent's %s:\n%s"
                            % (name, proc.stderr))
     lib = ctypes.CDLL(str(out))
-    bind(lib, ctypes)
-    return lib
+    return bind(lib, ctypes) or lib
 
 
 def bind_parent_k2(lib, ctypes):
@@ -160,6 +171,30 @@ class parent_k2:
 
     def __exit__(self, *exc):
         kernels._loaded["fused_epoch"] = self.saved
+
+
+def bind_parent_attention(lib, ctypes):
+    """The C interface of a parent's ``csrc/attention.cu`` whose dk/dv
+    entry point takes no design argument (before ``dkv_design``)."""
+    attention._bind(lib, ctypes)
+    fn = lib.tinynn_attention_backward_dkv
+    fn.argtypes = tuple(fn.argtypes[:-2]) + tuple(fn.argtypes[-1:])
+    return ParentAttention(lib)
+
+
+class ParentAttention:
+    """Such a parent's library behind this tree's wrappers: their dk/dv
+    call, without the design argument (its kernel is the one that parent
+    launches at that head dim)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def tinynn_attention_backward_dkv(self, *args):
+        return self.lib.tinynn_attention_backward_dkv(*args[:-2], args[-1])
 
 
 class uses:
@@ -275,6 +310,46 @@ def bench_pair(libs, device):
                  1e3 * fma_ms, 1e5 * fma_ms / this_us,
                  1e5 * fma_ms / parent_us))
         del bwd, want
+        torch.cuda.empty_cache()
+
+
+def bench_dkv(libs, device):
+    print("== the dk/dv kernel alone at Mellum 2's shapes (32:4 GQA of head "
+          "dim 128 over 4 x 8,192 tokens), device us a launch: this tree's "
+          "and the parent's in turns")
+    for name in smoke.ATTN_DKV_TIMED:
+        q, k, v, do, kw = smoke.attn_inputs(device, name)
+        o, lse = attention.cuda_attention_forward(q, k, v, **kw)
+        bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+        del o
+
+        def dkv(lib):
+            def run():
+                with uses(lib):
+                    return attention.cuda_attention_backward_dkv(*bwd, **kw)
+            return run
+
+        mine, parents = dkv(libs["this"]), dkv(libs["parent"])
+        (dk, dv), (pk, pv) = mine(), parents()
+        diffs = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in ((dk, pk), (dv, pv))]
+        del dk, dv, pk, pv
+        t = [device_us(f, reps=5) for f in (mine, parents, parents, mine,
+                                            mine, parents)]
+        this_us = (t[0] + t[3] + t[4]) / 3
+        parent_us = (t[1] + t[2] + t[5]) / 3
+        bound_ms, bound_by = smoke.bound_3xtf32(
+            *smoke.attention_costs(name)["attention_backward_dkv"])
+        print("%s: this tree's %.1f us (turns %s), the parent's %.1f us "
+              "(turns %s): %.2fx faster; bound %.1f us (%s-bound), this "
+              "tree's at %.2f%%, the parent's at %.2f%%; max |this - "
+              "parent| over max |parent|: dk %.2e, dv %.2e"
+              % (name, this_us, ", ".join("%.1f" % t[i] for i in (0, 3, 4)),
+                 parent_us, ", ".join("%.1f" % t[i] for i in (1, 2, 5)),
+                 parent_us / this_us, 1e3 * bound_ms, bound_by,
+                 1e5 * bound_ms / this_us, 1e5 * bound_ms / parent_us,
+                 *diffs))
+        del bwd
         torch.cuda.empty_cache()
 
 
@@ -422,7 +497,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True,
                         help="root of the parent checkout (git archive)")
-    parser.add_argument("--mode", choices=("k2", "attention"), default="k2",
+    parser.add_argument("--mode", choices=("k2", "attention", "dkv"),
+                        default="k2",
                         help="the kernel to compare (default k2)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -434,17 +510,20 @@ def main(argv=None):
     print(smoke.card_line())
     name, bind = (("fused_epoch", fused_epoch._bind) if args.mode == "k2"
                   else ("attention", attention._bind))
+    parent_bind = (bind_parent_k2 if args.mode == "k2"
+                   else bind_parent_attention)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         mine = pool.submit(kernels.load_library, name, bind)
-        parent = pool.submit(build_parent, args.parent, name,
-                             bind_parent_k2 if args.mode == "k2" else bind)
+        parent = pool.submit(build_parent, args.parent, name, parent_bind)
         libs = {"this": mine.result(), "parent": parent.result()}
     print("built this tree's and the parent's %s in %.2f s (one nvcc each, "
           "in parallel)" % (name, time.perf_counter() - t0))
     if args.mode == "k2":
         bench_epochs(libs["parent"], device)
         bench_train_epoch(libs["parent"], device)
+    elif args.mode == "dkv":
+        bench_dkv(libs, device)
     else:
         bench_forward(libs, device)
         bench_pair(libs, device)

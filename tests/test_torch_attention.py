@@ -262,3 +262,24 @@ def test_plain_impl_and_cpu_tensors_take_the_plain_version():
     b = attention.mha_fwd(*args, impl="plain", **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert attention.cuda_attention_forward.launches == before
+
+
+@pytest.mark.parametrize("d,design", [
+    (8, "mma"), (32, "mma"), (40, "mma"), (64, "mma"),
+    (65, "wgmma"), (80, "wgmma"), (96, "wgmma"), (128, "wgmma")])
+def test_dkv_design_by_head_dim(d, design):
+    # one function of d picks the dk/dv kernel: the wrapper hands its answer
+    # to the C entry point and counts `wgmma_launches` by it
+    assert attention.dkv_design(d) == design
+
+
+def test_dkv_wgmma_counter_stays_on_cpu_refusal():
+    x = torch.zeros((1, 2, 8, 128))
+    before = (attention.cuda_attention_backward_dkv.launches,
+              attention.cuda_attention_backward_dkv.wgmma_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.cuda_attention_backward_dkv(
+            x, x, x, x, torch.zeros((1, 2, 8, 1)), torch.zeros((1, 2, 8)),
+            causal=True, scale=0.5)
+    assert (attention.cuda_attention_backward_dkv.launches,
+            attention.cuda_attention_backward_dkv.wgmma_launches) == before

@@ -824,11 +824,11 @@ ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _attn_inputs(dev, name, seed=0):
-    """q, k, v, dO of ``name``'s shape on ``dev`` (q and dO as the strided
-    views that split heads makes of a [B, T, H, d] tensor), and the call's
-    keyword arguments."""
-    b, h, hkv, tq, tk, d, causal, window, rate = ATTN_SHAPES[name]
+def _attn_inputs(dev, name, seed=0, shapes=ATTN_SHAPES):
+    """q, k, v, dO of ``name``'s shape (in ``shapes``) on ``dev`` (q and dO
+    as the strided views that split heads makes of a [B, T, H, d] tensor),
+    and the call's keyword arguments."""
+    b, h, hkv, tq, tk, d, causal, window, rate = shapes[name]
     rng = np.random.RandomState(seed)
 
     def heads(n, t):
@@ -896,6 +896,99 @@ def test_cuda_attention_backward_matches_reference(name):
             a.cpu().numpy(), b, rtol=1e-4,
             atol=1e-4 * float(np.abs(b).max()), err_msg=what)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# the dk/dv kernel of head dims 65-128 (wgmma, `dkv_design`): head dims 128,
+# 96, 80 and 66 (zero-padded; 66 ends rows mid-float4), GQA groups 1, 2 and
+# 8, windows of 40, 50, 100 and
+# 1,024 (off and on the 32- and 64-row tile edges) over ragged T (200, 300,
+# 1,100), cross attention with Tq above and below Tk, dropout; q, k, v and dO
+# as the strided views of split heads, read in place
+DKV_WGMMA_SHAPES = {
+    "d128_causal": (2, 4, 4, 256, 256, 128, True, None, 0.0),
+    "d96_gqa2_window40_t300": (2, 4, 2, 300, 300, 96, True, 40, 0.0),
+    "d80_gqa8_window100_t200": (1, 8, 1, 200, 200, 80, True, 100, 0.0),
+    "d128_gqa8_window1024_t1100": (1, 16, 2, 1100, 1100, 128, True, 1024,
+                                   0.0),
+    "d128_gqa2_cross_384_256": (2, 4, 2, 384, 256, 128, False, None, 0.0),
+    "d96_cross_200_300": (1, 2, 1, 200, 300, 96, False, None, 0.0),
+    "d128_gqa2_dropout_t300": (1, 4, 2, 300, 300, 128, True, None, 0.1),
+    "d80_noncausal_dropout": (2, 2, 2, 160, 160, 80, False, None, 0.2),
+    "d66_gqa2_window50_t130": (1, 4, 2, 130, 130, 66, True, 50, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DKV_WGMMA_SHAPES))
+def test_cuda_dkv_wgmma_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    fn = attention.cuda_attention_backward_dkv
+    q, k, v, do, kw = _attn_inputs(dev, name, shapes=DKV_WGMMA_SHAPES)
+    assert q.stride(-1) == 1 and not q.is_contiguous()
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+    counts = (fn.launches, fn.wgmma_launches)
+    runs = [fn(*bwd, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (counts[0] + 2, counts[1] + 2)
+    _, *want = attention.attention_backward_reference(*bwd, **kw)
+    for what, a, b in zip(("dk", "dv"), runs[0], want):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b, rtol=1e-4,
+            atol=1e-4 * float(np.abs(b).max()), err_msg=what)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 40, 64, 65, 96, 128])
+def test_cuda_dkv_wgmma_launches_counted_by_head_dim(d):
+    # one launch a call; `wgmma_launches` grows with it at d in 65-128 only
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    fn = attention.cuda_attention_backward_dkv
+    gen = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn((1, 2, 96, d), generator=gen).to(dev)
+                   for _ in range(4))
+    o, lse = attention.attention_forward_reference(q, k, v, True, 0.125)
+    before = (fn.launches, fn.wgmma_launches)
+    dk, dv = fn(q, k, v, do, lse, (do * o).sum(dim=-1), True, 0.125)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (
+        before[0] + 1, before[1] + (1 if d > 64 else 0))
+    assert attention.dkv_design(d) == ("wgmma" if d > 64 else "mma")
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+@pytest.mark.cuda
+def test_cuda_dkv_wgmma_float64_hold():
+    # the wgmma kernel's 3xTF32 products: dk and dv within ATTN_F64_FACTOR
+    # times the f32 plain version's float64 error at T 2,048, d 128, GQA 4,
+    # which the plain version with TF32 allowed must miss
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    shapes = {"d128": (1, 8, 2, 2048, 2048, 128, True, None, 0.0)}
+    q, k, v, do, kw = _attn_inputs(dev, "d128", shapes=shapes)
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+    got = attention.cuda_attention_backward_dkv(*bwd, **kw)
+    f32 = attention.attention_backward_reference(*bwd, **kw)[1:]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = attention.attention_backward_reference(*bwd, **kw)[1:]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    exact = attention.attention_backward_reference(
+        *(x.double() for x in bwd), **kw)[1:]
+    for i, what in enumerate(("dk", "dv")):
+        errs = [float((x[i].double() - exact[i]).abs().max())
+                for x in (got, f32, tf32)]
+        assert errs[0] <= ATTN_F64_FACTOR * errs[1], (what, errs)
+        assert errs[2] > ATTN_F64_FACTOR * errs[1], (what, errs)
 
 
 # the attention kernels' products run in 3xTF32 on the tensor cores: at the

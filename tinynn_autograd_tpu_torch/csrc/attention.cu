@@ -27,7 +27,10 @@
 //   per-group calls do, so the masks agree bit for bit.
 // - Each output is written once, with no float atomics: reruns are
 //   bit-identical. Head dims up to 128 (templates for 32, 64 and 128; a
-//   smaller d is zero-padded in shared memory).
+//   smaller d is zero-padded in shared memory), but dk/dv at head dims
+//   65-128 runs `attention_backward_dkv_kernel_wgmma`, a design of its own
+//   for Hopper (below the templates; `dkv_design` in ops/attention.py
+//   chooses).
 //
 // All three kernels multiply on the tensor cores, `mma.sync` m16n8k8 TF32
 // with f32 accumulators, in 3xTF32: each f32 operand is split into a TF32
@@ -82,19 +85,30 @@
 // dP), 60 GFLOP, three TF32 products each: 180 GFLOP, 0.364 ms. The kernels
 // issue their MMAs with the operand splits, the softmax, the elementwise
 // work and the fragment loads beside them on the same schedulers (the
-// forward splits each K and V value once in each of its four warps); a
-// fused backward that computes S and dP once (without float atomics),
-// `wgmma` with K-major operands and TMA copies are later work.
+// forward splits each K and V value once in each of its four warps). At
+// Mellum 2's shapes (32:4 GQA of head dim 128 over 4 x 8,192 tokens) the
+// d = 128 dk/dv template ran at 16.7% of its 3xTF32 bound: one block of 4
+// warps an SM at 169,472 bytes, `mma.sync` chains and a split of every
+// looped tile between barriers with no product running. Its replacement
+// there, the wgmma kernel, is described where it is defined. A fused
+// backward that computes S and dP once (without float atomics), and
+// `wgmma` in the forward, the dq kernel and at d <= 64, are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+using tinynn::fence_operand;
 using tinynn::split_tf32;
+using tinynn::wgmma_commit;
+using tinynn::wgmma_fence;
+using tinynn::wgmma_tf32;
+using tinynn::wgmma_wait;
 
 constexpr unsigned GOLDEN = 2654435761u;
 
@@ -879,6 +893,543 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     }
 }
 
+// ---------------------------------------------------------------------------
+// dk, dv at head dims 65-128 on wgmma: two consumer warpgroups and a
+// producer warpgroup under mbarriers
+// ---------------------------------------------------------------------------
+//
+// One block per (b*Hkv + kvh, 64-key tile), 384 threads, one block an SM,
+// in grid order (key tile 0, the heaviest under a causal mask, first). It
+// walks the same 32-query steps as the template above (the group's heads in
+// order, each one's visible query tiles), in the transposed tile. Each
+// consumer owns the 64 keys, 16 a warp as in `mma.sync`, and runs two of
+// the four products as `wgmma` in 3xTF32 (m64nNk8 TF32, A in registers):
+// - consumer 0: S^T = K Q^T (m64n32k8, 16 steps over d), P, P_d, and
+//   dV += P_d^T dO (m64n128k8, 4 steps over the queries);
+// - consumer 1: dP^T = V dO^T, dS (P handed over by consumer 0 through
+//   shared memory), and dK += dS^T Q.
+// K's and V's A fragments are read from raw f32 copies in fragment order
+// (one 16-byte load) and split in registers a step ahead of their wgmmas; B
+// is the step's Q or dO in K-major [query][d] TF32 planes; the small terms
+// are summed apart. For dV and dK, A is P_d or dS straight from the score
+// accumulators (columns 2t and 2t + 1 as slots t and t + 4, as in the
+// template); B is dO or Q in K-major [d][query] planes whose queries are
+// stored in that slot order; each step's share is summed apart and added
+// once to the f32 accumulator (64 registers a thread), which is written to
+// dk or dv once, at the end.
+// The producer reads each step's Q and dO rows (16-byte loads where the
+// rows are 16-byte aligned, else 4-byte; zero past T and d), lse and delta
+// into registers, splits them (tf32.cuh) and writes the [query][d] planes,
+// then, after a transpose of 4 x 4 blocks across each quad's lanes, the
+// [d][query] planes, every warp's 16-byte stores free of bank conflicts.
+// It reloads each operand for the next step as soon as its last planes are
+// written. `setmaxnreg` moves 16 registers a thread from the producer (152)
+// to each consumer (176), from the 168 each has at launch.
+// Shared memory: the four [query][d] planes of a step (64 KB), the four
+// [d][query] planes (64 KB), K and V in fragment order (64 KB), P (8 KB),
+// lse, delta and ten mbarriers: 205,136 bytes. Each consumer has a full and
+// an empty barrier for its [query][d] planes and for its [d][query] ones,
+// so the producer writes step u + 1's planes while the consumers still run
+// step u, and neither consumer waits for the other but for P.
+// The budget decides the shape: K and V as split planes (128 KB) leave no
+// room for a step's eight planes, and 64-query steps (n64 score products)
+// or 128-key blocks would need another 64-128 KB. PERF.md gives the
+// designs measured on the way (one consumer warpgroup; barriers shared by
+// the consumers; other register splits and wgmma shapes).
+namespace dkvw {
+constexpr int D = 128;         // head dims 65-128, zero-padded
+constexpr int BK = 64;         // keys a block: each consumer's 64 rows
+constexpr int BQ = 32;         // queries a step
+constexpr int RING = 2;        // K's or V's fragments in flight
+constexpr int PLANE = BQ * D;  // floats in one plane of a step
+constexpr int NTHREADS = 384;  // two consumer warpgroups, one producer
+// registers a thread: 168 at launch (384 threads an SM), then the producer
+// gives up what the consumers take (`setmaxnreg`)
+constexpr int ENTRY_REGS = 168, CONSUMER_REGS = 176, PRODUCER_REGS = 152;
+static_assert(2 * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - PRODUCER_REGS,
+              "the consumers take only what the producer gives up");
+// float offsets in shared memory: the [query][d] planes Q hi, Q lo, dO hi,
+// dO lo, then the [d][query] planes in the same order, K, V, P, lse, delta
+constexpr int NAT = 0, TRN = 4 * PLANE, KS = 8 * PLANE, VS = KS + BK * D,
+              PS = VS + BK * D, LS = PS + BK * BQ, ES = LS + BQ,
+              BARS = ES + BQ;
+// barriers, a pair of each for consumer c (0: S^T and dV, 1: dP^T and dK):
+// its [query][d] planes (Q's or dO's, with lse or delta) full and empty, its
+// [d][query] planes (dO's or Q's) full and empty; then P's hand-over from
+// consumer 0 to consumer 1. Each counts one arrival a warp of a warpgroup.
+enum {
+  kNatFull = 0, kNatEmpty = 2, kTrnFull = 4, kTrnEmpty = 6, kPFull = 8,
+  kPEmpty = 9, kBars = 10
+};
+constexpr size_t SMEM = sizeof(float) * BARS + kBars * sizeof(uint64_t);
+// bytes between 8-row groups of core matrices: [query][d] and [d][query]
+constexpr unsigned NAT_STRIDE = (D / 4) * 128, TRN_STRIDE = (BQ / 4) * 128;
+}  // namespace dkvw
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Waits for the completion of the barrier's phase of parity `parity`. A
+// wait that never ends is a fault of the protocol: it traps after 2^22
+// tries (seconds), so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  for (unsigned tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 22)) __trap();
+  }
+}
+// K and V in shared memory in the order of the consumers' A fragments: the
+// four values of thread `lane` of warp w at step kk of d (rows 16w + g and
+// + 8, columns 8kk + t and + 4, as `load_a` reads them) are 16 bytes at
+// float ((kk * 4 + w) * 32 + lane) * 4. Returns the float of (row, col).
+__device__ __forceinline__ int frag_at(int row, int col) {
+  const int lane = (row % 8) * 4 + col % 4;
+  const int e = (row % 16) / 8 + 2 * ((col % 8) / 4);
+  return (((col / 8) * 4 + row / 16) * 32 + lane) * 4 + e;
+}
+// Thread `tid`'s A fragment of step kk of d from such an operand, split.
+__device__ __forceinline__ void load_frag(FragA& a, const float* x, int kk,
+                                          int tid) {
+  const float4 v = *reinterpret_cast<const float4*>(x + (kk * 128 + tid) * 4);
+  a.set(v.x, v.y, v.z, v.w);
+}
+
+// One warp's arrival: its lanes' prior writes ordered before lane 0's.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// Columns 4c..4c+3 of a [*, d] row (`ok`: the row exists), zero past d: one
+// 16-byte load where the row is 16-byte aligned (`vec`) and holds all four.
+__device__ __forceinline__ float4 row4(const float* row, int c, int d,
+                                       bool ok, bool vec) {
+  const int col = 4 * c;
+  if (!ok || col >= d) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (vec && col + 4 <= d)
+    return __ldg(reinterpret_cast<const float4*>(row + col));
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = col + e < d ? __ldg(row + col + e) : 0.0f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// The high and low TF32 parts of four values, as 16-byte words.
+__device__ __forceinline__ void split4(const float4& x, uint4& hi,
+                                       uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// Across the four lanes of a quad, lane s holding row s of a 4 x 4 block
+// (x = M[s][0..3]) ends holding column s (x = M[0..3][s]): the 2 x 2
+// blocks transposed in place between lanes s and s ^ 1, then the blocks off
+// the diagonal swapped between lanes s and s ^ 2.
+__device__ __forceinline__ void quad_transpose(float4& x) {
+  const int s = threadIdx.x & 3;
+  const bool odd = s & 1, high = s & 2;
+  float r0 = __shfl_xor_sync(0xffffffffu, odd ? x.x : x.y, 1);
+  float r1 = __shfl_xor_sync(0xffffffffu, odd ? x.z : x.w, 1);
+  if (odd) {
+    x.x = r0;
+    x.z = r1;
+  } else {
+    x.y = r0;
+    x.w = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, high ? x.x : x.z, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, high ? x.y : x.w, 2);
+  if (high) {
+    x.x = r0;
+    x.y = r1;
+  } else {
+    x.z = r0;
+    x.w = r1;
+  }
+}
+
+__global__ void __launch_bounds__(dkvw::NTHREADS, 1)
+attention_backward_dkv_kernel_wgmma(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, Shape s,
+                                    Strides sq, Strides sk, Strides sv,
+                                    Strides sdo, Options opt, int vec) {
+  using namespace dkvw;
+  extern __shared__ __align__(128) float smem[];
+  float* const ks = smem + KS;
+  float* const vs = smem + VS;
+  float* const ps = smem + PS;
+  float* const ls = smem + LS;
+  float* const es = smem + ES;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + BARS);
+
+  const int bkv = blockIdx.x;
+  const int b = bkv / s.hkv, kvh = bkv % s.hkv;
+  const int group = s.h / s.hkv;
+  const int k0 = blockIdx.y * BK;
+
+  // the query tiles that see this key tile, for each of the group's heads
+  const int nq = (s.tq + BQ - 1) / BQ;
+  int i_lo = 0, i_hi = nq - 1;
+  if (opt.causal) {
+    i_lo = k0 / BQ;
+    if (opt.window) i_hi = min(i_hi, (k0 + BK - 1 + opt.window - 1) / BQ);
+  }
+  const int per_head = max(0, i_hi - i_lo + 1);
+  const int steps = group * per_head;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kBars; ++i) mbar_init(bars + i, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // K's and V's rows, raw f32, by all threads, in the order of the
+  // consumers' A fragments (`frag_at`)
+  {
+    const float* kh = k + b * sk.b + kvh * sk.h;
+    const float* vh = v + b * sv.b + kvh * sv.h;
+    for (int idx = threadIdx.x; idx < BK * (D / 4); idx += NTHREADS) {
+      const int r = idx / (D / 4), c = idx % (D / 4);
+      const bool ok = k0 + r < s.tk;
+      const float4 xk =
+          row4(kh + (ok ? (k0 + r) * sk.t : 0), c, s.d, ok, vec & kVecK);
+      const float4 xv =
+          row4(vh + (ok ? (k0 + r) * sv.t : 0), c, s.d, ok, vec & kVecV);
+      const int at = frag_at(r, 4 * c);
+      ks[at] = xk.x; ks[at + 4] = xk.y; ks[at + 8] = xk.z; ks[at + 12] = xk.w;
+      vs[at] = xv.x; vs[at + 4] = xv.y; vs[at + 8] = xv.z; vs[at + 12] = xv.w;
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producer: Q, dO, lse and delta of each step into the planes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int p = threadIdx.x - 256, pw = p / 32, lane = p % 32;
+    // lane = 4a + si: the quad a holds rows 8j + 2si + odd of float4 column
+    // c0 + cc; each quarter warp's 16-byte stores fill whole bank rows
+    const int si = lane & 3, a = lane >> 2;
+    const int odd = (a & 1) ^ ((a >> 1) & 1), cc = 2 * (a >> 2) + (a & 1);
+    float4 xq[8], xo[8];
+    float lv = 0.0f;
+    // step u's rows of Q (or dO: `x`, its view and its alignment flag)
+    auto load = [&](float4 (&x)[8], const float* src, const Strides& st,
+                    bool aligned, int u) {
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const float* xh = src + b * st.b + (kvh * group + gi) * st.h;
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int wt = pw * 8 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int row = q0 + 8 * j + 2 * si + odd;
+        const bool ok = row < s.tq;
+        x[it] = row4(xh + (ok ? row * st.t : 0), c, s.d, ok, aligned);
+      }
+    };
+    // step u's lse (producer threads 0-31) or delta (32-63)
+    auto load_stats = [&](int u) {
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const long long head_row =
+          (static_cast<long long>(b) * s.h + kvh * group + gi) * s.tq;
+      const int i = p % BQ;
+      lv = 0.0f;
+      if (p < 2 * BQ && q0 + i < s.tq)
+        lv = p < BQ ? lse[head_row + q0 + i] : delta[head_row + q0 + i];
+    };
+    if (steps > 0) {
+      load(xq, q, sq, vec & kVecQ, 0);
+      load(xo, dout, sdo, vec & kVecDO, 0);
+      load_stats(0);
+    }
+    // the operands' planes: x's [query][d] planes at `hi` (row q at word
+    // ((q / 8) * 32 + c) * 32 + (q % 8) * 4), then its [d][query] ones
+    // (column dd of slot 4 odd + i of 8-query step j at word ((dd / 8) * 8 +
+    // 2 j + odd) * 32 + (dd % 8) * 4 + i, after `quad_transpose`)
+    auto store_nat = [&](const float4 (&x)[8], float* hi) {
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int wt = pw * 8 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int at = (j * (D / 4) + c) * 32 + (2 * si + odd) * 4;
+        uint4 h, l;
+        split4(x[it], h, l);
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(hi + PLANE + at) = l;
+      }
+    };
+    auto store_trn = [&](const float4 (&x)[8], float* hi) {
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int wt = pw * 8 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int dd = 4 * c + si;
+        const int at =
+            ((dd >> 3) * (BQ / 4) + 2 * j + odd) * 32 + (dd & 7) * 4;
+        uint4 h, l;
+        split4(x[it], h, l);
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(hi + PLANE + at) = l;
+      }
+    };
+    // step u's planes go where step u - 1's were, once emptied
+    auto emptied = [&](int bar, int u) {
+      if (u > 0) mbar_wait(bars + bar, (u - 1) & 1);
+    };
+    for (int u = 0; u < steps; ++u) {
+      emptied(kNatEmpty, u);  // Q for S^T, with lse
+      store_nat(xq, smem + NAT);
+      if (p < BQ) ls[p] = lv;
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kNatFull);
+      emptied(kNatEmpty + 1, u);  // dO for dP^T, with delta
+      store_nat(xo, smem + NAT + 2 * PLANE);
+      if (p >= BQ && p < 2 * BQ) es[p - BQ] = lv;
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kNatFull + 1);
+      // each operand's [d][query] planes, then its rows of step u + 1:
+      // Q's first, so that its reload, which the next step needs first,
+      // is in flight the longest
+#pragma unroll
+      for (int it = 0; it < 8; ++it) quad_transpose(xq[it]);
+      emptied(kTrnEmpty + 1, u);  // Q for dK
+      store_trn(xq, smem + TRN);
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kTrnFull + 1);
+      if (u + 1 < steps) {
+        load(xq, q, sq, vec & kVecQ, u + 1);
+        load_stats(u + 1);
+      }
+#pragma unroll
+      for (int it = 0; it < 8; ++it) quad_transpose(xo[it]);
+      emptied(kTrnEmpty, u);  // dO for dV
+      store_trn(xo, smem + TRN + 2 * PLANE);
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kTrnFull);
+      if (u + 1 < steps) load(xo, dout, sdo, vec & kVecDO, u + 1);
+    }
+  } else {
+    // ---- the consumers: warpgroup 0 S^T, P and dV += P_d^T dO; warpgroup
+    // 1 dP^T, dS (with P from warpgroup 0) and dK += dS^T Q
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const bool dkw = threadIdx.x >= 128;  // the dP^T and dK warpgroup
+    const int lt = threadIdx.x % 128, w = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 16 * w;
+    const unsigned hh = bkv;
+    const uint64_t nat_d = tinynn::kmajor_desc(smem + NAT, NAT_STRIDE);
+    const uint64_t trn_d = tinynn::kmajor_desc(smem + TRN, TRN_STRIDE);
+    constexpr uint64_t kPlane = PLANE * 4 >> 4;      // descriptor units
+    constexpr uint64_t kStep = 256 >> 4;             // 8 of K: two cores
+    // S^T reads Q's [query][d] planes, dP^T dO's; dV dO's [d][query]
+    // planes, dK Q's
+    const float* x = dkw ? vs : ks;
+    const uint64_t y_hi = nat_d + (dkw ? 2 : 0) * kPlane;
+    const uint64_t z_hi = trn_d + (dkw ? 0 : 2) * kPlane;
+
+    float acc[64];  // dV or dK: acc[4n + e]
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+    // sc = x y^T over d (16 steps of 8) in 3xTF32 for the warpgroup's 64
+    // rows of x (K or V) against a step's 32 rows of y (Q or dO, planes at
+    // y_hi and y_hi + kPlane), the small terms summed apart in `sm`; x's
+    // fragments are read (one 16-byte load) and split a step ahead, in a
+    // ring of RING so that RING steps' wgmmas can be in flight
+    auto scores = [&](float (&sc)[16], float (&sm)[16]) {
+      FragA f[RING];
+      load_frag(f[0], x, 0, lt);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        fence_operand(sc[e]);
+        fence_operand(sm[e]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int cur = kk % RING, next = (kk + 1) % RING;
+        const uint64_t hi = y_hi + kk * kStep;
+        wgmma_fence();
+        wgmma_tf32(sm, f[cur].lo, hi, kk > 0);
+        wgmma_tf32(sm, f[cur].hi, hi + kPlane, 1);
+        wgmma_tf32(sc, f[cur].hi, hi, kk > 0);
+        wgmma_commit();
+        if (kk + 1 < D / 8) {
+          wgmma_wait<RING - 1>();  // step kk + 1 - RING is done with f[next]
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            fence_operand(f[next].hi[e]);
+            fence_operand(f[next].lo[e]);
+          }
+          load_frag(f[next], x, kk + 1, lt);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        fence_operand(sc[e]);
+        fence_operand(sm[e]);
+      }
+#pragma unroll
+      for (int c = 0; c < RING; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(f[c].hi[e]);
+          fence_operand(f[c].lo[e]);
+        }
+    };
+
+    // acc += the step's share of o^T z over all of d (m64n128k8): o (P_d or
+    // dS) from a score accumulator, z's [d][query] planes at z_hi and
+    // z_hi + kPlane; the share summed apart and added once
+    auto outputs = [&](const float (&o)[16]) {
+      FragA f[BQ / 8];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+        f[j].set(o[4 * j], o[4 * j + 2], o[4 * j + 1], o[4 * j + 3]);
+      float part[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(part[e]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const uint64_t hi = z_hi + j * kStep;
+        wgmma_tf32(part, f[j].lo, hi, j > 0);
+        wgmma_tf32(part, f[j].hi, hi + kPlane, 1);
+        wgmma_tf32(part, f[j].hi, hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        fence_operand(part[e]);
+        acc[e] += part[e];
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(f[j].hi[e]);
+          fence_operand(f[j].lo[e]);
+        }
+    };
+
+    int handed = 0;  // P's hand-overs so far
+    for (int u = 0; u < steps; ++u) {
+      const unsigned parity = u & 1;
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const int vis = band(q0, q0 + BQ - 1, k0, k0 + BK - 1, s, opt);
+      const unsigned seed = opt.seed + static_cast<unsigned>(gi) * GOLDEN;
+      // element i = 4j + e of a score accumulator: key k0 + r0 + g +
+      // 8 (e / 2), query q0 + 8j + 2t + (e & 1)
+      float o[16];
+      mbar_wait(bars + kNatFull + dkw, parity);
+      if (vis) {
+        float sm[16];
+        scores(o, sm);
+        if (!dkw) {
+          // P in place of S^T (masked pairs 0), handed to warpgroup 1; then
+          // P_d, the dropped and rescaled P
+          // (a tile the masks leave whole takes a loop without a branch an
+          // element, so that its exponentials interleave)
+          if (vis == 2) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              o[i] = expf((o[i] + sm[i]) * opt.scale -
+                          ls[8 * (i >> 2) + 2 * t + (i & 1)]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+              const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+              float pv = 0.0f;
+              if (visible(q0 + col, ki, s, opt))
+                pv = expf((o[i] + sm[i]) * opt.scale - ls[col]);
+              o[i] = pv;
+            }
+          }
+          if (handed > 0) mbar_wait(bars + kPEmpty, (handed - 1) & 1);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) ps[i * 128 + lt] = o[i];
+          warp_arrive(bars + kPFull);
+          if (opt.dropout) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+              const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+              if (o[i] != 0.0f)
+                o[i] = keep(hh, qi, ki, s, seed, opt.thresh) ? o[i] * opt.inv
+                                                             : 0.0f;
+            }
+          }
+        } else {
+          // dS in place of dP^T
+          mbar_wait(bars + kPFull, handed & 1);
+          if (vis == 2 && !opt.dropout) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              o[i] = ps[i * 128 + lt] *
+                     (o[i] + sm[i] - es[8 * (i >> 2) + 2 * t + (i & 1)]) *
+                     opt.scale;
+          } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+            const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+            const int qi = q0 + col;
+            float ds = 0.0f;
+            if (vis == 2 || visible(qi, ki, s, opt)) {
+              const float pv = ps[i * 128 + lt];
+              float d = o[i] + sm[i];
+              if (opt.dropout)
+                d = keep(hh, qi, ki, s, seed, opt.thresh) ? d * opt.inv
+                                                          : 0.0f;
+              ds = pv * (d - es[col]) * opt.scale;
+            }
+            o[i] = ds;
+          }
+          }
+          warp_arrive(bars + kPEmpty);
+        }
+        ++handed;
+      }
+      warp_arrive(bars + kNatEmpty + dkw);
+      mbar_wait(bars + kTrnFull + dkw, parity);
+      if (vis) outputs(o);
+      warp_arrive(bars + kTrnEmpty + dkw);
+    }
+
+    // acc[4n + e]: key k0 + r0 + g + 8 (e / 2), column 8n + 2t + (e & 1)
+    float* const out = dkw ? dk : dv;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (ki < s.tk && col < s.d)
+        out[(static_cast<long long>(bkv) * s.tk + ki) * s.d + col] = acc[i];
+    }
+  }
+}
+
 // The forward block: Q's [BM][P] rows and two stages of K and V tiles,
 // 52,224 bytes at d=64 (three blocks an SM, as the registers allow).
 template <int D>
@@ -980,6 +1531,25 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dkv_wgmma(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* delta, float* dk, float* dv,
+                             const Shape& s, const Strides& sq,
+                             const Strides& sk, const Strides& sv,
+                             const Strides& sdo, const Options& opt,
+                             cudaStream_t stream) {
+  static bool done = false;
+  cudaError_t err =
+      allow_smem(attention_backward_dkv_kernel_wgmma, dkvw::SMEM, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s.b * s.hkv, (s.tk + dkvw::BK - 1) / dkvw::BK);
+  attention_backward_dkv_kernel_wgmma<<<grid, dkvw::NTHREADS, dkvw::SMEM,
+                                        stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, s, sq, sk, sv, sdo, opt,
+      vec_flags(q, k, v, dout, sq, sk, sv, sdo));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and does not synchronise. q is
@@ -988,7 +1558,10 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 // [b, h, tq, d], dk, dv [b, hkv, tk, d], lse and delta [b, h, tq] are
 // contiguous. window 0 means none; dropout 0 means none. Returns the CUDA
 // error of the launch (0 when it was accepted); a head dim above 128 is
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. The dk/dv entry takes its design from the caller
+// (`dkv_design` in ops/attention.py): wgmma 1 launches the wgmma kernel
+// (any d up to 128), 0 the template of d <= 32 or d <= 64 (a larger d is
+// cudaErrorInvalidValue).
 
 extern "C" int tinynn_attention_forward(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
@@ -1060,7 +1633,8 @@ extern "C" int tinynn_attention_backward_dkv(
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sdb,
     long long sdh, long long sdt, float scale, int causal, int window,
-    int dropout, unsigned thresh, float inv, unsigned seed, void* stream) {
+    int dropout, unsigned thresh, float inv, unsigned seed, int wgmma,
+    void* stream) {
   const Shape s{b, h, hkv, tq, tk, d};
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       sdo{sdb, sdh, sdt};
@@ -1075,15 +1649,17 @@ extern "C" int tinynn_attention_backward_dkv(
   auto* vg = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d <= 32)
+  if (d > 128)
+    err = cudaErrorInvalidValue;
+  else if (wgmma)
+    err = launch_dkv_wgmma(qf, kf, vf, df, lf, ef, kg, vg, s, sq, sk, sv, sdo,
+                           opt, st);
+  else if (d <= 32)
     err = launch_dkv<32>(qf, kf, vf, df, lf, ef, kg, vg, s, sq, sk, sv, sdo,
                          opt, st);
   else if (d <= 64)
     err = launch_dkv<64>(qf, kf, vf, df, lf, ef, kg, vg, s, sq, sk, sv, sdo,
                          opt, st);
-  else if (d <= 128)
-    err = launch_dkv<128>(qf, kf, vf, df, lf, ef, kg, vg, s, sq, sk, sv, sdo,
-                          opt, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

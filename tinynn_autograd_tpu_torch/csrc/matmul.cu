@@ -93,12 +93,18 @@
 #include <type_traits>
 
 #include "tf32.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using tinynn::fence_operand;
 using tinynn::split_tf32;
+using tinynn::wgmma_commit;
+using tinynn::wgmma_fence;
+using tinynn::wgmma_tf32;
+using tinynn::wgmma_wait_all;
 
 constexpr int THREADS = 256;
 constexpr int BK = 16;       // depth of one shared-memory stage
@@ -410,66 +416,10 @@ constexpr int FLOATS = 4 * PLANE > BM * RS ? 4 * PLANE : BM * RS;
 constexpr size_t SMEM = sizeof(float) * FLOATS;
 }  // namespace tc
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving uses of `x` across the wgmma fences.
-__device__ __forceinline__ void fence_operand(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void fence_operand(unsigned& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-// The wgmma descriptor of a K-major TF32 plane without swizzle at `p` in
-// shared memory: core matrices 128 bytes apart along K (leading byte
-// offset) and 1,024 bytes apart along N (stride byte offset).
+// The wgmma descriptor of one of B's planes: core matrices 1,024 bytes
+// apart along N.
 __device__ __forceinline__ uint64_t plane_desc(const float* p) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
-         (uint64_t((tc::BK / 4) * 128 >> 4) << 32);
-}
-
-// d (64 f32 a thread) = a b + (accumulate ? d : 0): a the warpgroup's
-// 64 x 8 TF32 fragment in registers (4 a thread, as mma.sync m16n8k8's a
-// warp), b the 8 x 128 K-major TF32 tile at `desc`.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
-                                           const unsigned (&a)[4],
-                                           uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+  return tinynn::kmajor_desc(p, (tc::BK / 4) * 128);
 }
 
 // The stages' order of k. The wgmma's k8 step s takes logical k 8s..8s+7;
@@ -521,7 +471,7 @@ __device__ __forceinline__ void store_planes(const float (&x)[16], float* hi,
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  tinynn::fence_async_shared();
 }
 
 // One stage of A held in registers: the thread's rows r and r + 1

@@ -231,9 +231,10 @@ def _bind(lib, ctypes):
     for name, n_ptrs in (("forward", 5), ("backward_dq", 7),
                          ("backward_dkv", 8)):
         n_strided = 3 if name == "forward" else 4
+        design = [I] if name == "backward_dkv" else []  # dkv_design's answer
         fn = getattr(lib, "tinynn_attention_" + name)
         fn.argtypes = [P] * n_ptrs + [I] * 6 + [L] * (3 * n_strided) \
-            + opts + [P]
+            + opts + design + [P]
         fn.restype = ctypes.c_int
 
 
@@ -338,11 +339,21 @@ def cuda_attention_backward_dq(q, k, v, do, lse, delta, causal, scale,
 cuda_attention_backward_dq.launches = 0
 
 
+def dkv_design(d):
+    """The dk/dv kernel's design at head dim ``d``: ``"wgmma"`` (the
+    warp-specialised kernel on Hopper's warpgroup products) for d in
+    65-128, ``"mma"`` (the ``mma.sync`` templates of d <= 32 and d <= 64)
+    below. The wrapper hands the answer to the C entry point, which
+    launches by it, and counts by it."""
+    return "wgmma" if d > 64 else "mma"
+
+
 def cuda_attention_backward_dkv(q, k, v, do, lse, delta, causal, scale,
                                 window=None, dropout_rate=0.0, seed=None):
     """(dk, dv) [B,Hkv,Tk,d] through the dk/dv kernel, each kv head summed
-    over its group of query heads inside the kernel.
-    ``cuda_attention_backward_dkv.launches`` counts the launches."""
+    over its group of query heads inside the kernel; ``dkv_design(d)``
+    picks the kernel. ``cuda_attention_backward_dkv.launches`` counts the
+    launches, ``.wgmma_launches`` those of the wgmma design."""
     q, k, v, do, lse, delta = _backward_operands(
         "cuda_attention_backward_dkv", q, k, v, do, lse, delta)
     b, h, tq, d = q.shape
@@ -352,16 +363,20 @@ def cuda_attention_backward_dkv(q, k, v, do, lse, delta, causal, scale,
     if dk.numel() == 0 or tq == 0:
         return dk.zero_(), dv.zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    wgmma = dkv_design(d) == "wgmma"
     _launch("backward_dkv", cuda_attention_backward_dkv,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              b, h, hkv, tq, tk, d]
             + _strides(q, k, v, do)
-            + _options(causal, scale, window, dropout_rate, seed) + [stream])
+            + _options(causal, scale, window, dropout_rate, seed)
+            + [int(wgmma), stream])
+    cuda_attention_backward_dkv.wgmma_launches += wgmma
     return dk, dv
 
 
 cuda_attention_backward_dkv.launches = 0
+cuda_attention_backward_dkv.wgmma_launches = 0
 
 
 # --------------------------------------------------------------------------
