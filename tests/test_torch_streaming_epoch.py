@@ -461,15 +461,16 @@ def test_plain_versions_match_the_tape_primitive():
 
 
 def test_optimizer_constants():
-    code, consts = streaming_epoch.optimizer_constants(
-        optimizer.Adam(beta1=0.8, beta2=0.99, epsilon=1e-7))
-    assert code == streaming_epoch.OPTIMIZERS.index("Adam")
+    from tinynn_autograd_tpu_torch.ops import fused_epoch
+
+    code, consts = optimizer.Adam(beta1=0.8, beta2=0.99,
+                                  epsilon=1e-7).kernel_rule()
+    assert code == fused_epoch.OPTIMIZERS.index("Adam")
     assert consts == tuple(float(np.float32(c)) for c in
                            (1.0 - 0.8, 1.0 - 0.99, 1e-7, 0.0))
-    for name in streaming_epoch.OPTIMIZERS:
-        code, consts = streaming_epoch.optimizer_constants(
-            getattr(optimizer, name)(lr=0.1))
-        assert streaming_epoch.OPTIMIZERS[code] == name and len(consts) == 4
+    for name in fused_epoch.OPTIMIZERS:
+        code, consts = getattr(optimizer, name)(lr=0.1).kernel_rule()
+        assert fused_epoch.OPTIMIZERS[code] == name and len(consts) == 4
 
 
 def test_nvcc_command_targets_sm_90a():

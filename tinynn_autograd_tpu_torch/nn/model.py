@@ -140,10 +140,9 @@ class Model:
         for param in self.net.get_parameters():
             for p in param.values():
                 p.grad = None
-        state = self.optimizer.state_dict()
         with profiler.span("tinynn.step.forward"):
             pred = self.net.forward(Tensor(xb),
-                                    rng=0 if state is None else state["t"])
+                                    rng=self.optimizer.step_count)
         with profiler.span("tinynn.step.loss"):
             loss_t = self.loss.loss(pred, Tensor(yb))
         with profiler.span("tinynn.step.backward"):
@@ -228,10 +227,11 @@ class Model:
                         xs = xs.to(torch.float32).contiguous()
                         ys = ys.to(torch.float32).contiguous()
                 if epoch_fn is not None:
-                    state = self.optimizer.state_dict()
-                    state["t"], losses[epoch] = epoch_fn(
-                        self.net.params_tree(), state["slots"], state["t"],
-                        xs, ys)
+                    opt, params = self.optimizer, self.net.params_tree()
+                    _, losses[epoch] = epoch_fn(
+                        params, opt.live_state(params)["slots"],
+                        opt.step_count, xs, ys)
+                    opt.advance(n_steps)
                     continue
                 for s in range(n_steps):
                     losses[epoch, s] = step_fn(xs[s], ys[s])
@@ -258,9 +258,6 @@ class Model:
                                  "Dense layers) cannot run this model: %s"
                                  % reason)
             return None
-        if self.optimizer.state_dict() is None:
-            self.optimizer.load_state_dict(
-                self.optimizer.init_state(self.net.params_tree()))
         return fused_epoch.build_fused_epoch(
             self.net, self.loss, self.optimizer, n_steps, batch_shape,
             label_shape)
@@ -283,9 +280,6 @@ class Model:
                                  "with one DenseStack body) cannot run this "
                                  "model: %s" % reason)
             return None
-        if self.optimizer.state_dict() is None:
-            self.optimizer.load_state_dict(
-                self.optimizer.init_state(self.net.params_tree()))
         return streaming_epoch.build_streaming_step(self.net, self.loss,
                                                     self.optimizer)
 

@@ -7,15 +7,16 @@ uses ``rsqrt``), so that the two agree at rounding level. ``lr`` may be a
 number or a schedule (nn/scheduler.py), a callable ``t -> lr`` evaluated on
 the host.
 
-Entry points:
-- ``update(grads, params, state) -> (steps, state)``, called once per train
-  step by the Model.
-- ``compute_step(grads, params)``, the stateful eager facade (list-of-dicts
-  in, list-of-dicts of steps out).
-- ``rule(g, scalars, slots)``, one leaf's update given the step's scalars;
-  ``scalars(lr, t)`` computes them, ``step_scalars(t0, n_steps)`` for a run
-  of steps. The kernels (ops/fused_epoch.py, ops/streaming_epoch.py) take
-  the same scalars as launch arguments and apply the same rule.
+Entry points (nn/model.py, parallel/ and the kernels' hosts in ops/ reach a
+step's update only through them):
+- ``update(grads, params, state) -> (steps, state)`` and its stateful
+  facade ``compute_step(grads, params)``, the step tier's update.
+- ``live_state(params)``, ``step_count`` and ``advance(n_steps)``: the
+  state, made on first use, and its step count.
+- ``scalars_at(t)``/``step_scalars(t0, n_steps)``: a step's scalars;
+  ``leaf_update(g, p, scalars, slots)``: one leaf's rule and weight decay.
+- ``kernel_rule()``: the code and constants ``csrc/optim_rules.cuh`` reads
+  (K2, K3b and P2 apply the same rule at the same scalars).
 
 ``steps`` is what gets ADDED to the params (param += step).
 
@@ -51,6 +52,14 @@ class BaseOptimizer:
 
     # names of per-parameter state slots, e.g. ("m", "v") for Adam
     slot_names = ()
+    # the rule's code in csrc/optim_rules.cuh (its ``Opt`` enum); None: no
+    # kernel applies it
+    kernel_code = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        # a subclass may change the rule, so it inherits no kernel code
+        cls.kernel_code = cls.__dict__.get("kernel_code")
 
     def __init__(self, lr, weight_decay=0.0, slot_dtype=None,
                  stochastic_rounding=False, clip_norm=None):
@@ -79,19 +88,22 @@ class BaseOptimizer:
     def step_leaf(self, g, lr, t, slots):
         """Apply the rule to one leaf: the slots are updated in place, the
         step is returned in the gradient's dtype. Returns (step, slots)."""
-        step = self.rule(g, self.scalars(lr, t), slots)
-        return step.to(g.dtype), slots
+        return self.rule(g, self.scalars(lr, t), slots).to(g.dtype), slots
 
-    def _lr_at(self, t):
-        if callable(self.lr):
-            return self.lr(t)
-        return self.lr
+    def leaf_update(self, g, p, scalars, slots):
+        """One leaf's step at the step's ``scalars``: the rule, in the
+        gradient's dtype, then weight decay on the parameter ``p``. The
+        slots are updated in place; ``p`` is not touched."""
+        step = self.rule(g, scalars, slots).to(g.dtype)
+        if self.weight_decay:
+            step = step - self.weight_decay * p
+        return step
 
     def update(self, grads, params, state):
         """Returns (steps, state). ``state``'s slots are updated in place and
         its step counter advances; ``params`` are not touched."""
         t = state["t"] + 1
-        lr = self._lr_at(t)
+        scalars = self.scalars_at(t)
 
         keys = _leaf_keys(grads)
         g_leaves = [grads[i][k] for i, k in keys]
@@ -104,12 +116,8 @@ class BaseOptimizer:
         steps = [{} for _ in grads]
         for (i, k), g in zip(keys, g_leaves):
             p = params[i][k]
-            g = g.to(p.dtype)
             slots_i = {n: state["slots"][n][i][k] for n in self.slot_names}
-            step, _ = self.step_leaf(g, lr, t, slots_i)
-            if self.weight_decay:
-                step = step - self.weight_decay * p
-            steps[i][k] = step
+            steps[i][k] = self.leaf_update(g.to(p.dtype), p, scalars, slots_i)
         state["t"] = t
         return steps, state
 
@@ -124,22 +132,58 @@ class BaseOptimizer:
         otherwise."""
         return float(-np.float32(lr)), 0.0
 
+    def scalars_at(self, t):
+        """The scalars of step ``t`` at the learning rate ``lr`` gives it:
+        the schedule's ``lr(t)``, or ``lr`` itself when it is a number."""
+        return self.scalars(self.lr(t) if callable(self.lr) else self.lr, t)
+
     def step_scalars(self, t0, n_steps):
         """[n_steps, 2] float32: the scalars of steps t0+1 ... t0+n_steps,
         computed as ``update`` computes them."""
-        return np.array([self.scalars(self._lr_at(t), t)
+        return np.array([self.scalars_at(t)
                          for t in range(t0 + 1, t0 + 1 + n_steps)],
                         np.float32).reshape(n_steps, 2)
+
+    def kernel_rule(self):
+        """(code, (c0, c1, c2, c3)): the rule's code and constants as
+        csrc/optim_rules.cuh reads them, the f32 values ``rule`` multiplies
+        by, from the attributes as they are at the call."""
+        if self.kernel_code is None:
+            raise ValueError("optimizer %s has no rule in the kernel"
+                             % type(self).__name__)
+        consts = self._kernel_constants() + (0.0,) * 4
+        return self.kernel_code, tuple(float(np.float32(c))
+                                       for c in consts[:4])
+
+    def _kernel_constants(self):
+        return ()  # c0, c1, ...; the rest are 0
+
+    # ------------------------------------------------ the state's lifetime
+
+    def live_state(self, params):
+        """The optimizer's state, made from the parameter tree ``params``
+        (zero slots, step 0) when there is none."""
+        if self._state is None:
+            self._state = self.init_state(params)
+        return self._state
+
+    @property
+    def step_count(self):
+        """The steps taken: 0 while there is no state."""
+        return 0 if self._state is None else self._state["t"]
+
+    def advance(self, n_steps):
+        """Count ``n_steps`` steps that a kernel applied to the live state
+        (K2's epoch, the streaming tier's step)."""
+        self._state["t"] += n_steps
 
     # ----------------------------------------- reference-compatible facade
 
     def compute_step(self, grads, params):
         """Stateful eager facade: same list-of-dicts structures in/out."""
-        grads_t = _tree_of(grads)
         params_t = _tree_of(params)
-        if self._state is None:
-            self._state = self.init_state(params_t)
-        steps, self._state = self.update(grads_t, params_t, self._state)
+        steps, _ = self.update(_tree_of(grads), params_t,
+                               self.live_state(params_t))
         return steps
 
     def reset(self):
@@ -155,6 +199,8 @@ class BaseOptimizer:
 class SGD(BaseOptimizer):
     """step = -lr * g."""
 
+    kernel_code = 0
+
     def __init__(self, lr, weight_decay=0.0, clip_norm=None):
         super().__init__(lr, weight_decay, clip_norm=clip_norm)
 
@@ -166,6 +212,7 @@ class Momentum(BaseOptimizer):
     """acc = momentum * acc + g; step = -lr * acc."""
 
     slot_names = ("acc",)
+    kernel_code = 2
 
     def __init__(self, lr, momentum=0.9, weight_decay=0.0,
                  slot_dtype=None, stochastic_rounding=False,
@@ -178,6 +225,9 @@ class Momentum(BaseOptimizer):
         acc = slots["acc"].mul_(self._momentum).add_(g)
         return scalars[0] * acc
 
+    def _kernel_constants(self):
+        return (self._momentum,)
+
 
 class Adam(BaseOptimizer):
     """EMA moments with bias correction:
@@ -186,6 +236,7 @@ class Adam(BaseOptimizer):
     """
 
     slot_names = ("m", "v")
+    kernel_code = 1
 
     def __init__(self, lr=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  weight_decay=0.0, slot_dtype=None,
@@ -215,6 +266,9 @@ class Adam(BaseOptimizer):
         scale, rsqrt_c2 = scalars
         return scale * m / (torch.sqrt(v) * rsqrt_c2 + self._eps)
 
+    def _kernel_constants(self):
+        return (1.0 - self._b1, 1.0 - self._b2, self._eps)
+
 
 class Lion(BaseOptimizer):
     """Lion (Chen et al. 2023): the step is the sign of an interpolated
@@ -222,6 +276,7 @@ class Lion(BaseOptimizer):
     m = b2 * m + (1 - b2) * g."""
 
     slot_names = ("m",)
+    kernel_code = 3
 
     def __init__(self, lr=1e-4, beta1=0.9, beta2=0.99, weight_decay=0.0,
                  slot_dtype=None, stochastic_rounding=False,
@@ -237,12 +292,16 @@ class Lion(BaseOptimizer):
         m.mul_(self._b2).add_((1.0 - self._b2) * g)
         return scalars[0] * u
 
+    def _kernel_constants(self):
+        return (self._b1, 1.0 - self._b1, self._b2, 1.0 - self._b2)
+
 
 class RMSProp(BaseOptimizer):
     """ms += (1-decay)(g^2 - ms);
     mom = momentum*mom + lr*g*rsqrt(ms + eps); step = -mom."""
 
     slot_names = ("ms", "mom")
+    kernel_code = 4
 
     def __init__(self, lr=0.01, decay=0.99, momentum=0.0, epsilon=1e-8,
                  weight_decay=0.0, slot_dtype=None,
@@ -264,11 +323,15 @@ class RMSProp(BaseOptimizer):
             scalars[0] * g * torch.rsqrt(ms + self._eps))
         return -mom
 
+    def _kernel_constants(self):
+        return (1.0 - self._decay, self._momentum, self._eps)
+
 
 class Adagrad(BaseOptimizer):
     """G += g^2; step = -lr * g * rsqrt(G + eps)."""
 
     slot_names = ("G",)
+    kernel_code = 5
 
     def __init__(self, lr, weight_decay=0.0, epsilon=1e-8,
                  slot_dtype=None, stochastic_rounding=False,
@@ -281,6 +344,9 @@ class Adagrad(BaseOptimizer):
         G = slots["G"].add_(g * g)
         return scalars[0] * g * torch.rsqrt(G + self._eps)
 
+    def _kernel_constants(self):
+        return (self._eps,)
+
 
 class Adadelta(BaseOptimizer):
     """Zeiler 2012: Eg += (1-decay)(g^2 - Eg);
@@ -288,6 +354,7 @@ class Adadelta(BaseOptimizer):
     d += (1-decay)(delta^2 - d)."""
 
     slot_names = ("Eg", "d")
+    kernel_code = 6
 
     def __init__(self, lr=1.0, weight_decay=0.0, decay=0.9, epsilon=1e-8,
                  slot_dtype=None, stochastic_rounding=False,
@@ -303,3 +370,6 @@ class Adadelta(BaseOptimizer):
         delta = g * torch.sqrt(d + self._eps) * torch.rsqrt(Eg + self._eps)
         d.add_((1.0 - self._decay) * (delta * delta - d))
         return scalars[0] * delta
+
+    def _kernel_constants(self):
+        return (1.0 - self._decay, self._eps)

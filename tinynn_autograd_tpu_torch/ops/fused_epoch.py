@@ -69,9 +69,6 @@ import numpy as np
 import torch
 
 from tinynn_autograd_tpu_torch.ops import dropout, kernels
-from tinynn_autograd_tpu_torch.ops.optim_rules import (
-    OPTIMIZERS, optimizer_constants,
-)
 from tinynn_autograd_tpu_torch.ops.ring_allreduce import (
     MAX_RANKS, SYNC_WORDS, ring_all_reduce_reference,
 )
@@ -81,6 +78,10 @@ SOURCE = kernels.CSRC_DIR / "fused_epoch.cu"
 
 # Activation codes of the kernel's C interface.
 ACT_NONE, ACT_RELU, ACT_SIGMOID, ACT_TANH = 0, 1, 2, 3
+# The rules of csrc/optim_rules.cuh (K2's, K3b's and P2's), in the order of
+# its ``Opt`` enum: an optimizer class's ``kernel_code`` indexes it.
+OPTIMIZERS = ("SGD", "Adam", "Momentum", "Lion", "RMSProp", "Adagrad",
+              "Adadelta")
 MAX_LAYERS = 16  # MAX_LAYERS in csrc/fused_epoch.cu
 
 # The state the kernel keeps resident from step to step: parameters,
@@ -225,7 +226,7 @@ def unsupported_reason(net, params_tree, optimizer, loss, batch_shape=None,
             isinstance(layer, Flatten) for layer in net.layers[:dense[0]]):
         return ("inputs of shape %s reach the first Dense layer without a "
                 "Flatten" % (tuple(batch_shape),))
-    if type(optimizer).__name__ not in OPTIMIZERS:
+    if optimizer.kernel_code is None:
         return "optimizer %s has no rule in the kernel" \
             % type(optimizer).__name__
     if not (callable(optimizer.lr) or isinstance(optimizer.lr,
@@ -290,7 +291,7 @@ def layer_descriptor(net):
 
 
 def epoch_spec(net, optimizer):
-    code, consts = optimizer_constants(optimizer)
+    code, consts = optimizer.kernel_rule()
     clip = optimizer.clip_norm
     return EpochSpec(
         tuple(layer_descriptor(net)), code,

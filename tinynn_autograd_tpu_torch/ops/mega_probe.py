@@ -6,10 +6,10 @@ measures the irreducible in-kernel optimizer cost of a K2 step: ``n_steps``
 steps in one launch, each applying only the per-leaf rule to the flagship's
 leaves with a fake gradient ``g = 1e-3 p`` (one elementwise pass, the same
 for every optimizer, so the differences between optimizers isolate the slot
-math and traffic). Step ``i`` uses ``t = t0 + i`` and ``lr = _lr_at(t)``.
+math and traffic). Step ``i`` uses the scalars of step ``t = t0 + i``.
 
 - ``mega_probe_reference``: the plain PyTorch version, the optimizer's own
-  ``step_leaf``. For CPU tensors and the tests.
+  ``rule``. For CPU tensors and the tests.
 - ``cuda_mega_probe``: the kernel's wrapper (``csrc/mega_probe.cu``). It
   launches or raises, never falls back; ``cuda_mega_probe.launches`` counts
   its launches.
@@ -18,7 +18,6 @@ math and traffic). Step ``i`` uses ``t = t0 + i`` and ``lr = _lr_at(t)``.
 import torch
 
 from tinynn_autograd_tpu_torch.ops import kernels
-from tinynn_autograd_tpu_torch.ops.optim_rules import optimizer_constants
 
 SOURCE = kernels.CSRC_DIR / "mega_probe.cu"
 MAX_LEAVES = 32  # MAX_LEAVES in csrc/mega_probe.cu
@@ -30,16 +29,14 @@ LEAF_SHAPES = [(784, 200), (1, 200), (200, 100), (1, 100),
 def mega_probe_reference(optimizer, params, slots, t0, n_steps):
     """The probe in plain PyTorch: ``params`` (a list of leaves) and
     ``slots`` ({name: list of leaves}) updated in place over ``n_steps``
-    steps of ``p += step_leaf(1e-3 * p, _lr_at(t), t)``, t = t0 + i (the
+    steps of ``p += rule(1e-3 * p)`` at step t's scalars, t = t0 + i (the
     rule alone: no weight decay, as in the JAX probe)."""
     for i in range(n_steps):
-        t = t0 + i
-        lr = optimizer._lr_at(t)
+        scalars = optimizer.scalars_at(t0 + i)
         for j, p in enumerate(params):
-            step, _ = optimizer.step_leaf(
-                p * 1e-3, lr, t,
-                {name: slots[name][j] for name in optimizer.slot_names})
-            p.add_(step)
+            p.add_(optimizer.rule(
+                p * 1e-3, scalars,
+                {name: slots[name][j] for name in optimizer.slot_names}))
 
 
 def _bind(lib, ctypes):
@@ -79,7 +76,7 @@ def cuda_mega_probe(optimizer, params, slots, t0, n_steps):
         raise ValueError("%d steps are out of range" % n_steps)
     import ctypes
 
-    code, consts = optimizer_constants(optimizer)
+    code, consts = optimizer.kernel_rule()
     # the scalars of steps t0 ... t0 + n_steps - 1
     scalars = torch.from_numpy(optimizer.step_scalars(t0 - 1, n_steps)).to(
         device)

@@ -12,9 +12,9 @@ and suffix layers. Per train step:
 4. K3b over the body, with the pre-update weights: the dh chain, dW and the
    optimizer's rule applied in the kernel, ``w`` and its slots updated IN
    PLACE; it returns the bias gradients ``db [L, 1, W]`` and ``dh0``;
-5. the stacked-bias update on ``db`` through the optimizer's ``step_leaf``;
+5. the stacked-bias update on ``db`` through the optimizer's ``leaf_update``;
 6. the prefix backward, seeded with ``dh0``;
-7. the prefix and suffix leaves through ``optimizer.update``.
+7. the prefix and suffix leaves through ``leaf_update``, one by one.
 
 On a CUDA device steps 2 and 4 launch the kernels; on the CPU they run the
 plain versions. The kernels compute in f32 whatever ``set_matmul_precision``
@@ -36,9 +36,6 @@ import numpy as np
 import torch
 
 from tinynn_autograd_tpu_torch.ops import kernels
-from tinynn_autograd_tpu_torch.ops.optim_rules import (
-    OPTIMIZERS, optimizer_constants,
-)
 
 SOURCE = kernels.CSRC_DIR / "streaming_epoch.cu"
 
@@ -109,7 +106,7 @@ def unsupported_reason(net, optimizer, batch_shape=None):
         if not isinstance(layer, (Dense, Activation, Flatten)):
             return ("layer %s around the DenseStack is not Dense, an "
                     "activation or Flatten" % type(layer).__name__)
-    if type(optimizer).__name__ not in OPTIMIZERS:
+    if optimizer.kernel_code is None:
         return "optimizer %s has no rule in the kernel" \
             % type(optimizer).__name__
     if optimizer.clip_norm is not None:
@@ -137,8 +134,9 @@ def supports(net, optimizer, batch_shape=None):
 def build_streaming_step(net, loss_fn, optimizer, forward=None,
                          backward=None):
     """Returns ``step_fn(xb, yb) -> loss`` (a device scalar), one train step
-    that updates the net's parameters and the optimizer's state in place.
-    The optimizer state must exist. ``forward``/``backward`` replace the
+    that updates the net's parameters and the optimizer's state in place
+    (made on the first step where there is none) and counts the step.
+    ``forward``/``backward`` replace the
     body's two functions (the kernels' wrappers on a CUDA device, the plain
     versions on the CPU) where given: a check runs the same step through
     the plain versions on the card."""
@@ -150,7 +148,6 @@ def build_streaming_step(net, loss_fn, optimizer, forward=None,
     stack_idx = _find_stack(net)
     stack = net.layers[stack_idx]
     prefix, suffix = net.layers[:stack_idx], net.layers[stack_idx + 1:]
-    n_layers = len(net.layers)
 
     def step_fn(xb, yb):
         cuda = xb.device.type == "cuda"
@@ -158,10 +155,8 @@ def build_streaming_step(net, loss_fn, optimizer, forward=None,
                           else stream_forward_reference)
         bwd = backward or (cuda_stream_backward if cuda
                            else stream_backward_reference)
-        state = optimizer.state_dict()
-        slots = state["slots"]
-        t = state["t"] + 1
-        lr = optimizer._lr_at(t)
+        slots = optimizer.live_state(net.params_tree())["slots"]
+        scalars = optimizer.scalars_at(optimizer.step_count + 1)
         small = [layer.params if i != stack_idx else {}
                  for i, layer in enumerate(net.layers)]
         for leaves in small:
@@ -180,36 +175,24 @@ def build_streaming_step(net, loss_fn, optimizer, forward=None,
         loss_t = loss_fn.loss(out, Tensor(yb))
         loss_t.backward()
 
+        def leaf_slots(i, k):
+            return {n: slots[n][i][k] for n in optimizer.slot_names}
+
         db, dh0 = bwd(stack.activation, optimizer, h0.data.contiguous(),
                       h_last.grad.contiguous(), acts, w,
-                      {n: slots[n][stack_idx]["w"]
-                       for n in optimizer.slot_names},
-                      optimizer.scalars(lr, t))
-        # the stacked biases through the same per-leaf rule (elementwise, so
-        # one [L, 1, W] call is L per-layer calls)
-        step_b, _ = optimizer.step_leaf(
-            db, lr, t, {n: slots[n][stack_idx]["b"]
-                        for n in optimizer.slot_names})
-        if optimizer.weight_decay:
-            step_b = step_b - optimizer.weight_decay * b
-        b.add_(step_b)
+                      leaf_slots(stack_idx, "w"), scalars)
+        # the stacked biases through the same per-leaf update (elementwise,
+        # so one [L, 1, W] call is L per-layer calls)
+        b.add_(optimizer.leaf_update(db, b, scalars,
+                                   leaf_slots(stack_idx, "b")))
         if h0.requires_grad:
             h0.backward(dh0)
-
-        grads = [{k: (p.grad if p.grad is not None
-                      else torch.zeros_like(p.data))
-                  for k, p in leaves.items()} for leaves in small]
-        small_slots = {n: [slots[n][i] if i != stack_idx else {}
-                           for i in range(n_layers)]
-                       for n in optimizer.slot_names}
-        steps, _ = optimizer.update(
-            grads, [{k: p.data for k, p in leaves.items()}
-                    for leaves in small],
-            {"t": t - 1, "slots": small_slots})
-        for leaves, step in zip(small, steps):
+        for i, leaves in enumerate(small):
             for k, p in leaves.items():
-                p.data.add_(step[k])
-        state["t"] = t
+                g = p.grad if p.grad is not None else torch.zeros_like(p.data)
+                p.data.add_(optimizer.leaf_update(
+                    g.to(p.data.dtype), p.data, scalars, leaf_slots(i, k)))
+        optimizer.advance(1)
         return loss_t.data
 
     return step_fn
@@ -237,8 +220,8 @@ def stream_backward_reference(activation, optimizer, h0, dlast, acts, w,
     """K3b's function in plain PyTorch. From the loss gradient ``dlast``
     [B, W] at the body's output, last layer first: ``dz = dh * act'(a)``,
     ``dh = dz @ w[l]^T`` with the pre-update ``w[l]``, ``dW = h_in^T dz``,
-    and ``optimizer.rule`` (with ``scalars``, the step's
-    ``optimizer.scalars``) and weight decay applied to ``w[l]`` and the
+    and ``optimizer.leaf_update`` (the rule at ``scalars``, the step's
+    ``optimizer.scalars_at``, and weight decay) applied to ``w[l]`` and the
     ``slots`` ({name: [L, W, W]}) in place. Returns ``(db [L, 1, W], dh0
     [B, W])``."""
     deriv = _ACTS[activation][1]
@@ -252,11 +235,8 @@ def stream_backward_reference(activation, optimizer, h0, dlast, acts, w,
         dh = kernels.matmul_reference(dz, w[l].T)
         dw = kernels.matmul_reference(h_in.T, dz)
         db[l] = dz.sum(dim=0, keepdim=True)
-        step = optimizer.rule(dw, scalars,
-                              {n: slots[n][l] for n in optimizer.slot_names})
-        if optimizer.weight_decay:
-            step = step - optimizer.weight_decay * w[l]
-        w[l].add_(step)
+        w[l].add_(optimizer.leaf_update(
+            dw, w[l], scalars, {n: slots[n][l] for n in optimizer.slot_names}))
     return db, dh
 
 
@@ -354,7 +334,7 @@ def cuda_stream_backward(activation, optimizer, h0, dlast, acts, w, slots,
     for name in names:
         _check("slot %s" % name, slots[name], device,
                (n_layers, width, width))
-    code, consts = optimizer_constants(optimizer)
+    code, consts = optimizer.kernel_rule()
     slot_ptrs = [slots[n].data_ptr() for n in names] + [0] * (2 - len(names))
     db = torch.empty((n_layers, 1, width), dtype=torch.float32, device=device)
     dh0 = torch.empty((batch, width), dtype=torch.float32, device=device)

@@ -82,10 +82,7 @@ class DataParallel:
         self.model._ensure_init(input_shape)
         if self.model.get_phase() != "TRAIN":
             self.model.set_phase("TRAIN")
-        opt = self.model.optimizer
-        if opt.state_dict() is None:
-            opt.load_state_dict(opt.init_state(self.net.params_tree()))
-        return opt.state_dict()
+        return self.model.optimizer.live_state(self.net.params_tree())
 
     # ------------------------------------------------------------ step tier
 
@@ -93,7 +90,7 @@ class DataParallel:
         """One data-parallel step: ``xs``/``ys`` hold each rank's local
         batch. Returns the mean over ranks of the local losses."""
         net, n = self.net, self.n_devices
-        t = self.model.optimizer.state_dict()["t"]
+        t = self.model.optimizer.step_count
         rank_grads, losses = [], []
         for r in range(n):
             for param in net.get_parameters():
@@ -171,6 +168,7 @@ class DataParallel:
             raise ValueError("a rank's shard of %d samples is smaller than "
                              "its batch of %d" % (local_n, local_batch))
         state = self._ensure_state((local_batch,) + feat)
+        opt = self.model.optimizer
 
         epoch_fn = self._megakernel(fused, n_steps, (local_batch,) + feat,
                                     (local_batch,) + label_feat)
@@ -197,10 +195,11 @@ class DataParallel:
                 continue
             replicas = [(self.net.params_tree(), state["slots"])]
             replicas += self._rank_replicas(replicas[0])
-            state["t"], rank_losses = epoch_fn(
+            _, rank_losses = epoch_fn(
                 [p for p, _ in replicas], [s for _, s in replicas],
-                state["t"], xs.to(torch.float32).contiguous(),
+                opt.step_count, xs.to(torch.float32).contiguous(),
                 ys.to(torch.float32).contiguous())
+            opt.advance(n_steps)
             losses[epoch] = rank_losses.sum(0) / n
         return losses
 
