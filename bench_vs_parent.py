@@ -33,15 +33,17 @@ dk/dv) against a parent's ``csrc/attention.cu`` (the same C interface):
   the attention kernels twice a step each) with this tree's attention
   library and the parent's, steps/s by the host's clock.
 
-``--mode dkv``: the dk/dv kernel alone at Mellum 2's two layer kinds
-(``chip_smoke.ATTN_DKV_TIMED``: 32:4 GQA of head dim 128 over 4 x 8,192
-tokens, banded to 1,024 keys and full), in turns (this, parent, parent,
-this, this, parent), beside its bound and the largest difference of dk and
-dv from the parent's. lse and delta come from this tree's forward.
+``--mode dkv`` and ``--mode dq``: the dk/dv or the dq kernel alone at
+Mellum 2's two layer kinds (``chip_smoke.ATTN_BWD_TIMED``: 32:4 GQA of
+head dim 128 over 4 x 8,192 tokens, banded to 1,024 keys and full), in
+turns (this, parent, parent, this, this, parent), beside its bound and the
+largest difference of its outputs from the parent's. lse and delta come
+from this tree's forward.
 
-Both attention modes take a parent whose dk/dv entry point has no design
-argument (a tree before ``dkv_design``): the parent's kernel is the one
-that parent launches at the head dim.
+The attention modes take a parent whose dq or dk/dv entry point has no
+design argument (a tree before ``dq_design`` or ``dkv_design``; read from
+its source): the parent's kernel is then the one that parent launches at
+the head dim.
 
 Commit a9c3485 has the CUDA-core forward (64 x 64 score tiles of 256
 threads) and the tensor-core pair of this tree; ec60c57 has CUDA-core
@@ -52,12 +54,14 @@ point --parent there:
     python3 bench_vs_parent.py --parent _parent   # K2, ~1 min
     python3 bench_vs_parent.py --parent _parent --mode attention  # ~2 min
     python3 bench_vs_parent.py --parent _parent --mode dkv  # ~1 min
+    python3 bench_vs_parent.py --parent _parent --mode dq  # ~1 min
 
 Without a CUDA device it exits 1.
 """
 
 import argparse
 import ctypes
+import functools
 import os
 import subprocess
 import sys
@@ -173,28 +177,46 @@ class parent_k2:
         kernels._loaded["fused_epoch"] = self.saved
 
 
-def bind_parent_attention(lib, ctypes):
-    """The C interface of a parent's ``csrc/attention.cu`` whose dk/dv
-    entry point takes no design argument (before ``dkv_design``)."""
+def undesigned_entries(root):
+    """The backward entry points of a parent's ``csrc/attention.cu`` that
+    take no design argument (a tree before ``dq_design`` or
+    ``dkv_design``)."""
+    source = (Path(root) / "tinynn_autograd_tpu_torch" / "csrc"
+              / "attention.cu").read_text()
+    out = []
+    for name in ("tinynn_attention_backward_dq",
+                 "tinynn_attention_backward_dkv"):
+        head = source.split('extern "C" int %s(' % name)[1].split(")")[0]
+        if "int wgmma" not in head:
+            out.append(name)
+    return out
+
+
+def bind_parent_attention(lib, ctypes, root):
+    """The C interface of a parent's ``csrc/attention.cu``: this tree's,
+    less the design argument of the entry points that take none."""
     attention._bind(lib, ctypes)
-    fn = lib.tinynn_attention_backward_dkv
-    fn.argtypes = tuple(fn.argtypes[:-2]) + tuple(fn.argtypes[-1:])
-    return ParentAttention(lib)
+    undesigned = undesigned_entries(root)
+    for name in undesigned:
+        fn = getattr(lib, name)
+        fn.argtypes = tuple(fn.argtypes[:-2]) + tuple(fn.argtypes[-1:])
+    return ParentAttention(lib, undesigned)
 
 
 class ParentAttention:
-    """Such a parent's library behind this tree's wrappers: their dk/dv
-    call, without the design argument (its kernel is the one that parent
-    launches at that head dim)."""
+    """Such a parent's library behind this tree's wrappers: their calls of
+    the entry points in ``undesigned`` without the design argument (the
+    kernel is the one that parent launches at that head dim)."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, undesigned):
         self.lib = lib
+        self.undesigned = undesigned
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    def tinynn_attention_backward_dkv(self, *args):
-        return self.lib.tinynn_attention_backward_dkv(*args[:-2], args[-1])
+        fn = getattr(self.lib, name)
+        if name not in self.undesigned:
+            return fn
+        return lambda *args: fn(*args[:-2], args[-1])
 
 
 class uses:
@@ -313,42 +335,49 @@ def bench_pair(libs, device):
         torch.cuda.empty_cache()
 
 
-def bench_dkv(libs, device):
-    print("== the dk/dv kernel alone at Mellum 2's shapes (32:4 GQA of head "
+def bench_backward_kernel(libs, device, kernel):
+    """``kernel`` ("dq" or "dkv") alone at Mellum 2's shapes, this tree's
+    and the parent's in turns."""
+    fn, outs = {"dq": (attention.cuda_attention_backward_dq, ("dq",)),
+                "dkv": (attention.cuda_attention_backward_dkv,
+                        ("dk", "dv"))}[kernel]
+    print("== the %s kernel alone at Mellum 2's shapes (32:4 GQA of head "
           "dim 128 over 4 x 8,192 tokens), device us a launch: this tree's "
-          "and the parent's in turns")
-    for name in smoke.ATTN_DKV_TIMED:
+          "and the parent's in turns" % ("/".join(outs)))
+    for name in smoke.ATTN_BWD_TIMED:
         q, k, v, do, kw = smoke.attn_inputs(device, name)
         o, lse = attention.cuda_attention_forward(q, k, v, **kw)
         bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
         del o
 
-        def dkv(lib):
+        def launch(lib):
             def run():
                 with uses(lib):
-                    return attention.cuda_attention_backward_dkv(*bwd, **kw)
+                    return fn(*bwd, **kw)
             return run
 
-        mine, parents = dkv(libs["this"]), dkv(libs["parent"])
-        (dk, dv), (pk, pv) = mine(), parents()
+        mine, parents = launch(libs["this"]), launch(libs["parent"])
+        got, want = mine(), parents()
+        if kernel == "dq":
+            got, want = (got,), (want,)
         diffs = [float((a - b).abs().max() / b.abs().max())
-                 for a, b in ((dk, pk), (dv, pv))]
-        del dk, dv, pk, pv
+                 for a, b in zip(got, want)]
+        del got, want
         t = [device_us(f, reps=5) for f in (mine, parents, parents, mine,
                                             mine, parents)]
         this_us = (t[0] + t[3] + t[4]) / 3
         parent_us = (t[1] + t[2] + t[5]) / 3
-        bound_ms, bound_by = smoke.bound_3xtf32(
-            *smoke.attention_costs(name)["attention_backward_dkv"])
+        bound_ms, bound_by = smoke.bound_3xtf32(*smoke.attention_costs(name)[
+            "attention_backward_" + kernel])
         print("%s: this tree's %.1f us (turns %s), the parent's %.1f us "
               "(turns %s): %.2fx faster; bound %.1f us (%s-bound), this "
               "tree's at %.2f%%, the parent's at %.2f%%; max |this - "
-              "parent| over max |parent|: dk %.2e, dv %.2e"
+              "parent| over max |parent|: %s"
               % (name, this_us, ", ".join("%.1f" % t[i] for i in (0, 3, 4)),
                  parent_us, ", ".join("%.1f" % t[i] for i in (1, 2, 5)),
                  parent_us / this_us, 1e3 * bound_ms, bound_by,
                  1e5 * bound_ms / this_us, 1e5 * bound_ms / parent_us,
-                 *diffs))
+                 ", ".join("%s %.2e" % x for x in zip(outs, diffs))))
         del bwd
         torch.cuda.empty_cache()
 
@@ -497,7 +526,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True,
                         help="root of the parent checkout (git archive)")
-    parser.add_argument("--mode", choices=("k2", "attention", "dkv"),
+    parser.add_argument("--mode", choices=("k2", "attention", "dkv", "dq"),
                         default="k2",
                         help="the kernel to compare (default k2)")
     args = parser.parse_args(argv)
@@ -510,8 +539,8 @@ def main(argv=None):
     print(smoke.card_line())
     name, bind = (("fused_epoch", fused_epoch._bind) if args.mode == "k2"
                   else ("attention", attention._bind))
-    parent_bind = (bind_parent_k2 if args.mode == "k2"
-                   else bind_parent_attention)
+    parent_bind = (bind_parent_k2 if args.mode == "k2" else
+                   functools.partial(bind_parent_attention, root=args.parent))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         mine = pool.submit(kernels.load_library, name, bind)
@@ -522,8 +551,8 @@ def main(argv=None):
     if args.mode == "k2":
         bench_epochs(libs["parent"], device)
         bench_train_epoch(libs["parent"], device)
-    elif args.mode == "dkv":
-        bench_dkv(libs, device)
+    elif args.mode in ("dkv", "dq"):
+        bench_backward_kernel(libs, device, args.mode)
     else:
         bench_forward(libs, device)
         bench_pair(libs, device)

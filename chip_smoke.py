@@ -171,10 +171,11 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    shapes each kernel's time, its plain version's, SDPA's (forward, and
    backward by autograd.grad), the pair plus the delta reduction beside
    SDPA's backward, and the bounds (at 3xTF32 on the tensor cores, and at
-   f32 FMA beside them). Every dk/dv launch at a head dim of 65-128, and
-   none below, counts in ``wgmma_launches`` (the wgmma kernel); the dk/dv
-   kernel alone is timed at Mellum 2's two shapes beside its bound (8 d
-   FLOPs a visible pair at 3xTF32).
+   f32 FMA beside them). Every dq and dk/dv launch at a head dim of
+   65-128, and none below, counts in its wrapper's ``wgmma_launches`` (the
+   wgmma kernels); the dq and the dk/dv kernel are each timed alone at
+   Mellum 2's two shapes beside their bounds (6 d and 8 d FLOPs a visible
+   pair at 3xTF32).
 9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
    device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
    step launches each attention kernel twice (two blocks) and K1 39 times
@@ -194,8 +195,9 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    device="cuda").train_step``, 3 steps of 2 x 2,048 ids at Mellum 2's
    attention widths (32:4 GQA of head dim 128, 3 layers banded to 1,024
    keys, 1 full YaRN layer; hidden 512, 2 held experts of 64): each
-   attention kernel once a layer a step, every dk/dv launch on the wgmma
-   kernel (``wgmma_launches`` equal to the dk/dv launches); finite losses.
+   attention kernel once a layer a step, every dq and dk/dv launch on the
+   wgmma kernels (each ``wgmma_launches`` equal to its wrapper's
+   launches); finite losses.
 10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
    versions at config 8's shape (zero initial states) and a ragged one
    (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
@@ -441,8 +443,8 @@ PLAIN_SCORES = 2 ** 30
 ATTN_MAIN = "config6b"
 # timed too: the shapes that take K4b and K4c on the TPU
 ATTN_TIMED = ("k4b_t512", "k4c_noncausal")
-# the dk/dv kernel alone timed at Mellum 2's two layer kinds
-ATTN_DKV_TIMED = ("mellum2_sliding", "mellum2_full")
+# the dq and the dk/dv kernel each timed alone at Mellum 2's two layer kinds
+ATTN_BWD_TIMED = ("mellum2_sliding", "mellum2_full")
 ATTN_SEED = 1234
 # O and lse: sums of up to 2048 f32 terms in another order. dq, dk and dv
 # differ in size by shape; each is held at rtol 1e-4 and an atol of 1e-4 of
@@ -1775,7 +1777,9 @@ def check_attention_shape(device, name):
     # the backward from the plain forward's o and lse
     delta = (do * o_r).sum(dim=-1)
     runs = []
-    wgmma = attention.cuda_attention_backward_dkv.wgmma_launches
+    wrappers = (attention.cuda_attention_backward_dq,
+                attention.cuda_attention_backward_dkv)
+    wgmma = [fn.wgmma_launches for fn in wrappers]
     for _ in range(2):
         dq = attention.cuda_attention_backward_dq(q, k, v, do, lse_r, delta,
                                                   **kw)
@@ -1785,12 +1789,13 @@ def check_attention_shape(device, name):
         runs.append((dq, dk, dv))
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("%s: two backward runs differ" % name)
-    # head dims 65-128 take the wgmma dk/dv kernel, and only they
-    wgmma = attention.cuda_attention_backward_dkv.wgmma_launches - wgmma
-    if wgmma != (2 if q.shape[-1] > 64 else 0):
-        raise AssertionError("%s: %d of the 2 dk/dv launches counted on the "
-                             "wgmma kernel at head dim %d"
-                             % (name, wgmma, q.shape[-1]))
+    # head dims 65-128 take the wgmma dq and dk/dv kernels, and only they
+    for what, fn, before in zip(("dq", "dk/dv"), wrappers, wgmma):
+        if fn.wgmma_launches - before != (2 if q.shape[-1] > 64 else 0):
+            raise AssertionError("%s: %d of the 2 %s launches counted on "
+                                 "the wgmma kernel at head dim %d"
+                                 % (name, fn.wgmma_launches - before, what,
+                                    q.shape[-1]))
     want = plain_backward(q, k, v, do, lse_r, delta, **kw)
     grads = [hold_grad("%s: %s" % (name, what), a, b)
              for what, a, b in zip(("dq", "dk", "dv"), runs[0], want)]
@@ -1929,34 +1934,40 @@ def check_attention(device):
         out[name]["max_abs_err"] = worst[name]
     for name in ATTN_TIMED:
         time_attention(device, name)
-    for name in ATTN_DKV_TIMED:
-        time_dkv(device, name)
+    for name in ATTN_BWD_TIMED:
+        for kernel in ("dq", "dkv"):
+            time_backward(device, name, kernel)
     return out
 
 
-def time_dkv(device, name):
-    """The dk/dv kernel's time a launch at shape ``name`` (CUDA events),
-    beside its bound: 8 d FLOPs a visible pair (S^T, dP^T, dV, dK) at
-    3xTF32 on the tensor cores. lse and delta come from the kernels'
-    forward (the plain one holds the scores whole)."""
+def time_backward(device, name, kernel):
+    """The dq or dk/dv kernel's (``kernel``) time a launch at shape
+    ``name`` (CUDA events), beside its bound: 6 d FLOPs a visible pair (S,
+    dP, dQ) or 8 d (S^T, dP^T, dV, dK) at 3xTF32 on the tensor cores. lse
+    and delta come from the kernels' forward (the plain one holds the
+    scores whole)."""
     q, k, v, do, kw = attn_inputs(device, name)
     o, lse = attention.cuda_attention_forward(q, k, v, **kw)
     delta = (do * o).sum(dim=-1)
+    wrapper, design = {
+        "dq": (attention.cuda_attention_backward_dq, attention.dq_design),
+        "dkv": (attention.cuda_attention_backward_dkv,
+                attention.dkv_design)}[kernel]
 
-    def kernel():
-        return attention.cuda_attention_backward_dkv(q, k, v, do, lse, delta,
-                                                     **kw)
+    def run():
+        return wrapper(q, k, v, do, lse, delta, **kw)
 
-    kernel()
-    k1, k2 = epoch_ms(kernel, 5), epoch_ms(kernel, 5)
+    run()
+    k1, k2 = epoch_ms(run, 5), epoch_ms(run, 5)
     ms = (k1 + k2) / 2
-    costs = attention_costs(name)["attention_backward_dkv"]
+    what = "attention_backward_" + kernel
+    costs = attention_costs(name)[what]
     bound_ms, bound_by = bound_3xtf32(*costs)
-    print("attention_backward_dkv at %s (the %s kernel): %.3f ms a launch by "
-          "CUDA events (turns %.3f, %.3f); bound %.3f ms (%s-bound: %.4g "
-          "GFLOP on the visible pairs); kernel at %.2f%% of it"
-          % (name, attention.dkv_design(q.shape[-1]), ms, k1, k2, bound_ms,
-             bound_by, costs[0] / 1e9, 100.0 * bound_ms / ms))
+    print("%s at %s (the %s kernel): %.3f ms a launch by CUDA events (turns "
+          "%.3f, %.3f); bound %.3f ms (%s-bound: %.4g GFLOP on the visible "
+          "pairs); kernel at %.2f%% of it"
+          % (what, name, design(q.shape[-1]), ms, k1, k2, bound_ms, bound_by,
+             costs[0] / 1e9, 100.0 * bound_ms / ms))
     del o, lse, delta
     torch.cuda.empty_cache()
     return ms, bound_ms
@@ -3213,8 +3224,9 @@ MELLUM2_SLICE_STEPS, MELLUM2_SLICE_IDS = 3, (2, 2048)
 def run_mellum2_slice(device):
     """``Model(build_moe_lm(**MELLUM2_SLICE), ..., device="cuda")
     .train_step`` from seed 0, 3 steps: each attention kernel once a layer
-    a step, every dk/dv launch on the wgmma kernel (head dim 128), counted
-    in ``wgmma_launches``; finite losses. Returns the launch counts."""
+    a step, every dq and dk/dv launch on the wgmma kernels (head dim 128),
+    counted in each wrapper's ``wgmma_launches``; finite losses. Returns
+    the launch counts."""
     from tinynn_autograd_tpu_torch.models import build_moe_lm
     from tinynn_autograd_tpu_torch.nn.losses import (
         SparseSoftmaxCrossEntropyLoss,
@@ -3231,29 +3243,31 @@ def run_mellum2_slice(device):
     x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
     torch.cuda.synchronize()
     zero_counts()
-    wgmma = attention.cuda_attention_backward_dkv.wgmma_launches
+    wrappers = (attention.cuda_attention_backward_dq,
+                attention.cuda_attention_backward_dkv)
+    wgmma = [fn.wgmma_launches for fn in wrappers]
     t0 = time.perf_counter()
     losses = [float(model.train_step(x, y))
               for _ in range(MELLUM2_SLICE_STEPS)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / MELLUM2_SLICE_STEPS
     counts = launch_counts()
-    wgmma = attention.cuda_attention_backward_dkv.wgmma_launches - wgmma
+    wgmma = [fn.wgmma_launches - n for fn, n in zip(wrappers, wgmma)]
     calls = len(MELLUM2_SLICE["layer_types"]) * MELLUM2_SLICE_STEPS
     print("Mellum 2 slice (32:4 GQA of head dim 128, window 1,024 on 3 layers "
           "of 4; hidden 512, 2 held experts): %d steps of %d x %d ids, %.3f s "
-          "a step; losses %s; attention launches forward %d, dq %d, dk/dv %d "
-          "(%d on the wgmma kernel)"
+          "a step; losses %s; attention launches forward %d, dq %d (%d on "
+          "the wgmma kernel), dk/dv %d (%d on the wgmma kernel)"
           % (MELLUM2_SLICE_STEPS, b, t, step_s,
              ", ".join("%.5f" % x for x in losses),
              counts["attention_forward"], counts["attention_backward_dq"],
-             counts["attention_backward_dkv"], wgmma))
+             wgmma[0], counts["attention_backward_dkv"], wgmma[1]))
     got = (counts["attention_forward"], counts["attention_backward_dq"],
-           counts["attention_backward_dkv"], wgmma)
-    if got != (calls,) * 4:
+           wgmma[0], counts["attention_backward_dkv"], wgmma[1])
+    if got != (calls,) * 5:
         raise AssertionError("Mellum 2 slice: attention launches (forward, "
-                             "dq, dk/dv, dk/dv on wgmma) %s, expected %d "
-                             "each" % (got, calls))
+                             "dq, dq on wgmma, dk/dv, dk/dv on wgmma) %s, "
+                             "expected %d each" % (got, calls))
     if not np.all(np.isfinite(losses)):
         raise AssertionError("Mellum 2 slice: non-finite loss")
     return counts

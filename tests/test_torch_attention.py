@@ -264,22 +264,28 @@ def test_plain_impl_and_cpu_tensors_take_the_plain_version():
     assert attention.cuda_attention_forward.launches == before
 
 
+# the backward kernels' designs: dq and dk/dv each pick theirs by head dim
+DESIGNS = {"dq": "dq_design", "dkv": "dkv_design"}
+WRAPPERS = {"dq": "cuda_attention_backward_dq",
+            "dkv": "cuda_attention_backward_dkv"}
+
+
+@pytest.mark.parametrize("kernel", sorted(DESIGNS))
 @pytest.mark.parametrize("d,design", [
     (8, "mma"), (32, "mma"), (40, "mma"), (64, "mma"),
     (65, "wgmma"), (80, "wgmma"), (96, "wgmma"), (128, "wgmma")])
-def test_dkv_design_by_head_dim(d, design):
-    # one function of d picks the dk/dv kernel: the wrapper hands its answer
-    # to the C entry point and counts `wgmma_launches` by it
-    assert attention.dkv_design(d) == design
+def test_backward_design_by_head_dim(kernel, d, design):
+    # one function of d picks each backward kernel: the wrapper hands its
+    # answer to the C entry point and counts `wgmma_launches` by it
+    assert getattr(attention, DESIGNS[kernel])(d) == design
 
 
-def test_dkv_wgmma_counter_stays_on_cpu_refusal():
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_wgmma_counter_stays_on_cpu_refusal(kernel):
+    fn = getattr(attention, WRAPPERS[kernel])
     x = torch.zeros((1, 2, 8, 128))
-    before = (attention.cuda_attention_backward_dkv.launches,
-              attention.cuda_attention_backward_dkv.wgmma_launches)
+    before = (fn.launches, fn.wgmma_launches)
     with pytest.raises(ValueError, match="CUDA"):
-        attention.cuda_attention_backward_dkv(
-            x, x, x, x, torch.zeros((1, 2, 8, 1)), torch.zeros((1, 2, 8)),
-            causal=True, scale=0.5)
-    assert (attention.cuda_attention_backward_dkv.launches,
-            attention.cuda_attention_backward_dkv.wgmma_launches) == before
+        fn(x, x, x, x, torch.zeros((1, 2, 8, 1)), torch.zeros((1, 2, 8)),
+           causal=True, scale=0.5)
+    assert (fn.launches, fn.wgmma_launches) == before

@@ -942,49 +942,105 @@ def test_cuda_dkv_wgmma_matches_reference(name):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# the dq kernel of head dims 65-128 (wgmma, `dq_design`): the dk/dv kernel's
+# shapes, and a Tq of 40 against 300 keys (one block whose second consumer
+# owns no query)
+DQ_WGMMA_SHAPES = dict(DKV_WGMMA_SHAPES, d128_cross_40_300=(
+    1, 2, 1, 40, 300, 128, False, None, 0.0))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DQ_WGMMA_SHAPES))
+def test_cuda_dq_wgmma_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    fn = attention.cuda_attention_backward_dq
+    q, k, v, do, kw = _attn_inputs(dev, name, shapes=DQ_WGMMA_SHAPES)
+    assert q.stride(-1) == 1 and not q.is_contiguous()
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+    counts = (fn.launches, fn.wgmma_launches)
+    runs = [fn(*bwd, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (counts[0] + 2, counts[1] + 2)
+    want = attention.attention_backward_reference(*bwd, **kw)[0].cpu().numpy()
+    np.testing.assert_allclose(
+        runs[0].cpu().numpy(), want, rtol=1e-4,
+        atol=1e-4 * float(np.abs(want).max()), err_msg="dq")
+    assert torch.equal(*runs)
+
+
+# each backward kernel's wrapper, its design and its outputs' indices in
+# attention_backward_reference's (dq, dk, dv)
+BACKWARD_KERNELS = {"dq": ("cuda_attention_backward_dq", "dq_design", (0,)),
+                    "dkv": ("cuda_attention_backward_dkv", "dkv_design",
+                            (1, 2))}
+
+
+def _backward_kernel(kernel):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    wrapper, design, outs = BACKWARD_KERNELS[kernel]
+
+    def run(*args, **kw):
+        got = getattr(attention, wrapper)(*args, **kw)
+        return (got,) if kernel == "dq" else got
+
+    return getattr(attention, wrapper), getattr(attention, design), run, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
 @pytest.mark.parametrize("d", [32, 40, 64, 65, 96, 128])
-def test_cuda_dkv_wgmma_launches_counted_by_head_dim(d):
+def test_cuda_wgmma_launches_counted_by_head_dim(kernel, d):
     # one launch a call; `wgmma_launches` grows with it at d in 65-128 only
     from tinynn_autograd_tpu_torch.ops import attention
 
     dev = _cuda()
-    fn = attention.cuda_attention_backward_dkv
+    fn, design, run, _ = _backward_kernel(kernel)
     gen = torch.Generator().manual_seed(d)
     q, k, v, do = (torch.randn((1, 2, 96, d), generator=gen).to(dev)
                    for _ in range(4))
     o, lse = attention.attention_forward_reference(q, k, v, True, 0.125)
     before = (fn.launches, fn.wgmma_launches)
-    dk, dv = fn(q, k, v, do, lse, (do * o).sum(dim=-1), True, 0.125)
+    got = run(q, k, v, do, lse, (do * o).sum(dim=-1), True, 0.125)
     torch.cuda.synchronize()
     assert (fn.launches, fn.wgmma_launches) == (
         before[0] + 1, before[1] + (1 if d > 64 else 0))
-    assert attention.dkv_design(d) == ("wgmma" if d > 64 else "mma")
-    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    assert design(d) == ("wgmma" if d > 64 else "mma")
+    assert all(torch.isfinite(x).all() for x in got)
 
 
 @pytest.mark.cuda
-def test_cuda_dkv_wgmma_float64_hold():
-    # the wgmma kernel's 3xTF32 products: dk and dv within ATTN_F64_FACTOR
-    # times the f32 plain version's float64 error at T 2,048, d 128, GQA 4,
-    # which the plain version with TF32 allowed must miss
+@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
+def test_cuda_wgmma_float64_hold(kernel):
+    # the wgmma kernels' 3xTF32 products: dq, dk and dv within
+    # ATTN_F64_FACTOR times the f32 plain version's float64 error at T
+    # 2,048, d 128, GQA 4, which the plain version with TF32 allowed must
+    # miss
     from tinynn_autograd_tpu_torch.ops import attention
 
     dev = _cuda()
+    _, _, run, outs = _backward_kernel(kernel)
     shapes = {"d128": (1, 8, 2, 2048, 2048, 128, True, None, 0.0)}
     q, k, v, do, kw = _attn_inputs(dev, "d128", shapes=shapes)
     o, lse = attention.attention_forward_reference(q, k, v, **kw)
     bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
-    got = attention.cuda_attention_backward_dkv(*bwd, **kw)
-    f32 = attention.attention_backward_reference(*bwd, **kw)[1:]
+    got = run(*bwd, **kw)
+
+    def plain(args):
+        full = attention.attention_backward_reference(*args, **kw)
+        return [full[i] for i in outs]
+
+    f32 = plain(bwd)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32 = attention.attention_backward_reference(*bwd, **kw)[1:]
+        tf32 = plain(bwd)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    exact = attention.attention_backward_reference(
-        *(x.double() for x in bwd), **kw)[1:]
-    for i, what in enumerate(("dk", "dv")):
+    exact = plain([x.double() for x in bwd])
+    for i, what in enumerate(["dq", "dk", "dv"][j] for j in outs):
         errs = [float((x[i].double() - exact[i]).abs().max())
                 for x in (got, f32, tf32)]
         assert errs[0] <= ATTN_F64_FACTOR * errs[1], (what, errs)

@@ -26,11 +26,12 @@
 //   and the seed seed + (h % group) * 2654435761, as the JAX package's
 //   per-group calls do, so the masks agree bit for bit.
 // - Each output is written once, with no float atomics: reruns are
-//   bit-identical. Head dims up to 128 (templates for 32, 64 and 128; a
-//   smaller d is zero-padded in shared memory), but dk/dv at head dims
-//   65-128 runs `attention_backward_dkv_kernel_wgmma`, a design of its own
-//   for Hopper (below the templates; `dkv_design` in ops/attention.py
-//   chooses).
+//   bit-identical. Head dims up to 128 (templates for 32, 64 and, in the
+//   forward, 128; a smaller d is zero-padded in shared memory), but dq and
+//   dk/dv at head dims 65-128 run `attention_backward_dq_kernel_wgmma` and
+//   `attention_backward_dkv_kernel_wgmma`, designs of their own for Hopper
+//   (below the templates; `dq_design` and `dkv_design` in ops/attention.py
+//   choose).
 //
 // All three kernels multiply on the tensor cores, `mma.sync` m16n8k8 TF32
 // with f32 accumulators, in 3xTF32: each f32 operand is split into a TF32
@@ -87,12 +88,12 @@
 // work and the fragment loads beside them on the same schedulers (the
 // forward splits each K and V value once in each of its four warps). At
 // Mellum 2's shapes (32:4 GQA of head dim 128 over 4 x 8,192 tokens) the
-// d = 128 dk/dv template ran at 16.7% of its 3xTF32 bound: one block of 4
-// warps an SM at 169,472 bytes, `mma.sync` chains and a split of every
-// looped tile between barriers with no product running. Its replacement
-// there, the wgmma kernel, is described where it is defined. A fused
-// backward that computes S and dP once (without float atomics), and
-// `wgmma` in the forward, the dq kernel and at d <= 64, are later work.
+// d = 128 dk/dv and dq templates ran at 16.7% and 20.4% of their 3xTF32
+// bounds: one block of 4 warps an SM, `mma.sync` chains and every looped
+// tile split between barriers with no product running. Their replacements
+// there, the two wgmma kernels, are described where they are defined. A
+// fused backward that computes S and dP once (without float atomics), and
+// `wgmma` in the forward and at d <= 64, are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1430,6 +1431,394 @@ attention_backward_dkv_kernel_wgmma(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dq at head dims 65-128 on wgmma: two consumer warpgroups and two
+// producer warpgroups under mbarriers
+// ---------------------------------------------------------------------------
+//
+// The dk/dv kernel above with the operands' roles swapped. One block per
+// (b*H + h, 128-query tile), 512 threads, one block an SM, the heaviest
+// causal tiles first (as the template). It walks the 32-key steps that the
+// block's queries can see. Each consumer warpgroup owns 64 of the queries,
+// 16 a warp as in `mma.sync`, with their lse and delta in registers, and
+// runs all three products on them as `wgmma` in 3xTF32 (m64nNk8 TF32, A in
+// registers): S = Q K^T and dP = dO V^T in one loop (m64n32k8, 16 steps
+// over d), P in place of S and dS in place of dP; dQ += dS K (m64n64k8 on
+// each half of d, 4 steps over the keys).
+// Q's and dO's A fragments are read from raw f32 copies in fragment order
+// (one 16-byte load) and split in registers a step ahead of their wgmmas; B
+// is the step's K or V in K-major [key][d] TF32 planes; the small terms are
+// summed apart. For dQ, A is dS straight from the score accumulators
+// (columns 2t and 2t + 1 as slots t and t + 4); B is K in K-major [d][key]
+// planes whose keys are stored in that slot order (TF32 wgmma takes only
+// K-major operands, hence the second copy); each step's share of a half
+// (32 registers a thread) is summed apart and added once to the f32
+// accumulator (64), which is written to dq once, at the end.
+// The producers read each step's K and V rows (16-byte loads where the rows
+// are 16-byte aligned, else 4-byte; zero past T and d), split them and
+// write K's and V's [key][d] planes, then, after `quad_transpose`, K's
+// [d][key] planes; each producer warpgroup takes 16 of the 32 keys. Both
+// consumers read the same planes, so each split serves 128 queries.
+// Shared memory: Q and dO in fragment order (128 KB), the six planes of a
+// step (96 KB) and four mbarriers: 229,408 bytes, no room for a second
+// stage. Refills are staggered by plane set instead: the [key][d] planes
+// are free once both consumers have S and dP, K's [d][key] ones once they
+// have dQ; each set has a full and an empty barrier, so the producer writes
+// step u + 1's [key][d] planes while the consumers still run step u's dQ.
+// Registers: 184 a consumer thread, 72 a producer thread, from the 128 of
+// 512 threads; a second producer warpgroup halves what a producer thread
+// holds (8 float4 of K and V), which is what lets the consumers have 184.
+// PERF.md gives the designs measured on the way (S and dP in separate
+// loops; one m64n128k8 dQ share; one producer warpgroup at 176/152 and
+// 184/136; consumer 0 on S and P with consumer 1 on dP, dS and dQ in
+// 64-query blocks).
+namespace dqw {
+constexpr int D = 128;         // head dims 65-128, zero-padded
+constexpr int BQ = 128;        // queries a block: 64 a consumer
+constexpr int BK = 32;         // keys a step
+constexpr int RING = 2;        // Q's or dO's fragments in flight
+constexpr int PLANE = BK * D;  // floats in one plane of a step
+constexpr int NTHREADS = 512;  // two consumer warpgroups, two producers
+// registers a thread: 128 at launch (512 threads an SM), then the producers
+// give up what the consumers take (`setmaxnreg`)
+constexpr int ENTRY_REGS = 128, CONSUMER_REGS = 184, PRODUCER_REGS = 72;
+static_assert(CONSUMER_REGS - ENTRY_REGS <= ENTRY_REGS - PRODUCER_REGS,
+              "the consumers take only what the producers give up");
+// float offsets in shared memory: the [key][d] planes K hi, K lo, V hi,
+// V lo, the [d][key] planes K hi, K lo, then Q and dO, consumer c's 64 rows
+// of each at + 64 c D
+constexpr int NAT = 0, TRN = 4 * PLANE, QS = 6 * PLANE, DOS = QS + BQ * D,
+              BARS = DOS + BQ * D;
+// barriers: full (the producers' 8 warps arrive) and empty (the consumers'
+// 8 warps arrive) for K's and V's [key][d] planes, and for K's [d][key]
+// planes
+enum { kNatFull = 0, kTrnFull = 1, kNatEmpty = 2, kTrnEmpty = 3, kBars = 4 };
+constexpr size_t SMEM = sizeof(float) * BARS + kBars * sizeof(uint64_t);
+// bytes between 8-row groups of core matrices: [key][d] and [d][key]
+constexpr unsigned NAT_STRIDE = (D / 4) * 128, TRN_STRIDE = (BK / 4) * 128;
+}  // namespace dqw
+
+__global__ void __launch_bounds__(dqw::NTHREADS, 1)
+attention_backward_dq_kernel_wgmma(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dq, Shape s,
+                                   Strides sq, Strides sk, Strides sv,
+                                   Strides sdo, Options opt, int vec) {
+  using namespace dqw;
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + BARS);
+
+  const int bh = blockIdx.x;
+  const int b = bh / s.h, h = bh % s.h;
+  const int group = s.h / s.hkv, kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  int j_lo, j_hi;
+  key_range<BQ, BK>(q0, s, opt, &j_lo, &j_hi);
+  const int steps = j_hi - j_lo + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kBars; ++i) mbar_init(bars + i, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q's and dO's rows, raw f32, by all threads, in the order of the
+  // consumers' A fragments (`frag_at`)
+  {
+    const float* qh = q + b * sq.b + h * sq.h;
+    const float* oh = dout + b * sdo.b + h * sdo.h;
+    for (int idx = threadIdx.x; idx < BQ * (D / 4); idx += NTHREADS) {
+      const int r = idx / (D / 4), c = idx % (D / 4);
+      const bool ok = q0 + r < s.tq;
+      const float4 xq =
+          row4(qh + (ok ? (q0 + r) * sq.t : 0), c, s.d, ok, vec & kVecQ);
+      const float4 xo =
+          row4(oh + (ok ? (q0 + r) * sdo.t : 0), c, s.d, ok, vec & kVecDO);
+      const int at = (r / 64) * 64 * D + frag_at(r % 64, 4 * c);
+      float* const qs = smem + QS + at;
+      float* const os = smem + DOS + at;
+      qs[0] = xq.x; qs[4] = xq.y; qs[8] = xq.z; qs[12] = xq.w;
+      os[0] = xo.x; os[4] = xo.y; os[8] = xo.z; os[12] = xo.w;
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producers: K and V of each step into the planes, each warp
+    // half the columns of one 8-key group
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int p = threadIdx.x - 256, pw = p / 32, lane = p % 32;
+    // lane = 4a + si: the quad a holds rows 8j + 2si + odd of float4 column
+    // c0 + cc; each quarter warp's 16-byte stores fill whole bank rows
+    const int si = lane & 3, a = lane >> 2;
+    const int odd = (a & 1) ^ ((a >> 1) & 1), cc = 2 * (a >> 2) + (a & 1);
+    const float* kh = k + b * sk.b + kvh * sk.h;
+    const float* vh = v + b * sv.b + kvh * sv.h;
+    float4 xk[4], xv[4];
+    // step u's rows of K (or V: `x`, its head, row stride and alignment)
+    auto load = [&](float4 (&x)[4], const float* xh, long long st,
+                    bool aligned, int u) {
+      const int k0 = (j_lo + u) * BK;
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int wt = pw * 4 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int row = k0 + 8 * j + 2 * si + odd;
+        const bool ok = row < s.tk;
+        x[it] = row4(xh + (ok ? row * st : 0), c, s.d, ok, aligned);
+      }
+    };
+    load(xk, kh, sk.t, vec & kVecK, 0);
+    load(xv, vh, sv.t, vec & kVecV, 0);
+    // x's [key][d] planes at `hi` (row r at word ((r / 8) * 32 + c) * 32 +
+    // (r % 8) * 4), then its [d][key] ones (column dd of slot 4 odd + i of
+    // 8-key step j at word ((dd / 8) * 8 + 2 j + odd) * 32 + (dd % 8) * 4 +
+    // i, after `quad_transpose`)
+    auto store_nat = [&](const float4 (&x)[4], float* hi) {
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int wt = pw * 4 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int at = (j * (D / 4) + c) * 32 + (2 * si + odd) * 4;
+        uint4 h, l;
+        split4(x[it], h, l);
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(hi + PLANE + at) = l;
+      }
+    };
+    auto store_trn = [&](const float4 (&x)[4], float* hi) {
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int wt = pw * 4 + it, j = wt >> 3, c = (wt & 7) * 4 + cc;
+        const int dd = 4 * c + si;
+        const int at =
+            ((dd >> 3) * (BK / 4) + 2 * j + odd) * 32 + (dd & 7) * 4;
+        uint4 h, l;
+        split4(x[it], h, l);
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(hi + PLANE + at) = l;
+      }
+    };
+    // step u's planes go where step u - 1's were, once emptied
+    auto emptied = [&](int bar, int u) {
+      if (u > 0) mbar_wait(bars + bar, (u - 1) & 1);
+    };
+    for (int u = 0; u < steps; ++u) {
+      emptied(kNatEmpty, u);  // K and V for S and dP
+      store_nat(xk, smem + NAT);
+      store_nat(xv, smem + NAT + 2 * PLANE);
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kNatFull);
+      if (u + 1 < steps) load(xv, vh, sv.t, vec & kVecV, u + 1);
+#pragma unroll
+      for (int it = 0; it < 4; ++it) quad_transpose(xk[it]);
+      emptied(kTrnEmpty, u);  // K for dQ
+      store_trn(xk, smem + TRN);
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kTrnFull);
+      if (u + 1 < steps) load(xk, kh, sk.t, vec & kVecK, u + 1);
+    }
+  } else {
+    // ---- the consumers: warpgroup c owns queries q0 + 64c .. q0 + 64c + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int c = threadIdx.x / 128;
+    const int lt = threadIdx.x % 128, w = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qc = q0 + 64 * c;
+    // this thread's two rows, g and g + 8 of its warp's 16
+    const int qa = qc + 16 * w + g, qb = qa + 8;
+    const long long rowa = static_cast<long long>(bh) * s.tq + qa;
+    const long long rowb = rowa + 8;
+    const float la = qa < s.tq ? lse[rowa] : 0.0f;
+    const float lb = qb < s.tq ? lse[rowb] : 0.0f;
+    const float da = qa < s.tq ? delta[rowa] : 0.0f;
+    const float db = qb < s.tq ? delta[rowb] : 0.0f;
+    const unsigned hh = b * s.hkv + kvh;
+    const unsigned seed = opt.seed + static_cast<unsigned>(h % group) * GOLDEN;
+    const float* const xq = smem + QS + c * 64 * D;
+    const float* const xo = smem + DOS + c * 64 * D;
+    const uint64_t nat_d = tinynn::kmajor_desc(smem + NAT, NAT_STRIDE);
+    const uint64_t trn_d = tinynn::kmajor_desc(smem + TRN, TRN_STRIDE);
+    constexpr uint64_t kPlane = PLANE * 4 >> 4;      // descriptor units
+    constexpr uint64_t kStep = 256 >> 4;             // 8 of K: two cores
+    constexpr uint64_t kHalf = 8 * TRN_STRIDE >> 4;  // 64 of d
+
+    float acc[64];  // dQ: acc[4n + e]
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+    // S = Q K^T and dP = dO V^T over d (16 steps of 8) in 3xTF32, in one
+    // loop so that both products' wgmmas are in flight together, for the
+    // warpgroup's 64 queries against a step's 32 keys (K's planes at nat_d
+    // and nat_d + kPlane, V's two planes on), the small terms summed apart
+    // in `sm` and `dm`; Q's and dO's fragments are read (one 16-byte load
+    // each) and split a step ahead, in rings of RING so that RING steps'
+    // wgmmas can be in flight
+    auto scores = [&](float (&sc)[16], float (&sm)[16], float (&dp)[16],
+                      float (&dm)[16]) {
+      FragA fq[RING], fo[RING];
+      load_frag(fq[0], xq, 0, lt);
+      load_frag(fo[0], xo, 0, lt);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        fence_operand(sc[e]);
+        fence_operand(sm[e]);
+        fence_operand(dp[e]);
+        fence_operand(dm[e]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int cur = kk % RING, next = (kk + 1) % RING;
+        const uint64_t kd = nat_d + kk * kStep, vd = kd + 2 * kPlane;
+        wgmma_fence();
+        wgmma_tf32(sm, fq[cur].lo, kd, kk > 0);
+        wgmma_tf32(sm, fq[cur].hi, kd + kPlane, 1);
+        wgmma_tf32(sc, fq[cur].hi, kd, kk > 0);
+        wgmma_tf32(dm, fo[cur].lo, vd, kk > 0);
+        wgmma_tf32(dm, fo[cur].hi, vd + kPlane, 1);
+        wgmma_tf32(dp, fo[cur].hi, vd, kk > 0);
+        wgmma_commit();
+        if (kk + 1 < D / 8) {
+          wgmma_wait<RING - 1>();  // step kk + 1 - RING is done with `next`
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            fence_operand(fq[next].hi[e]);
+            fence_operand(fq[next].lo[e]);
+            fence_operand(fo[next].hi[e]);
+            fence_operand(fo[next].lo[e]);
+          }
+          load_frag(fq[next], xq, kk + 1, lt);
+          load_frag(fo[next], xo, kk + 1, lt);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        fence_operand(sc[e]);
+        fence_operand(sm[e]);
+        fence_operand(dp[e]);
+        fence_operand(dm[e]);
+      }
+#pragma unroll
+      for (int r = 0; r < RING; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(fq[r].hi[e]);
+          fence_operand(fq[r].lo[e]);
+          fence_operand(fo[r].hi[e]);
+          fence_operand(fo[r].lo[e]);
+        }
+    };
+
+    // acc += the step's share of ds K (m64n64k8 over each half of d, 32
+    // registers of share at a time): ds from a score accumulator, K's
+    // [d][key] planes; each share summed apart and added once
+    auto outputs = [&](const float (&ds)[16]) {
+      FragA f[BK / 8];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        f[j].set(ds[4 * j], ds[4 * j + 2], ds[4 * j + 1], ds[4 * j + 3]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float part[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fence_operand(part[e]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const uint64_t hi = trn_d + half * kHalf + j * kStep;
+          wgmma_tf32(part, f[j].lo, hi, j > 0);
+          wgmma_tf32(part, f[j].hi, hi + kPlane, 1);
+          wgmma_tf32(part, f[j].hi, hi, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          fence_operand(part[e]);
+          acc[32 * half + e] += part[e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(f[j].hi[e]);
+          fence_operand(f[j].lo[e]);
+        }
+    };
+
+    for (int u = 0; u < steps; ++u) {
+      const unsigned parity = u & 1;
+      const int k0 = (j_lo + u) * BK;
+      const int vis = band(qc, qc + 63, k0, k0 + BK - 1, s, opt);
+      // element i = 4j + e of a score accumulator: query (e < 2 ? qa : qb),
+      // key k0 + 8j + 2t + (e & 1)
+      float sc[16], dp[16];
+      {
+        float sm[16], dm[16];
+        mbar_wait(bars + kNatFull, parity);
+        if (vis) scores(sc, sm, dp, dm);
+        warp_arrive(bars + kNatEmpty);
+        // P in place of S, masked pairs 0 (a tile the masks leave whole
+        // takes a loop without a branch an element, so that its
+        // exponentials interleave)
+        if (vis == 2) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            sc[i] = expf((sc[i] + sm[i]) * opt.scale - ((i & 2) ? lb : la));
+        } else if (vis) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int qi = (i & 2) ? qb : qa;
+            const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            float pv = 0.0f;
+            if (visible(qi, ki, s, opt))
+              pv = expf((sc[i] + sm[i]) * opt.scale - ((i & 2) ? lb : la));
+            sc[i] = pv;
+          }
+        }
+        // dS in place of dP
+        if (vis == 2 && !opt.dropout) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            dp[i] = sc[i] * (dp[i] + dm[i] - ((i & 2) ? db : da)) * opt.scale;
+        } else if (vis) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int qi = (i & 2) ? qb : qa;
+            const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            float ds = 0.0f;
+            if (vis == 2 || visible(qi, ki, s, opt)) {
+              float d = dp[i] + dm[i];
+              if (opt.dropout)
+                d = keep(hh, qi, ki, s, seed, opt.thresh) ? d * opt.inv
+                                                          : 0.0f;
+              ds = sc[i] * (d - ((i & 2) ? db : da)) * opt.scale;
+            }
+            dp[i] = ds;
+          }
+        }
+      }
+      mbar_wait(bars + kTrnFull, parity);
+      if (vis) outputs(dp);
+      warp_arrive(bars + kTrnEmpty);
+    }
+
+    // acc[4n + e]: query (e < 2 ? qa : qb), column 8n + 2t + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int qi = (i & 2) ? qb : qa;
+      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (qi < s.tq && col < s.d)
+        dq[((i & 2) ? rowb : rowa) * s.d + col] = acc[i];
+    }
+  }
+}
+
 // The forward block: Q's [BM][P] rows and two stages of K and V tiles,
 // 52,224 bytes at d=64 (three blocks an SM, as the registers allow).
 template <int D>
@@ -1531,6 +1920,24 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_wgmma(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* delta, float* dq, const Shape& s,
+                            const Strides& sq, const Strides& sk,
+                            const Strides& sv, const Strides& sdo,
+                            const Options& opt, cudaStream_t stream) {
+  static bool done = false;
+  cudaError_t err =
+      allow_smem(attention_backward_dq_kernel_wgmma, dqw::SMEM, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s.b * s.h, (s.tq + dqw::BQ - 1) / dqw::BQ);
+  attention_backward_dq_kernel_wgmma<<<grid, dqw::NTHREADS, dqw::SMEM,
+                                       stream>>>(
+      q, k, v, dout, lse, delta, dq, s, sq, sk, sv, sdo, opt,
+      vec_flags(q, k, v, dout, sq, sk, sv, sdo));
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dkv_wgmma(const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, float* dk, float* dv,
@@ -1558,10 +1965,10 @@ cudaError_t launch_dkv_wgmma(const float* q, const float* k, const float* v,
 // [b, h, tq, d], dk, dv [b, hkv, tk, d], lse and delta [b, h, tq] are
 // contiguous. window 0 means none; dropout 0 means none. Returns the CUDA
 // error of the launch (0 when it was accepted); a head dim above 128 is
-// cudaErrorInvalidValue. The dk/dv entry takes its design from the caller
-// (`dkv_design` in ops/attention.py): wgmma 1 launches the wgmma kernel
-// (any d up to 128), 0 the template of d <= 32 or d <= 64 (a larger d is
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue. The dq and dk/dv entries take their design from
+// the caller (`dq_design` and `dkv_design` in ops/attention.py): wgmma 1
+// launches the wgmma kernel (any d up to 128, zero-padded), 0 the template
+// of d <= 32 or d <= 64 (a larger d is cudaErrorInvalidValue).
 
 extern "C" int tinynn_attention_forward(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
@@ -1598,7 +2005,7 @@ extern "C" int tinynn_attention_backward_dq(
     long long skb, long long skh, long long skt, long long svb,
     long long svh, long long svt, long long sdb, long long sdh,
     long long sdt, float scale, int causal, int window, int dropout,
-    unsigned thresh, float inv, unsigned seed, void* stream) {
+    unsigned thresh, float inv, unsigned seed, int wgmma, void* stream) {
   const Shape s{b, h, hkv, tq, tk, d};
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       sdo{sdb, sdh, sdt};
@@ -1612,15 +2019,17 @@ extern "C" int tinynn_attention_backward_dq(
   auto* gf = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d <= 32)
+  if (d > 128)
+    err = cudaErrorInvalidValue;
+  else if (wgmma)
+    err = launch_dq_wgmma(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv, sdo, opt,
+                          st);
+  else if (d <= 32)
     err = launch_dq<32>(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv, sdo, opt,
                         st);
   else if (d <= 64)
     err = launch_dq<64>(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv, sdo, opt,
                         st);
-  else if (d <= 128)
-    err = launch_dq<128>(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv, sdo, opt,
-                         st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

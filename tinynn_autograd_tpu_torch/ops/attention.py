@@ -231,7 +231,7 @@ def _bind(lib, ctypes):
     for name, n_ptrs in (("forward", 5), ("backward_dq", 7),
                          ("backward_dkv", 8)):
         n_strided = 3 if name == "forward" else 4
-        design = [I] if name == "backward_dkv" else []  # dkv_design's answer
+        design = [] if name == "forward" else [I]  # dq_design's, dkv_design's
         fn = getattr(lib, "tinynn_attention_" + name)
         fn.argtypes = [P] * n_ptrs + [I] * 6 + [L] * (3 * n_strided) \
             + opts + design + [P]
@@ -314,11 +314,21 @@ def _backward_operands(what, q, k, v, do, lse, delta):
             delta.reshape(b, h, tq).contiguous())
 
 
+def dq_design(d):
+    """The dq kernel's design at head dim ``d``: ``"wgmma"`` (the
+    warp-specialised kernel on Hopper's warpgroup products) for d in
+    65-128, ``"mma"`` (the ``mma.sync`` templates of d <= 32 and d <= 64)
+    below. The wrapper hands the answer to the C entry point, which
+    launches by it, and counts by it."""
+    return "wgmma" if d > 64 else "mma"
+
+
 def cuda_attention_backward_dq(q, k, v, do, lse, delta, causal, scale,
                                window=None, dropout_rate=0.0, seed=None):
     """dq [B,H,Tq,d] through the dq kernel; ``delta`` is rowsum(dO * O)
-    [B,H,Tq]. ``cuda_attention_backward_dq.launches`` counts the
-    launches."""
+    [B,H,Tq]; ``dq_design(d)`` picks the kernel.
+    ``cuda_attention_backward_dq.launches`` counts the launches,
+    ``.wgmma_launches`` those of the wgmma design."""
     q, k, v, do, lse, delta = _backward_operands(
         "cuda_attention_backward_dq", q, k, v, do, lse, delta)
     b, h, tq, d = q.shape
@@ -327,16 +337,20 @@ def cuda_attention_backward_dq(q, k, v, do, lse, delta, causal, scale,
     if dq.numel() == 0:
         return dq
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    wgmma = dq_design(d) == "wgmma"
     _launch("backward_dq", cuda_attention_backward_dq,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              b, h, hkv, tq, tk, d]
             + _strides(q, k, v, do)
-            + _options(causal, scale, window, dropout_rate, seed) + [stream])
+            + _options(causal, scale, window, dropout_rate, seed)
+            + [int(wgmma), stream])
+    cuda_attention_backward_dq.wgmma_launches += wgmma
     return dq
 
 
 cuda_attention_backward_dq.launches = 0
+cuda_attention_backward_dq.wgmma_launches = 0
 
 
 def dkv_design(d):
