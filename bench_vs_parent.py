@@ -33,6 +33,12 @@ dk/dv) against a parent's ``csrc/attention.cu`` (the same C interface):
   the attention kernels twice a step each) with this tree's attention
   library and the parent's, steps/s by the host's clock.
 
+``--mode same``: the three attention kernels where q, k and v share one
+head dim (``SAME_SHAPES``: d = 32, 64 and 128, the last at Mellum 2's two
+layer kinds), this tree's and the parent's on the same inputs: every
+output bit-identical (``torch.equal``), and each kernel's time in turns
+(this, parent, parent, this). Exits 1 where an output differs.
+
 ``--mode dkv`` and ``--mode dq``: the dk/dv or the dq kernel alone at
 Mellum 2's two layer kinds (``chip_smoke.ATTN_BWD_TIMED``: 32:4 GQA of
 head dim 128 over 4 x 8,192 tokens, banded to 1,024 keys and full), in
@@ -43,7 +49,9 @@ from this tree's forward.
 The attention modes take a parent whose dq or dk/dv entry point has no
 design argument (a tree before ``dq_design`` or ``dkv_design``; read from
 its source): the parent's kernel is then the one that parent launches at
-the head dim.
+the head dim. Nor need the parent's entry points take v's head dim apart
+(``int dv``, a tree before the split head dims): its calls then leave it
+out.
 
 Commit a9c3485 has the CUDA-core forward (64 x 64 score tiles of 256
 threads) and the tensor-core pair of this tree; ec60c57 has CUDA-core
@@ -55,6 +63,7 @@ point --parent there:
     python3 bench_vs_parent.py --parent _parent --mode attention  # ~2 min
     python3 bench_vs_parent.py --parent _parent --mode dkv  # ~1 min
     python3 bench_vs_parent.py --parent _parent --mode dq  # ~1 min
+    python3 bench_vs_parent.py --parent _parent --mode same  # ~1 min
 
 Without a CUDA device it exits 1.
 """
@@ -85,6 +94,14 @@ from tinynn_autograd_tpu_torch.utils.datasets import one_hot, synthetic_mnist  #
 from tinynn_autograd_tpu_torch.utils.timing import device_us  # noqa: E402
 
 SHAPES = ("config6b", "k4b_t512", "k4c_noncausal")
+# one head dim for q, k and v: d = 32 (config 6), 64 (6b, GQA, dropout) and
+# 128 (GQA with dropout, Mellum 2's banded and full layers)
+SAME_SHAPES = ("config6", "config6b", "gqa_8q_2kv", "dropout",
+               "d128_gqa_dropout", "mellum2_sliding", "mellum2_full")
+# the C entry points' pointer arguments, before b, h, hkv, tq, tk, d, dv
+ENTRY_POINTERS = {"tinynn_attention_forward": 5,
+                  "tinynn_attention_backward_dq": 7,
+                  "tinynn_attention_backward_dkv": 8}
 
 
 def build_parent(root, name, bind):
@@ -177,46 +194,65 @@ class parent_k2:
         kernels._loaded["fused_epoch"] = self.saved
 
 
-def undesigned_entries(root):
-    """The backward entry points of a parent's ``csrc/attention.cu`` that
-    take no design argument (a tree before ``dq_design`` or
-    ``dkv_design``)."""
+def entries_without(root, argument, names):
+    """The entry points ``names`` of a parent's ``csrc/attention.cu`` whose
+    parameters do not include ``argument``."""
     source = (Path(root) / "tinynn_autograd_tpu_torch" / "csrc"
               / "attention.cu").read_text()
-    out = []
-    for name in ("tinynn_attention_backward_dq",
-                 "tinynn_attention_backward_dkv"):
-        head = source.split('extern "C" int %s(' % name)[1].split(")")[0]
-        if "int wgmma" not in head:
-            out.append(name)
-    return out
+    return [name for name in names if argument not in source.split(
+        'extern "C" int %s(' % name)[1].split(")")[0]]
 
 
 def bind_parent_attention(lib, ctypes, root):
     """The C interface of a parent's ``csrc/attention.cu``: this tree's,
-    less the design argument of the entry points that take none."""
+    less the design argument of the entry points that take none (a tree
+    before ``dq_design`` or ``dkv_design``) and v's head dim of those that
+    take none (a tree before the split head dims)."""
     attention._bind(lib, ctypes)
-    undesigned = undesigned_entries(root)
-    for name in undesigned:
+    undesigned = entries_without(root, "int wgmma",
+                                 list(ENTRY_POINTERS)[1:])
+    one_dim = entries_without(root, "int dv,", list(ENTRY_POINTERS))
+    for name in ENTRY_POINTERS:
         fn = getattr(lib, name)
-        fn.argtypes = tuple(fn.argtypes[:-2]) + tuple(fn.argtypes[-1:])
-    return ParentAttention(lib, undesigned)
+        types = list(fn.argtypes)
+        if name in undesigned:
+            del types[-2]
+        if name in one_dim:
+            del types[ENTRY_POINTERS[name] + 6]
+        fn.argtypes = types
+    return ParentAttention(lib, undesigned, one_dim)
 
 
 class ParentAttention:
     """Such a parent's library behind this tree's wrappers: their calls of
     the entry points in ``undesigned`` without the design argument (the
-    kernel is the one that parent launches at that head dim)."""
+    kernel is the one that parent launches at that head dim), and of those
+    in ``one_dim`` without v's head dim (the wrappers' calls there have
+    d_v == d_qk)."""
 
-    def __init__(self, lib, undesigned):
+    def __init__(self, lib, undesigned, one_dim):
         self.lib = lib
         self.undesigned = undesigned
+        self.one_dim = one_dim
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if name not in self.undesigned:
+        if name not in self.undesigned and name not in self.one_dim:
             return fn
-        return lambda *args: fn(*args[:-2], args[-1])
+
+        def call(*args):
+            args = list(args)
+            if name in self.undesigned:
+                del args[-2]
+            if name in self.one_dim:
+                at = ENTRY_POINTERS[name] + 6
+                if args[at] != args[at - 1]:
+                    raise ValueError("the parent's %s takes one head dim"
+                                     % name)
+                del args[at]
+            return fn(*args)
+
+        return call
 
 
 class uses:
@@ -382,6 +418,51 @@ def bench_backward_kernel(libs, device, kernel):
         torch.cuda.empty_cache()
 
 
+def bench_same(libs, device):
+    """The three kernels at ``SAME_SHAPES``, this tree's and the parent's
+    on the same inputs: outputs bit-identical, times in turns. Returns
+    whether every output agreed."""
+    print("== the attention kernels where q, k and v share one head dim: "
+          "this tree's and the parent's on the same inputs, device us a "
+          "launch in turns")
+    same = True
+    for name in SAME_SHAPES:
+        q, k, v, do, kw = smoke.attn_inputs(device, name)
+        o, lse = attention.cuda_attention_forward(q, k, v, **kw)
+        bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+        del o
+        fns = {"forward": lambda: attention.cuda_attention_forward(
+                   q, k, v, **kw),
+               "dq": lambda: (attention.cuda_attention_backward_dq(
+                   *bwd, **kw),),
+               "dkv": lambda: attention.cuda_attention_backward_dkv(
+                   *bwd, **kw)}
+        parts = []
+        for kernel, fn in fns.items():
+            def launch(lib, fn=fn):
+                def run():
+                    with uses(lib):
+                        return fn()
+                return run
+
+            mine, parents = launch(libs["this"]), launch(libs["parent"])
+            equal = all(torch.equal(a, b) for a, b in zip(mine(), parents()))
+            same &= equal
+            reps = 5 if name.startswith("mellum2") else 20
+            t = [device_us(f, reps=reps) for f in (mine, parents, parents,
+                                                   mine)]
+            parts.append("%s %s, %.1f / %.1f us (turns %s)"
+                         % (kernel, "bit-identical" if equal else "DIFFER",
+                            (t[0] + t[3]) / 2, (t[1] + t[2]) / 2,
+                            ", ".join("%.1f" % x for x in t)))
+        print("%s %s: %s" % (name, smoke.ATTN_SHAPES[name], "; ".join(parts)),
+              flush=True)
+        del bwd
+        torch.cuda.empty_cache()
+    print("every output bit-identical to the parent's: %s" % same)
+    return same
+
+
 def by_phase(what, names, run, device, n_steps):
     phase_ns = torch.zeros(len(names), dtype=torch.int64, device=device)
     run(phase_ns=phase_ns)
@@ -526,7 +607,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True,
                         help="root of the parent checkout (git archive)")
-    parser.add_argument("--mode", choices=("k2", "attention", "dkv", "dq"),
+    parser.add_argument("--mode",
+                        choices=("k2", "attention", "dkv", "dq", "same"),
                         default="k2",
                         help="the kernel to compare (default k2)")
     args = parser.parse_args(argv)
@@ -553,6 +635,8 @@ def main(argv=None):
         bench_train_epoch(libs["parent"], device)
     elif args.mode in ("dkv", "dq"):
         bench_backward_kernel(libs, device, args.mode)
+    elif args.mode == "same":
+        return 0 if bench_same(libs, device) else 1
     else:
         bench_forward(libs, device)
         bench_pair(libs, device)

@@ -161,8 +161,12 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    config 6's, windows of 512 and of 40 over a ragged 300, GQA 8q/2kv,
    cross attention 256/384, dropout 0.1, head dims 128 with GQA and
    dropout, and 40, Mellum 2's 32:4 GQA of head dim 128 over 4 x 8,192
-   tokens banded to 1,024 keys and full; the plain versions a (batch row,
-   kv head) group at a time there), o and lse at rtol 1e-4/atol 1e-5,
+   tokens banded to 1,024 keys and full; at the split head dims of
+   multi-head latent attention, 192-wide q and k with 128-wide v, GQA with
+   a window of 40 over a ragged 300 and dropout, cross attention at
+   160/96, and Moonlight's 16 heads over 2 x 8,192 tokens, causal; the
+   plain versions a (batch row, kv head) group at a time at the 8,192-token
+   shapes), o and lse at rtol 1e-4/atol 1e-5,
    dq/dk/dv at rtol 1e-4 and an atol of 1e-4 of their own largest plain
    value, reruns bit-identical; at config 6b and K4c's shape the three kernels (3xTF32
    on the tensor cores) against a float64 plain version, o, lse, dq, dk
@@ -173,9 +177,16 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    SDPA's backward, and the bounds (at 3xTF32 on the tensor cores, and at
    f32 FMA beside them). Every dq and dk/dv launch at a head dim of
    65-128, and none below, counts in its wrapper's ``wgmma_launches`` (the
-   wgmma kernels); the dq and the dk/dv kernel are each timed alone at
-   Mellum 2's two shapes beside their bounds (6 d and 8 d FLOPs a visible
-   pair at 3xTF32).
+   wgmma kernels), and every launch at split head dims, and none other,
+   in its wrapper's ``split_launches``; the dq and the dk/dv kernel are
+   each timed alone at Mellum 2's two shapes beside their bounds (6 d and
+   8 d FLOPs a visible pair at 3xTF32), and the three kernels at
+   Moonlight's (2 (d_qk + d_v), 2 (2 d_qk + d_v) and 4 (d_qk + d_v)). The
+   tolerances hold at split dims for the same reasons (sums over at most
+   192 dims and 8,192 keys). With ``--parent <checkout>``, then
+   ``bench_vs_parent.py --mode same``: the three kernels at head dims 32,
+   64 and 128 (Mellum 2's two shapes included) bit-identical to the
+   parent's on the same inputs, with both times in turns.
 9. transformer slice: ``Model(build_tiny_transformer(**6b), ...,
    device="cuda").train_epochs(fused="auto")``, 3 epochs of 64 steps: each
    step launches each attention kernel twice (two blocks) and K1 39 times
@@ -198,6 +209,13 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    attention kernel once a layer a step, every dq and dk/dv launch on the
    wgmma kernels (each ``wgmma_launches`` equal to its wrapper's
    launches); finite losses.
+9c. Moonlight slice: ``Model(build_mla_moe_lm(**MOONLIGHT_SLICE), ...,
+   device="cuda").train_step``, 3 steps of 2 x 2,048 ids at Moonlight's
+   attention widths (16 heads of 192/128, a 512 latent, causal; hidden
+   512, a dense layer, 2 held experts of 64 behind a sigmoid top-6 of 64,
+   a shared expert): each attention kernel once a layer a step, every
+   launch at the split dims (each ``split_launches`` equal to its
+   wrapper's launches, no wgmma launch); finite losses.
 10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
    versions at config 8's shape (zero initial states) and a ragged one
    (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
@@ -236,9 +254,10 @@ Prints the card line, one JSON line of kernel results, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or any phase fails.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent _parent]
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -420,7 +439,12 @@ T_PARITY_STEPS = 5
 # T=2048) there, config 6's, a 512 window over 2048 (config 6d), a window
 # narrower than a tile over a ragged T, GQA 8q/2kv, cross attention, dropout,
 # and Mellum 2's two layer kinds at its step (32:4 GQA of head dim 128 over
-# 4 x 8,192 tokens, banded to 1,024 keys, or full)
+# 4 x 8,192 tokens, banded to 1,024 keys, or full). d is one head dim for q,
+# k and v, or a pair (d_qk, d_v): multi-head latent attention's split dims,
+# at Moonlight's step (16 heads of 192/128, causal, over 2 x 8,192 tokens),
+# and small shapes that take GQA, a window narrower than a tile over a
+# ragged T with dropout, and cross attention at split dims inside the
+# <192, 128> templates' (160/96)
 ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "k4b_t512": (4, 8, 8, 512, 512, 64, True, None, 0.0),
                "k4c_noncausal": (4, 8, 8, 2048, 2048, 64, False, None, 0.0),
@@ -434,7 +458,13 @@ ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "d40": (1, 2, 1, 100, 100, 40, False, None, 0.0),
                "mellum2_sliding": (4, 32, 4, 8192, 8192, 128, True, 1024,
                                    0.0),
-               "mellum2_full": (4, 32, 4, 8192, 8192, 128, True, None, 0.0)}
+               "mellum2_full": (4, 32, 4, 8192, 8192, 128, True, None, 0.0),
+               "split_gqa_window_dropout": (1, 4, 2, 300, 300, (192, 128),
+                                            True, 40, 0.1),
+               "split_cross": (1, 2, 2, 100, 130, (160, 96), False, None,
+                               0.0),
+               "moonlight": (2, 16, 16, 8192, 8192, (192, 128), True, None,
+                             0.0)}
 # the plain versions hold [B, H, Tq, Tk] scores whole; past PLAIN_SCORES
 # elements (Mellum 2's 34 GB a tensor) they run one (batch row, kv head)
 # group at a time: its query heads against its kv head, dk and dv summed
@@ -445,6 +475,8 @@ ATTN_MAIN = "config6b"
 ATTN_TIMED = ("k4b_t512", "k4c_noncausal")
 # the dq and the dk/dv kernel each timed alone at Mellum 2's two layer kinds
 ATTN_BWD_TIMED = ("mellum2_sliding", "mellum2_full")
+# the three kernels each timed alone at Moonlight's split dims
+ATTN_SPLIT_TIMED = ("moonlight",)
 ATTN_SEED = 1234
 # O and lse: sums of up to 2048 f32 terms in another order. dq, dk and dv
 # differ in size by shape; each is held at rtol 1e-4 and an atol of 1e-4 of
@@ -1663,19 +1695,26 @@ def run_parity(device):
         np.testing.assert_allclose(lg, lc, err_msg="step %d" % i, **LOSS_TOL)
 
 
+def head_dims(d):
+    """(d_qk, d_v) of an ATTN_SHAPES head dim: one int, or the pair."""
+    return tuple(d) if isinstance(d, tuple) else (d, d)
+
+
 def attn_inputs(device, name, seed=0):
     """q, k, v, dO of ``name``'s shape on ``device``, each the strided view
-    that split heads makes of a [B, T, heads, d] tensor, and the call's
-    keyword arguments."""
+    that split heads makes of a [B, T, heads, d] tensor (v and dO at d_v),
+    and the call's keyword arguments."""
     b, h, hkv, tq, tk, d, causal, window, rate = ATTN_SHAPES[name]
+    dqk, dv = head_dims(d)
     gen = torch.Generator().manual_seed(seed)
 
-    def heads(n, t):
-        x = torch.randn((b, t, n, d), generator=gen).to(device)
+    def heads(n, t, width):
+        x = torch.randn((b, t, n, width), generator=gen).to(device)
         return x.permute(0, 2, 1, 3)
 
-    q, k, v, do = heads(h, tq), heads(hkv, tk), heads(hkv, tk), heads(h, tq)
-    kw = dict(causal=causal, scale=1.0 / np.sqrt(d), window=window,
+    q, k = heads(h, tq, dqk), heads(hkv, tk, dqk)
+    v, do = heads(hkv, tk, dv), heads(h, tq, dv)
+    kw = dict(causal=causal, scale=1.0 / np.sqrt(dqk), window=window,
               dropout_rate=rate, seed=ATTN_SEED if rate else None)
     return q, k, v, do, kw
 
@@ -1689,20 +1728,27 @@ def visible_pairs(tq, tk, causal, window):
 
 def attention_costs(name):
     """FLOPs and bytes of the forward, the dq kernel, the dk/dv kernel and
-    the backward as a whole at ``name``'s shape, on the visible pairs only.
-    The forward: S and P.V, 4 d FLOPs a pair; q, k, v read, o and lse
-    written. dq alone needs S, dP and dS.K (6 d a pair), dk/dv alone S, dP,
-    P^T.dO and dS^T.Q (8 d); the backward as a whole shares S and dP (10 d
-    a pair). Each reads q, k, v, dO, lse and delta and writes its outputs."""
+    the backward as a whole at ``name``'s shape, on the visible pairs only,
+    with S, dQ and dK over d_qk and P.V, dP and dV over d_v (d each where
+    they share one). The forward: S and P.V, 4 d FLOPs a pair; q, k, v
+    read, o and lse written. dq alone needs S, dP and dS.K (6 d a pair),
+    dk/dv alone S, dP, P^T.dO and dS^T.Q (8 d); the backward as a whole
+    shares S and dP (10 d a pair). Each reads q, k, v, dO, lse and delta
+    and writes its outputs."""
     b, h, hkv, tq, tk, d, causal, window, _ = ATTN_SHAPES[name]
+    dqk, dv = head_dims(d)
     vis = b * h * visible_pairs(tq, tk, causal, window)
-    qo, kv, rows = b * h * tq * d, b * hkv * tk * d, b * h * tq
-    reads = 2 * qo + 2 * kv + 2 * rows
-    return {"attention_forward": (4.0 * vis * d,
-                                  4.0 * (2 * qo + 2 * kv + rows)),
-            "attention_backward_dq": (6.0 * vis * d, 4.0 * (reads + qo)),
-            "attention_backward_dkv": (8.0 * vis * d, 4.0 * (reads + 2 * kv)),
-            "backward": (10.0 * vis * d, 4.0 * (reads + qo + 2 * kv))}
+    q, o = b * h * tq * dqk, b * h * tq * dv
+    k, v, rows = b * hkv * tk * dqk, b * hkv * tk * dv, b * h * tq
+    reads = q + k + v + o + 2 * rows  # q, k, v, dO, lse and delta
+    return {"attention_forward": (2.0 * vis * (dqk + dv),
+                                  4.0 * (q + k + v + o + rows)),
+            "attention_backward_dq": (2.0 * vis * (2 * dqk + dv),
+                                      4.0 * (reads + q)),
+            "attention_backward_dkv": (4.0 * vis * (dqk + dv),
+                                       4.0 * (reads + k + v)),
+            "backward": (2.0 * vis * (3 * dqk + 2 * dv),
+                         4.0 * (reads + q + k + v))}
 
 
 def hold_grad(what, got, want):
@@ -1737,7 +1783,8 @@ def plain_forward(q, k, v, **kw):
     groups = plain_groups(q, k, kw["dropout_rate"])
     if groups is None:
         return attention.attention_forward_reference(q, k, v, **kw)
-    o, lse = torch.empty_like(q), q.new_empty(q.shape[:3] + (1,))
+    o = q.new_empty(q.shape[:3] + v.shape[3:])
+    lse = q.new_empty(q.shape[:3] + (1,))
     for qi, ki in groups:
         o[qi], lse[qi] = attention.attention_forward_reference(
             q[qi], k[ki], v[ki], **kw)
@@ -1780,6 +1827,7 @@ def check_attention_shape(device, name):
     wrappers = (attention.cuda_attention_backward_dq,
                 attention.cuda_attention_backward_dkv)
     wgmma = [fn.wgmma_launches for fn in wrappers]
+    split = [fn.split_launches for fn in wrappers]
     for _ in range(2):
         dq = attention.cuda_attention_backward_dq(q, k, v, do, lse_r, delta,
                                                   **kw)
@@ -1789,13 +1837,22 @@ def check_attention_shape(device, name):
         runs.append((dq, dk, dv))
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("%s: two backward runs differ" % name)
-    # head dims 65-128 take the wgmma dq and dk/dv kernels, and only they
-    for what, fn, before in zip(("dq", "dk/dv"), wrappers, wgmma):
-        if fn.wgmma_launches - before != (2 if q.shape[-1] > 64 else 0):
+    # head dims 65-128 take the wgmma dq and dk/dv kernels, and only they;
+    # split dims the <192, 128> templates, counted apart
+    dqk, dv = q.shape[-1], v.shape[-1]
+    for what, fn, before, split_before in zip(("dq", "dk/dv"), wrappers,
+                                              wgmma, split):
+        on_wgmma = attention.dq_design(dqk, dv) == "wgmma"
+        if fn.wgmma_launches - before != (2 if on_wgmma else 0):
             raise AssertionError("%s: %d of the 2 %s launches counted on "
-                                 "the wgmma kernel at head dim %d"
+                                 "the wgmma kernel at head dims %d/%d"
                                  % (name, fn.wgmma_launches - before, what,
-                                    q.shape[-1]))
+                                    dqk, dv))
+        if fn.split_launches - split_before != (2 if dqk != dv else 0):
+            raise AssertionError("%s: %d of the 2 %s launches counted at "
+                                 "split head dims %d/%d"
+                                 % (name, fn.split_launches - split_before,
+                                    what, dqk, dv))
     want = plain_backward(q, k, v, do, lse_r, delta, **kw)
     grads = [hold_grad("%s: %s" % (name, what), a, b)
              for what, a, b in zip(("dq", "dk", "dv"), runs[0], want)]
@@ -1937,7 +1994,34 @@ def check_attention(device):
     for name in ATTN_BWD_TIMED:
         for kernel in ("dq", "dkv"):
             time_backward(device, name, kernel)
+    for name in ATTN_SPLIT_TIMED:
+        time_forward(device, name)
+        for kernel in ("dq", "dkv"):
+            time_backward(device, name, kernel)
     return out
+
+
+def time_forward(device, name):
+    """The forward kernel's time a launch at shape ``name`` (CUDA events),
+    beside its bound: 2 (d_qk + d_v) FLOPs a visible pair at 3xTF32 on the
+    tensor cores."""
+    q, k, v, _, kw = attn_inputs(device, name)
+
+    def run():
+        return attention.cuda_attention_forward(q, k, v, **kw)
+
+    run()
+    k1, k2 = epoch_ms(run, 5), epoch_ms(run, 5)
+    ms = (k1 + k2) / 2
+    costs = attention_costs(name)["attention_forward"]
+    bound_ms, bound_by = bound_3xtf32(*costs)
+    print("attention_forward at %s: %.3f ms a launch by CUDA events (turns "
+          "%.3f, %.3f); bound %.3f ms (%s-bound: %.4g GFLOP on the visible "
+          "pairs); kernel at %.2f%% of it"
+          % (name, ms, k1, k2, bound_ms, bound_by, costs[0] / 1e9,
+             100.0 * bound_ms / ms))
+    torch.cuda.empty_cache()
+    return ms, bound_ms
 
 
 def time_backward(device, name, kernel):
@@ -1966,7 +2050,8 @@ def time_backward(device, name, kernel):
     print("%s at %s (the %s kernel): %.3f ms a launch by CUDA events (turns "
           "%.3f, %.3f); bound %.3f ms (%s-bound: %.4g GFLOP on the visible "
           "pairs); kernel at %.2f%% of it"
-          % (what, name, design(q.shape[-1]), ms, k1, k2, bound_ms, bound_by,
+          % (what, name, design(q.shape[-1], v.shape[-1]), ms, k1, k2,
+             bound_ms, bound_by,
              costs[0] / 1e9, 100.0 * bound_ms / ms))
     del o, lse, delta
     torch.cuda.empty_cache()
@@ -3273,6 +3358,77 @@ def run_mellum2_slice(device):
     return counts
 
 
+# Moonlight's attention as its cell runs it (multi-head latent attention: 16
+# heads of 192-wide queries and keys and 128-wide values, a 512 latent,
+# causal) in a cut net for the main path's launches: hidden 512, a dense
+# layer of 256, then an expert layer of 2 held experts of width 64 (top-6 of
+# 64, sigmoid) and a shared expert of 128, a 1,024-id vocabulary, 2 x 2,048
+# ids a step
+MOONLIGHT_SLICE = dict(
+    vocab=1024, dim=512, heads=16, qk_nope_dim=128, qk_rope_dim=64,
+    v_dim=128, kv_rank=512, n_layers=2, first_dense=1, dense_width=256,
+    num_experts=64, top_k=6, expert_width=64, shared_width=128,
+    experts_held=range(2), routed_scaling=2.446, rope_theta=50000.0,
+    eps=1e-5)
+MOONLIGHT_SLICE_STEPS, MOONLIGHT_SLICE_IDS = 3, (2, 2048)
+
+
+def run_moonlight_slice(device):
+    """``Model(build_mla_moe_lm(**MOONLIGHT_SLICE), ..., device="cuda")
+    .train_step`` from seed 0, 3 steps: each attention kernel once a layer
+    a step, every launch at the split head dims (each wrapper's
+    ``split_launches`` equal to its launches, none on the wgmma kernels);
+    finite losses. Returns the launch counts."""
+    from tinynn_autograd_tpu_torch.models import build_mla_moe_lm
+    from tinynn_autograd_tpu_torch.nn.losses import (
+        SparseSoftmaxCrossEntropyLoss,
+    )
+
+    with seeder.scope(0):
+        net = build_mla_moe_lm(**MOONLIGHT_SLICE)
+    model = Model(net, SparseSoftmaxCrossEntropyLoss(), Adam(1e-6),
+                  device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, t = MOONLIGHT_SLICE_IDS
+    ids = torch.randint(0, MOONLIGHT_SLICE["vocab"], (b, t + 1),
+                        generator=gen, device=device)
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    torch.cuda.synchronize()
+    zero_counts()
+    wrappers = (attention.cuda_attention_forward,
+                attention.cuda_attention_backward_dq,
+                attention.cuda_attention_backward_dkv)
+    split = [fn.split_launches for fn in wrappers]
+    wgmma = [fn.wgmma_launches for fn in wrappers[1:]]
+    t0 = time.perf_counter()
+    losses = [float(model.train_step(x, y))
+              for _ in range(MOONLIGHT_SLICE_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOONLIGHT_SLICE_STEPS
+    counts = launch_counts()
+    split = [fn.split_launches - n for fn, n in zip(wrappers, split)]
+    wgmma = [fn.wgmma_launches - n for fn, n in zip(wrappers[1:], wgmma)]
+    calls = MOONLIGHT_SLICE["n_layers"] * MOONLIGHT_SLICE_STEPS
+    print("Moonlight slice (16 heads of 192/128, latent 512, causal; hidden "
+          "512, a dense layer, 2 held experts and a shared one): %d steps "
+          "of %d x %d ids, %.3f s a step; losses %s; attention launches "
+          "forward %d, dq %d, dk/dv %d; at split dims %s; on wgmma %s"
+          % (MOONLIGHT_SLICE_STEPS, b, t, step_s,
+             ", ".join("%.5f" % x for x in losses),
+             counts["attention_forward"], counts["attention_backward_dq"],
+             counts["attention_backward_dkv"], split, wgmma))
+    got = (counts["attention_forward"], counts["attention_backward_dq"],
+           counts["attention_backward_dkv"])
+    if got != (calls,) * 3 or split != [calls] * 3 or wgmma != [0, 0]:
+        raise AssertionError("Moonlight slice: attention launches (forward, "
+                             "dq, dk/dv) %s, at split dims %s, on wgmma %s; "
+                             "expected %d each at split dims"
+                             % (got, split, wgmma, calls))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("Moonlight slice: non-finite loss")
+    return counts
+
+
 def run_transformer_dropout(device):
     """Config 6b with dropout=0.1 and attn_dropout=0.1 for one epoch from
     seed 0: per step P1 twice a block (the residual sites; the attention
@@ -3746,7 +3902,25 @@ def run_dp_slice(device):
     return ring_counts, step_counts, mega_rate, step_rate
 
 
-def main():
+def hold_parent_attention(parent):
+    """``bench_vs_parent.py --mode same`` against the checkout at
+    ``parent``: the three attention kernels at head dims 32, 64 and 128
+    (q, k and v sharing one) bit-identical to the parent's on the same
+    inputs, with both kernels' times in turns."""
+    import bench_vs_parent
+
+    if bench_vs_parent.main(["--parent", parent, "--mode", "same"]) != 0:
+        raise AssertionError("the attention kernels at one head dim differ "
+                             "from the parent's at %s" % parent)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent",
+                        help="a parent checkout (git archive): also hold the "
+                             "attention kernels at one head dim bit-identical"
+                             " to its")
+    parent = parser.parse_args(argv).parent
     phase("device")
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
@@ -3839,6 +4013,9 @@ def main():
 
     phase("attention kernels vs plain")
     attn = check_attention(device)
+    if parent:
+        phase("attention kernels vs the parent's")
+        hold_parent_attention(parent)
 
     phase("transformer slice")
     tmodel, tx_dev, ty_dev, t_launches, t_rate = run_transformer_slice(device)
@@ -3852,6 +4029,9 @@ def main():
 
     phase("Mellum 2 slice")
     run_mellum2_slice(device)
+
+    phase("Moonlight slice")
+    run_moonlight_slice(device)
 
     phase("recurrent kernels vs plain")
     rec = check_recurrent(device)

@@ -1012,6 +1012,91 @@ def test_cuda_wgmma_launches_counted_by_head_dim(kernel, d):
     assert all(torch.isfinite(x).all() for x in got)
 
 
+# the split head dims of multi-head latent attention (the <192, 128>
+# templates): (B, H, Hkv, Tq, Tk, (d_qk, d_v), causal, window, dropout):
+# Moonlight's 192/128 causal over a ragged T, GQA with a window of 40 and
+# dropout, cross attention with Tq above and below Tk, and dims inside the
+# templates' (160/96, 136/64: zero-padded); q, k, v and dO as the strided
+# views of split heads. The tolerances are ATTN_TOL's and the gradients'
+# above: the sums run over at most 192 dims and 300 keys.
+SPLIT_SHAPES = {
+    "causal_t1100": (2, 4, 4, 1100, 1100, (192, 128), True, None, 0.0),
+    "gqa2_window40_dropout": (1, 4, 2, 300, 300, (192, 128), True, 40, 0.1),
+    "cross_200_300": (1, 2, 2, 200, 300, (192, 128), False, None, 0.0),
+    "cross_300_130": (2, 2, 1, 300, 130, (160, 96), False, None, 0.0),
+    "d136_64_causal": (1, 3, 3, 257, 257, (136, 64), True, None, 0.0),
+}
+
+
+def _split_inputs(dev, name):
+    b, h, hkv, tq, tk, (d, dv), causal, window, rate = SPLIT_SHAPES[name]
+    rng = np.random.RandomState(tq)
+
+    def heads(n, t, width):
+        x = rng.randn(b, t, n, width).astype(np.float32)
+        return torch.from_numpy(x).to(dev).permute(0, 2, 1, 3)
+
+    kw = dict(causal=causal, scale=1.0 / np.sqrt(d), window=window,
+              dropout_rate=rate, seed=1234 if rate else None)
+    return (heads(h, tq, d), heads(hkv, tk, d), heads(hkv, tk, dv),
+            heads(h, tq, dv), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPLIT_SHAPES))
+def test_cuda_attention_at_split_head_dims(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    q, k, v, do, kw = _split_inputs(dev, name)
+    fns = (attention.cuda_attention_forward,
+           attention.cuda_attention_backward_dq,
+           attention.cuda_attention_backward_dkv)
+    before = [(fn.launches, fn.split_launches) for fn in fns]
+    wgmma = [fn.wgmma_launches for fn in fns[1:]]
+    o, lse = attention.cuda_attention_forward(q, k, v, **kw)
+    want_o, want_lse = attention.attention_forward_reference(q, k, v, **kw)
+    assert o.shape == q.shape[:3] + (v.shape[-1],)
+    for what, a, b in (("o", o, want_o), ("lse", lse, want_lse)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   err_msg=what, **ATTN_TOL)
+    bwd = (q, k, v, do, want_lse, (do * want_o).sum(dim=-1))
+    runs = [(attention.cuda_attention_backward_dq(*bwd, **kw),)
+            + attention.cuda_attention_backward_dkv(*bwd, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = attention.attention_backward_reference(*bwd, **kw)
+    for what, a, b in zip(("dq", "dk", "dv"), runs[0], want):
+        assert a.shape == b.shape, what
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b, rtol=1e-4,
+            atol=1e-4 * float(np.abs(b).max()), err_msg=what)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(o, attention.cuda_attention_forward(q, k, v, **kw)[0])
+    assert [(fn.launches - n, fn.split_launches - s) for fn, (n, s)
+            in zip(fns, before)] == [(2, 2), (2, 2), (2, 2)]
+    assert [fn.wgmma_launches for fn in fns[1:]] == wgmma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(128, 64), (200, 128), (192, 160),
+                                  (256, 256)])
+def test_cuda_attention_refuses_other_head_dims(dims):
+    # the kernels take one head dim up to 128, or the split dims; any other
+    # pair raises naming the rule, and nothing is launched
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    d, dv = dims
+    q, k = (torch.zeros(1, 2, 64, d, device=dev) for _ in range(2))
+    v = torch.zeros(1, 2, 64, dv, device=dev)
+    before = attention.cuda_attention_forward.launches
+    with pytest.raises(ValueError, match="head dim"):
+        attention.mha_fwd(q, k, v, causal=True)
+    assert attention.cuda_attention_forward.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
 def test_cuda_wgmma_float64_hold(kernel):

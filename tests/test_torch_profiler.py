@@ -190,10 +190,12 @@ def test_span_names_keep_to_the_rule():
     root = Path(tinynn_autograd_tpu_torch.__file__).parent
     names = {m for path in root.rglob("*.py") for m in re.findall(
         r"profiler\.span\(\"([^\"]+)\"\)", path.read_text())}
-    # the expert language model's spans, which tests/test_torch_mellum.py
-    # records
+    # the expert language models' spans, which tests/test_torch_mellum.py
+    # and tests/test_torch_moonlight.py record
     moe_lm = {"tinynn.moe", "tinynn.moe.route", "tinynn.moe.dispatch",
-              "tinynn.moe.experts", "tinynn.moe.combine", "tinynn.attn.rope"}
+              "tinynn.moe.experts", "tinynn.moe.combine", "tinynn.attn.rope",
+              "tinynn.moe.shared", "tinynn.mla", "tinynn.mla.project",
+              "tinynn.mla.rope", "tinynn.mla.attend", "tinynn.mla.out"}
     assert set(SPANS) | {"tinynn.k2.plan", "tinynn.k2.launch"} | moe_lm \
         == names
     assert all(n.startswith("tinynn.") and "_kernel" not in n for n in names)

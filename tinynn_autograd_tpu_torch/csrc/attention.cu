@@ -26,12 +26,17 @@
 //   and the seed seed + (h % group) * 2654435761, as the JAX package's
 //   per-group calls do, so the masks agree bit for bit.
 // - Each output is written once, with no float atomics: reruns are
-//   bit-identical. Head dims up to 128 (templates for 32, 64 and, in the
-//   forward, 128; a smaller d is zero-padded in shared memory), but dq and
-//   dk/dv at head dims 65-128 run `attention_backward_dq_kernel_wgmma` and
+//   bit-identical. Head dims: q and k share one, d_qk, and v has its own,
+//   d_v (o, dO and dv have v's). Either d_qk == d_v <= 128 (templates for
+//   32, 64 and, in the forward, 128; a smaller d is zero-padded in shared
+//   memory), with dq and dk/dv at head dims 65-128 on
+//   `attention_backward_dq_kernel_wgmma` and
 //   `attention_backward_dkv_kernel_wgmma`, designs of their own for Hopper
 //   (below the templates; `dq_design` and `dkv_design` in ops/attention.py
-//   choose).
+//   choose); or the split dims of multi-head latent attention, d_qk in
+//   (128, 192] with d_v <= 128, on the three templates instantiated at
+//   <192, 128>: S and dP run over their own widths (192 and 128), P V, dV
+//   and dO over 128, dQ and dK over 192, so v is never padded to 192.
 //
 // All three kernels multiply on the tensor cores, `mma.sync` m16n8k8 TF32
 // with f32 accumulators, in 3xTF32: each f32 operand is split into a TF32
@@ -114,7 +119,7 @@ using tinynn::wgmma_wait;
 constexpr unsigned GOLDEN = 2654435761u;
 
 struct Shape {
-  int b, h, hkv, tq, tk, d;
+  int b, h, hkv, tq, tk, d, dv;  // d: q's and k's head dim; dv: v's
 };
 struct Strides {
   long long b, h, t;  // element strides; the head dim has stride 1
@@ -171,7 +176,7 @@ constexpr int BN = 32;       // rows of a looped tile
 constexpr int THREADS = 128;
 
 // The shared-memory pitch of a [rows][D] operand: D + 4 floats, 4 mod 32
-// words for D = 32, 64 and 128, so that every fragment read below is free
+// words for D = 32, 64, 128 and 192, so that every fragment read below is free
 // of bank conflicts: a row-major read (row g, column t) hits bank 4g + t,
 // and a permuted-row read (row 2t or 2t + 1, column g) bank 8t + g (+ 4).
 // Rows stay 16-byte aligned for the cp.async copies.
@@ -374,21 +379,23 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
 // tile's share of P_d V from S's accumulators as A fragments (V's rows read
 // in their column order), added once to the rescaled O. Q and K fragments
 // come by ldmatrix, V's by scalar loads; each warp splits what it reads in
-// registers (three blocks an SM at d=64).
-template <int D>
+// registers (three blocks an SM at d=64). D is the head dim of q and k,
+// DV that of v and o (DV = D but at split dims, 192/128).
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 1)
 attention_forward_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, Shape s, Strides sq,
                          Strides sk, Strides sv, Options opt, int vec) {
-  constexpr int P = pitch<D>();
-  constexpr int KD = D / 8;   // 8-wide steps over the head dim
-  constexpr int NK = BN / 8;  // 8-key steps over a key tile
+  constexpr int P = pitch<D>(), PV = pitch<DV>();
+  constexpr int KD = D / 8;    // 8-wide steps over q's and k's head dim
+  constexpr int KDV = DV / 8;  // and over v's
+  constexpr int NK = BN / 8;   // 8-key steps over a key tile
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [BM][P]
   float* ks = qs + BM * P;                        // [2][BN][P]
-  float* vs = ks + 2 * BN * P;                    // [2][BN][P]
+  float* vs = ks + 2 * BN * P;                    // [2][BN][PV]
 
   const int bh = blockIdx.x;
   const int b = bh / s.h, h = bh % s.h;
@@ -407,30 +414,30 @@ attention_forward_kernel(const float* __restrict__ q,
   load_rows<BM, D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, s.tq, s.d,
                    vec & kVecQ);
   load_rows<BN, D>(ks, kh, sk.t, j_lo * BN, s.tk, s.d, vec & kVecK);
-  load_rows<BN, D>(vs, vh, sv.t, j_lo * BN, s.tk, s.d, vec & kVecV);
+  load_rows<BN, DV>(vs, vh, sv.t, j_lo * BN, s.tk, s.dv, vec & kVecV);
   cp_async_commit();
 
   // this thread's two rows, g and g + 8 of the warp's 16: element e of an
   // accumulator is row e >> 1
   const int qa = q0 + r0 + g;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float acc[KD][4];
+  float acc[KDV][4];
 #pragma unroll
-  for (int c = 0; c < KD; ++c)
+  for (int c = 0; c < KDV; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
 
   for (int j = j_lo; j <= j_hi; ++j) {
     const int stage = (j - j_lo) & 1;
     const float* kt = ks + stage * BN * P;
-    const float* vt = vs + stage * BN * P;
+    const float* vt = vs + stage * BN * PV;
     cp_async_wait_all();
     __syncthreads();  // tile j landed; tile j - 1's stage is free
     if (j < j_hi) {
       load_rows<BN, D>(ks + (stage ^ 1) * BN * P, kh, sk.t, (j + 1) * BN,
                        s.tk, s.d, vec & kVecK);
-      load_rows<BN, D>(vs + (stage ^ 1) * BN * P, vh, sv.t, (j + 1) * BN,
-                       s.tk, s.d, vec & kVecV);
+      load_rows<BN, DV>(vs + (stage ^ 1) * BN * PV, vh, sv.t, (j + 1) * BN,
+                        s.tk, s.dv, vec & kVecV);
     }
     cp_async_commit();
     const int k0 = j * BN;
@@ -516,9 +523,9 @@ attention_forward_kernel(const float* __restrict__ q,
 
     // the tile's share of P_d V, V's rows read in the accumulators' column
     // order, summed apart and added once to the rescaled O
-    float part[KD][4];
+    float part[KDV][4];
 #pragma unroll
-    for (int c = 0; c < KD; ++c)
+    for (int c = 0; c < KDV; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[c][e] = 0.0f;
 #pragma unroll
@@ -526,13 +533,13 @@ attention_forward_kernel(const float* __restrict__ q,
       FragA a;
       acc_to_a(a, sc[n]);
 #pragma unroll
-      for (int c = 0; c < KD; ++c) {
-        const int at = (n * 8 + 2 * t) * P + c * 8 + g;
-        mma3(part[c], a, split_b(vt, at, at + P));
+      for (int c = 0; c < KDV; ++c) {
+        const int at = (n * 8 + 2 * t) * PV + c * 8 + g;
+        mma3(part[c], a, split_b(vt, at, at + PV));
       }
     }
 #pragma unroll
-    for (int c = 0; c < KD; ++c)
+    for (int c = 0; c < KDV; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc[c][e] = acc[c][e] * alpha[e >> 1] + part[c][e];
@@ -541,12 +548,12 @@ attention_forward_kernel(const float* __restrict__ q,
 
   const long long rowa = static_cast<long long>(bh) * s.tq + qa;
 #pragma unroll
-  for (int c = 0; c < KD; ++c)
+  for (int c = 0; c < KDV; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = c * 8 + 2 * t + (e & 1);
-      if (qa + (e & 2) * 4 < s.tq && col < s.d)
-        o[(rowa + (e & 2) * 4) * s.d + col] = acc[c][e] / l[e >> 1];
+      if (qa + (e & 2) * 4 < s.tq && col < s.dv)
+        o[(rowa + (e & 2) * 4) * s.dv + col] = acc[c][e] / l[e >> 1];
     }
   if (t == 0) {
     if (qa < s.tq) lse[rowa] = m[0] + logf(l[0]);
@@ -560,8 +567,9 @@ attention_forward_kernel(const float* __restrict__ q,
 // Each warp splits the K and V values it reads in registers: with three
 // products a tile that keeps the block at 168 registers a thread and
 // 69,632 bytes at d=64, three blocks an SM, which ran faster on the H100
-// than the dk/dv kernel's shared split planes at two blocks.
-template <int D>
+// than the dk/dv kernel's shared split planes at two blocks. D is the head
+// dim of q, k and dq, DV that of v and dO (DV = D but at split dims).
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 1)
 attention_backward_dq_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -572,14 +580,15 @@ attention_backward_dq_kernel(const float* __restrict__ q,
                              float* __restrict__ dq, Shape s, Strides sq,
                              Strides sk, Strides sv, Strides sdo,
                              Options opt, int vec) {
-  constexpr int P = pitch<D>();
-  constexpr int KD = D / 8;   // 8-wide steps over the head dim
-  constexpr int NK = BN / 8;  // 8-key steps over a key tile
+  constexpr int P = pitch<D>(), PV = pitch<DV>();
+  constexpr int KD = D / 8;    // 8-wide steps over q's and k's head dim
+  constexpr int KDV = DV / 8;  // and over v's and dO's
+  constexpr int NK = BN / 8;   // 8-key steps over a key tile
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [BM][P]
-  float* dos = qs + BM * P;                       // [BM][P]
-  float* ks = dos + BM * P;                       // [2][BN][P]
-  float* vs = ks + 2 * BN * P;                    // [2][BN][P]
+  float* dos = qs + BM * P;                       // [BM][PV]
+  float* ks = dos + BM * PV;                      // [2][BN][P]
+  float* vs = ks + 2 * BN * P;                    // [2][BN][PV]
 
   const int bh = blockIdx.x;
   const int b = bh / s.h, h = bh % s.h;
@@ -597,10 +606,10 @@ attention_backward_dq_kernel(const float* __restrict__ q,
   key_range<BM, BN>(q0, s, opt, &j_lo, &j_hi);
   load_rows<BM, D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, s.tq, s.d,
                    vec & kVecQ);
-  load_rows<BM, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, s.tq, s.d,
-                   vec & kVecDO);
+  load_rows<BM, DV>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, s.tq,
+                    s.dv, vec & kVecDO);
   load_rows<BN, D>(ks, kh, sk.t, j_lo * BN, s.tk, s.d, vec & kVecK);
-  load_rows<BN, D>(vs, vh, sv.t, j_lo * BN, s.tk, s.d, vec & kVecV);
+  load_rows<BN, DV>(vs, vh, sv.t, j_lo * BN, s.tk, s.dv, vec & kVecV);
   cp_async_commit();
 
   // this thread's two rows, g and g + 8 of the warp's 16
@@ -620,21 +629,22 @@ attention_backward_dq_kernel(const float* __restrict__ q,
   for (int j = j_lo; j <= j_hi; ++j) {
     const int stage = (j - j_lo) & 1;
     const float* kt = ks + stage * BN * P;
-    const float* vt = vs + stage * BN * P;
+    const float* vt = vs + stage * BN * PV;
     cp_async_wait_all();
     __syncthreads();  // tile j landed; tile j - 1's stage is free
     if (j < j_hi) {
       load_rows<BN, D>(ks + (stage ^ 1) * BN * P, kh, sk.t, (j + 1) * BN,
                        s.tk, s.d, vec & kVecK);
-      load_rows<BN, D>(vs + (stage ^ 1) * BN * P, vh, sv.t, (j + 1) * BN,
-                       s.tk, s.d, vec & kVecV);
+      load_rows<BN, DV>(vs + (stage ^ 1) * BN * PV, vh, sv.t, (j + 1) * BN,
+                        s.tk, s.dv, vec & kVecV);
     }
     cp_async_commit();
     const int k0 = j * BN;
     const int vis = band(q0 + r0, q0 + r0 + 15, k0, k0 + BN - 1, s, opt);
     if (vis == 0) continue;  // the warp's rows see none of these keys
 
-    // S and dP, their small terms summed apart
+    // S and dP, their small terms summed apart (S over D, dP over DV: one
+    // loop over the wider)
     float sc[NK][4], dp[NK][4], scs[NK][4], dps[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n)
@@ -642,15 +652,16 @@ attention_backward_dq_kernel(const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = scs[n][e] =
           dps[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+    for (int kk = 0; kk < (KD > KDV ? KD : KDV); ++kk) {
       FragA qa_, oa_;
-      load_a<P>(qa_, qs, r0, kk * 8, g, t);
-      load_a<P>(oa_, dos, r0, kk * 8, g, t);
+      if (kk < KD) load_a<P>(qa_, qs, r0, kk * 8, g, t);
+      if (kk < KDV) load_a<PV>(oa_, dos, r0, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         const int o = (n * 8 + g) * P + kk * 8 + t;
-        mma3s(sc[n], scs[n], qa_, split_b(kt, o, o + 4));
-        mma3s(dp[n], dps[n], oa_, split_b(vt, o, o + 4));
+        const int ov = (n * 8 + g) * PV + kk * 8 + t;
+        if (kk < KD) mma3s(sc[n], scs[n], qa_, split_b(kt, o, o + 4));
+        if (kk < KDV) mma3s(dp[n], dps[n], oa_, split_b(vt, ov, ov + 4));
       }
     }
 
@@ -711,8 +722,10 @@ attention_backward_dq_kernel(const float* __restrict__ q,
 // the dropped and rescaled p. Four products a tile read the looped Q and dO
 // tiles as B operands, so the block splits each landed tile once into high
 // and low planes (`split_tile`) for its four warps: two blocks an SM at
-// d=64, faster on the H100 than splitting in registers at three.
-template <int D>
+// d=64, faster on the H100 than splitting in registers at three. D is the
+// head dim of q, k and dk, DV that of v, dO and dv (DV = D but at split
+// dims).
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 attention_backward_dkv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -723,17 +736,18 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
                               float* __restrict__ dk, float* __restrict__ dv,
                               Shape s, Strides sq, Strides sk, Strides sv,
                               Strides sdo, Options opt, int vec) {
-  constexpr int P = pitch<D>();
+  constexpr int P = pitch<D>(), PV = pitch<DV>();
   constexpr int KD = D / 8;
+  constexpr int KDV = DV / 8;
   constexpr int NQ = BN / 8;  // 8-query steps over a query tile
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [BM][P]
-  float* vs = ks + BM * P;                        // [BM][P]
-  float* qs = vs + BM * P;                        // [2][BN][P], then hi
-  float* dos = qs + 2 * BN * P;                   // [2][BN][P], then hi
-  float* ql = dos + 2 * BN * P;                   // [BN][P] lo
-  float* dol = ql + BN * P;                       // [BN][P] lo
-  float* ls = dol + BN * P;                       // [2][BN]
+  float* vs = ks + BM * P;                        // [BM][PV]
+  float* qs = vs + BM * PV;                       // [2][BN][P], then hi
+  float* dos = qs + 2 * BN * P;                   // [2][BN][PV], then hi
+  float* ql = dos + 2 * BN * PV;                  // [BN][P] lo
+  float* dol = ql + BN * P;                       // [BN][PV] lo
+  float* ls = dol + BN * PV;                      // [2][BN]
   float* es = ls + 2 * BN;                        // [2][BN]
 
   const int bkv = blockIdx.x;
@@ -761,8 +775,8 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     const int h = kvh * group + gi;
     load_rows<BN, D>(qs + stage * BN * P, q + b * sq.b + h * sq.h, sq.t, q0,
                      s.tq, s.d, vec & kVecQ);
-    load_rows<BN, D>(dos + stage * BN * P, dout + b * sdo.b + h * sdo.h,
-                     sdo.t, q0, s.tq, s.d, vec & kVecDO);
+    load_rows<BN, DV>(dos + stage * BN * PV, dout + b * sdo.b + h * sdo.h,
+                      sdo.t, q0, s.tq, s.dv, vec & kVecDO);
     const long long head_row = (static_cast<long long>(b) * s.h + h) * s.tq;
     const int i = threadIdx.x % BN;
     const bool ok = q0 + i < s.tq;
@@ -776,22 +790,26 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
 
   load_rows<BM, D>(ks, k + b * sk.b + kvh * sk.h, sk.t, k0, s.tk, s.d,
                    vec & kVecK);
-  load_rows<BM, D>(vs, v + b * sv.b + kvh * sv.h, sv.t, k0, s.tk, s.d,
-                   vec & kVecV);
+  load_rows<BM, DV>(vs, v + b * sv.b + kvh * sv.h, sv.t, k0, s.tk, s.dv,
+                    vec & kVecV);
   if (steps > 0) load_step(0, 0);
   cp_async_commit();
 
   const int ka = k0 + r0 + g, kb = ka + 8;
-  float adk[KD][4], adv[KD][4];
+  float adk[KD][4], adv[KDV][4];
 #pragma unroll
   for (int c = 0; c < KD; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) adk[c][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KDV; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adv[c][e] = 0.0f;
 
   for (int u = 0; u < steps; ++u) {
     const int stage = u & 1;
     float* qt = qs + stage * BN * P;
-    float* dot = dos + stage * BN * P;
+    float* dot = dos + stage * BN * PV;
     const float* lt = ls + stage * BN;
     const float* et = es + stage * BN;
     cp_async_wait_all();
@@ -799,14 +817,15 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     if (u + 1 < steps) load_step(u + 1, stage ^ 1);
     cp_async_commit();
     split_tile<D>(qt, ql);
-    split_tile<D>(dot, dol);
+    split_tile<DV>(dot, dol);
     __syncthreads();  // the planes are split
     const int gi = u / per_head, q0 = (i_lo + u % per_head) * BN;
     const int vis = band(q0, q0 + BN - 1, k0 + r0, k0 + r0 + 15, s, opt);
     if (vis == 0) continue;  // none of these queries sees the warp's keys
     const unsigned seed = opt.seed + static_cast<unsigned>(gi) * GOLDEN;
 
-    // S^T and dP^T, their small terms summed apart
+    // S^T and dP^T, their small terms summed apart (S^T over D, dP^T over
+    // DV: one loop over the wider)
     float st[NQ][4], dpt[NQ][4], sts[NQ][4], dpts[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
@@ -814,15 +833,17 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = sts[n][e] =
           dpts[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+    for (int kk = 0; kk < (KD > KDV ? KD : KDV); ++kk) {
       FragA ka_, va_;
-      load_a<P>(ka_, ks, r0, kk * 8, g, t);
-      load_a<P>(va_, vs, r0, kk * 8, g, t);
+      if (kk < KD) load_a<P>(ka_, ks, r0, kk * 8, g, t);
+      if (kk < KDV) load_a<PV>(va_, vs, r0, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int o = (n * 8 + g) * P + kk * 8 + t;
-        mma3s(st[n], sts[n], ka_, frag_b(qt, ql, o, o + 4));
-        mma3s(dpt[n], dpts[n], va_, frag_b(dot, dol, o, o + 4));
+        const int ov = (n * 8 + g) * PV + kk * 8 + t;
+        if (kk < KD) mma3s(st[n], sts[n], ka_, frag_b(qt, ql, o, o + 4));
+        if (kk < KDV)
+          mma3s(dpt[n], dpts[n], va_, frag_b(dot, dol, ov, ov + 4));
       }
     }
 
@@ -862,35 +883,35 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
       acc_to_a(as[n], dpt[n]);
     }
 #pragma unroll
-    for (int c = 0; c < KD; ++c) {
+    for (int c = 0; c < (KD > KDV ? KD : KDV); ++c) {
       float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       float pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int o = (n * 8 + 2 * t) * P + c * 8 + g;
-        mma3(pv, ap[n], frag_b(dot, dol, o, o + P));
-        mma3(pk, as[n], frag_b(qt, ql, o, o + P));
+        const int ov = (n * 8 + 2 * t) * PV + c * 8 + g;
+        if (c < KDV) mma3(pv, ap[n], frag_b(dot, dol, ov, ov + PV));
+        if (c < KD) mma3(pk, as[n], frag_b(qt, ql, o, o + P));
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        adv[c][e] += pv[e];
-        adk[c][e] += pk[e];
+        if (c < KDV) adv[c][e] += pv[e];
+        if (c < KD) adk[c][e] += pk[e];
       }
     }
   }
   cp_async_wait_all();
 
 #pragma unroll
-  for (int c = 0; c < KD; ++c)
+  for (int c = 0; c < (KD > KDV ? KD : KDV); ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ki = e < 2 ? ka : kb;
       const int col = c * 8 + 2 * t + (e & 1);
-      if (ki < s.tk && col < s.d) {
-        const long long row = static_cast<long long>(bkv) * s.tk + ki;
-        dk[row * s.d + col] = adk[c][e];
-        dv[row * s.d + col] = adv[c][e];
-      }
+      const long long row = static_cast<long long>(bkv) * s.tk + ki;
+      if (c < KD && ki < s.tk && col < s.d) dk[row * s.d + col] = adk[c][e];
+      if (c < KDV && ki < s.tk && col < s.dv)
+        dv[row * s.dv + col] = adv[c][e];
     }
 }
 
@@ -1820,23 +1841,29 @@ attention_backward_dq_kernel_wgmma(const float* __restrict__ q,
 }
 
 // The forward block: Q's [BM][P] rows and two stages of K and V tiles,
-// 52,224 bytes at d=64 (three blocks an SM, as the registers allow).
-template <int D>
+// 52,224 bytes at d=64 (three blocks an SM, as the registers allow);
+// 134,144 at 192/128.
+template <int D, int DV>
 constexpr size_t forward_smem() {
-  return sizeof(float) * (BM + 4 * BN) * pitch<D>();
+  return sizeof(float) * ((BM + 2 * BN) * pitch<D>() + 2 * BN * pitch<DV>());
 }
 // The backward blocks: two resident [BM][P] operands and two stages of two
 // looped [BN][P] ones; in dk/dv also the looped operands' low planes and
 // two stages of lse and delta. 69,632 and 87,552 bytes at d=64: three dq
-// blocks an SM, two dk/dv blocks.
-template <int D>
+// blocks an SM, two dk/dv blocks; 167,936 and 210,432 at 192/128.
+template <int D, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * BM + 4 * BN) * pitch<D>();
+  return sizeof(float) * (BM + 2 * BN) * (pitch<D>() + pitch<DV>());
 }
-template <int D>
+template <int D, int DV>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * ((2 * BM + 6 * BN) * pitch<D>() + 4 * BN);
+  return sizeof(float) *
+         ((BM + 3 * BN) * (pitch<D>() + pitch<DV>()) + 4 * BN);
 }
+static_assert(forward_smem<192, 128>() <= 232448 &&
+                  dq_smem<192, 128>() <= 232448 &&
+                  dkv_smem<192, 128>() <= 232448,
+              "the split kernels fit an H100 block's shared memory");
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -1866,24 +1893,24 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
   return err;
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t launch_forward(const float* q, const float* k, const float* v,
                            float* o, float* lse, const Shape& s,
                            const Strides& sq, const Strides& sk,
                            const Strides& sv, const Options& opt,
                            cudaStream_t stream) {
   static bool done = false;
-  const size_t bytes = forward_smem<D>();
-  cudaError_t err = allow_smem(attention_forward_kernel<D>, bytes, &done);
+  const size_t bytes = forward_smem<D, DV>();
+  cudaError_t err = allow_smem(attention_forward_kernel<D, DV>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.h, (s.tq + BM - 1) / BM);
-  attention_forward_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  attention_forward_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(
       q, k, v, o, lse, s, sq, sk, sv, opt,
       vec_flags(q, k, v, q, sq, sk, sv, sq));
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* delta,
                       float* dq, const Shape& s, const Strides& sq,
@@ -1891,17 +1918,18 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const Strides& sdo, const Options& opt,
                       cudaStream_t stream) {
   static bool done = false;
-  const size_t bytes = dq_smem<D>();
-  cudaError_t err = allow_smem(attention_backward_dq_kernel<D>, bytes, &done);
+  const size_t bytes = dq_smem<D, DV>();
+  cudaError_t err =
+      allow_smem(attention_backward_dq_kernel<D, DV>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.h, (s.tq + BM - 1) / BM);
-  attention_backward_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  attention_backward_dq_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, delta, dq, s, sq, sk, sv, sdo, opt,
       vec_flags(q, k, v, dout, sq, sk, sv, sdo));
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* delta, float* dk, float* dv,
@@ -1909,12 +1937,12 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const Strides& sv, const Strides& sdo,
                        const Options& opt, cudaStream_t stream) {
   static bool done = false;
-  const size_t bytes = dkv_smem<D>();
+  const size_t bytes = dkv_smem<D, DV>();
   cudaError_t err =
-      allow_smem(attention_backward_dkv_kernel<D>, bytes, &done);
+      allow_smem(attention_backward_dkv_kernel<D, DV>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.hkv, (s.tk + BM - 1) / BM);
-  attention_backward_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  attention_backward_dkv_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, s, sq, sk, sv, sdo, opt,
       vec_flags(q, k, v, dout, sq, sk, sv, sdo));
   return cudaGetLastError();
@@ -1957,27 +1985,36 @@ cudaError_t launch_dkv_wgmma(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// The head dims of the split instantiation <192, 128>: q and k wider than
+// 128 and at most 192, v at most 128 (each zero-padded in shared memory).
+bool split_dims(int d, int dv) {
+  return d > 128 && d <= 192 && dv >= 1 && dv <= 128;
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and does not synchronise. q is
-// [b, h, tq, d], k and v [b, hkv, tk, d], dout like q, each given by its
-// (batch, head, row) element strides with a unit-stride head dim; o, dq
-// [b, h, tq, d], dk, dv [b, hkv, tk, d], lse and delta [b, h, tq] are
-// contiguous. window 0 means none; dropout 0 means none. Returns the CUDA
-// error of the launch (0 when it was accepted); a head dim above 128 is
-// cudaErrorInvalidValue. The dq and dk/dv entries take their design from
+// [b, h, tq, d], k [b, hkv, tk, d], v [b, hkv, tk, dv], dout like o, each
+// given by its (batch, head, row) element strides with a unit-stride head
+// dim; o [b, h, tq, dv], dq [b, h, tq, d], dk [b, hkv, tk, d], dv
+// [b, hkv, tk, dv], lse and delta [b, h, tq] are contiguous. window 0 means
+// none; dropout 0 means none. The head dims: d == dv <= 128, or the split
+// dims d in (128, 192] with dv <= 128 (the <192, 128> templates); any other
+// pair is cudaErrorInvalidValue. Returns the CUDA error of the launch (0
+// when it was accepted). The dq and dk/dv entries take their design from
 // the caller (`dq_design` and `dkv_design` in ops/attention.py): wgmma 1
-// launches the wgmma kernel (any d up to 128, zero-padded), 0 the template
-// of d <= 32 or d <= 64 (a larger d is cudaErrorInvalidValue).
+// launches the wgmma kernel (d == dv up to 128, zero-padded), 0 the
+// template of d <= 32, d <= 64 or the split dims (another d is
+// cudaErrorInvalidValue).
 
 extern "C" int tinynn_attention_forward(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
-    int h, int hkv, int tq, int tk, int d, long long sqb, long long sqh,
-    long long sqt, long long skb, long long skh, long long skt,
+    int h, int hkv, int tq, int tk, int d, int dv, long long sqb,
+    long long sqh, long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, float scale, int causal,
     int window, int dropout, unsigned thresh, float inv, unsigned seed,
     void* stream) {
-  const Shape s{b, h, hkv, tq, tk, d};
+  const Shape s{b, h, hkv, tq, tk, d, dv};
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt};
   const Options opt{scale, causal, window, dropout, thresh, inv, seed};
   const auto* qf = static_cast<const float*>(q);
@@ -1987,7 +2024,11 @@ extern "C" int tinynn_attention_forward(
   auto* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d <= 32)
+  if (dv != d)
+    err = split_dims(d, dv) ? launch_forward<192, 128>(qf, kf, vf, of, lf, s,
+                                                       sq, sk, sv, opt, st)
+                            : cudaErrorInvalidValue;
+  else if (d <= 32)
     err = launch_forward<32>(qf, kf, vf, of, lf, s, sq, sk, sv, opt, st);
   else if (d <= 64)
     err = launch_forward<64>(qf, kf, vf, of, lf, s, sq, sk, sv, opt, st);
@@ -2001,12 +2042,12 @@ extern "C" int tinynn_attention_forward(
 extern "C" int tinynn_attention_backward_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int b, int h, int hkv,
-    int tq, int tk, int d, long long sqb, long long sqh, long long sqt,
+    int tq, int tk, int d, int dv, long long sqb, long long sqh, long long sqt,
     long long skb, long long skh, long long skt, long long svb,
     long long svh, long long svt, long long sdb, long long sdh,
     long long sdt, float scale, int causal, int window, int dropout,
     unsigned thresh, float inv, unsigned seed, int wgmma, void* stream) {
-  const Shape s{b, h, hkv, tq, tk, d};
+  const Shape s{b, h, hkv, tq, tk, d, dv};
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       sdo{sdb, sdh, sdt};
   const Options opt{scale, causal, window, dropout, thresh, inv, seed};
@@ -2019,7 +2060,12 @@ extern "C" int tinynn_attention_backward_dq(
   auto* gf = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d > 128)
+  if (dv != d)
+    err = !wgmma && split_dims(d, dv)
+              ? launch_dq<192, 128>(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv,
+                                    sdo, opt, st)
+              : cudaErrorInvalidValue;
+  else if (d > 128)
     err = cudaErrorInvalidValue;
   else if (wgmma)
     err = launch_dq_wgmma(qf, kf, vf, df, lf, ef, gf, s, sq, sk, sv, sdo, opt,
@@ -2037,14 +2083,14 @@ extern "C" int tinynn_attention_backward_dq(
 
 extern "C" int tinynn_attention_backward_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int h,
-    int hkv, int tq, int tk, int d, long long sqb, long long sqh,
+    const void* lse, const void* delta, void* dk, void* dvo, int b, int h,
+    int hkv, int tq, int tk, int d, int dv, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sdb,
     long long sdh, long long sdt, float scale, int causal, int window,
     int dropout, unsigned thresh, float inv, unsigned seed, int wgmma,
     void* stream) {
-  const Shape s{b, h, hkv, tq, tk, d};
+  const Shape s{b, h, hkv, tq, tk, d, dv};
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       sdo{sdb, sdh, sdt};
   const Options opt{scale, causal, window, dropout, thresh, inv, seed};
@@ -2055,10 +2101,15 @@ extern "C" int tinynn_attention_backward_dkv(
   const auto* lf = static_cast<const float*>(lse);
   const auto* ef = static_cast<const float*>(delta);
   auto* kg = static_cast<float*>(dk);
-  auto* vg = static_cast<float*>(dv);
+  auto* vg = static_cast<float*>(dvo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d > 128)
+  if (dv != d)
+    err = !wgmma && split_dims(d, dv)
+              ? launch_dkv<192, 128>(qf, kf, vf, df, lf, ef, kg, vg, s, sq,
+                                     sk, sv, sdo, opt, st)
+              : cudaErrorInvalidValue;
+  else if (d > 128)
     err = cudaErrorInvalidValue;
   else if (wgmma)
     err = launch_dkv_wgmma(qf, kf, vf, df, lf, ef, kg, vg, s, sq, sk, sv, sdo,

@@ -3,8 +3,9 @@ classifier's and the recurrent classifier's subset of the JAX package's
 nn/layers.py (Layer, Dense, DenseStack, LayerNorm, RMSNorm, Embedding,
 PositionalEmbedding, TransformerBlock, GlobalAvgPool1D, LSTM, GRU,
 Bidirectional, Flatten, Dropout, Activation, ReLU, Sigmoid, Tanh, GELU),
-and the mixture-of-experts language model's two decoder sublayers,
-AttentionBlock and TokenChoiceMoE, which the JAX package does not have.
+and the mixture-of-experts language models' decoder sublayers,
+AttentionBlock, LatentAttentionBlock, SwiGLU and TokenChoiceMoE, which the
+JAX package does not have.
 
 Every layer's forward is Tensor algebra over the tape primitives. Layers own
 their parameters as tape Tensors (so they are the framework's own classes,
@@ -452,13 +453,21 @@ class TransformerBlock(Layer):
         return x + y
 
 
-def _draw(shapes, seed):
+def _draw(shapes, seed, scales=("g",)):
     """{key: a leaf of ``shapes[key]``}: Xavier uniform weights (each 2-D,
-    so each draws with its own fans) and unit scales for the keys "g"."""
+    so each draws with its own fans) and unit scales for the keys
+    ``scales``."""
     init, ones = XavierUniformInit(), OnesInit()
     with _init_scope(seed):
-        return {k: ones(shape) if k == "g" else init(shape)
+        return {k: ones(shape) if k in scales else init(shape)
                 for k, shape in shapes.items()}
+
+
+def _swiglu(xn, gate, up, down):
+    """down(silu(xn gate) * (xn up)) on rows xn [n, dim]: one expert of
+    ``ops.grouped_swiglu_`` that takes every row (K1's three products
+    forward, six backward)."""
+    return ops.grouped_swiglu_(xn, [xn.shape[0]], [(gate, up, down)])
 
 
 class AttentionBlock(Layer):
@@ -522,6 +531,117 @@ class AttentionBlock(Layer):
         return inputs + ctx.transpose(heads).reshape((b, t, h * hd)) @ p["wo"]
 
 
+class LatentAttentionBlock(Layer):
+    """The attention half of a DeepSeek-V3 decoder layer: multi-head latent
+    attention without a query latent (``q_lora_rank`` null), no biases:
+    x + o(mla(rmsnorm(x))) on x [B, T, dim], with z = rmsnorm(x) and
+
+    - q = z W_q [dim, H (n + r)], each head's q_nope (its first n =
+      ``qk_nope_dim``) and q_pe (its last r = ``qk_rope_dim``);
+    - [c, k_pe] = z W_kva [dim, kv_rank + r]: the latent c and one k_pe that
+      every head shares; c = rmsnorm(c) (its own scale "gkv");
+    - [k_nope, v] = c W_kvb [kv_rank, H (n + v_dim)], per head;
+    - q_pe and k_pe rotated by ``ops.rope_`` with DeepSeek-V3's pairing
+      (``interleaved``) and the tables of ``rope_theta`` over r;
+    - q = [q_nope, q_pe], k = [k_nope, k_pe] (k_pe broadcast over the H
+      heads), softmax(q k^T / sqrt(n + r) + causal) v on
+      ``ops.flash_attention_`` at the split head dims n + r and v_dim;
+    - then o [H v_dim, dim].
+
+    Each matrix is a leaf of its own; "g" and "gkv" are unit scales. While
+    ``utils/profiler`` records, a call is the span ``tinynn.mla`` with the
+    children ``.project`` (the norm, q, kv_a, the latent norm, kv_b),
+    ``.rope`` (the two rotations and q's and k's assembly), ``.attend``
+    (the attention kernels) and ``.out`` (o and the residual)."""
+
+    def __init__(self, dim, num_heads, qk_nope_dim, qk_rope_dim, v_dim,
+                 kv_rank, rope_theta=10000.0, eps=1e-6, seed=None):
+        super().__init__("LatentAttentionBlock")
+        if qk_rope_dim % 2:
+            raise ValueError("qk_rope_dim %d is odd: rope pairs its lanes"
+                             % qk_rope_dim)
+        self.dim, self.num_heads = dim, num_heads
+        self.qk_nope_dim, self.qk_rope_dim = qk_nope_dim, qk_rope_dim
+        self.v_dim, self.kv_rank = v_dim, kv_rank
+        self.rope_theta, self.eps = float(rope_theta), eps
+        self._tables = {}
+        qk = qk_nope_dim + qk_rope_dim
+        self.shapes = {"g": [1, dim], "wq": [dim, num_heads * qk],
+                       "wkva": [dim, kv_rank + qk_rope_dim],
+                       "gkv": [1, kv_rank],
+                       "wkvb": [kv_rank, num_heads * (qk_nope_dim + v_dim)],
+                       "wo": [num_heads * v_dim, dim]}
+        self.params = _draw(self.shapes, seed, scales=("g", "gkv"))
+
+    def init_params(self, input_shape):
+        return tuple(input_shape)
+
+    def _rope(self, t, device):
+        """cos, sin [t, qk_rope_dim / 2] on ``device``, made once."""
+        key = (t, str(device))
+        if key not in self._tables:
+            self._tables[key] = tuple(
+                table.to(device) for table in ops.rope_tables(
+                    t, self.qk_rope_dim, self.rope_theta))
+        return self._tables[key]
+
+    def forward(self, inputs):
+        p = self.params
+        b, t, _ = inputs.shape
+        h, n, r = self.num_heads, self.qk_nope_dim, self.qk_rope_dim
+        dv = self.v_dim
+        heads = (0, 2, 1, 3)  # [B, T, H, d] -> [B, H, T, d], a view
+        with profiler.span("tinynn.mla"):
+            with profiler.span("tinynn.mla.project"):
+                xn = ops.rms_norm_(inputs, p["g"], eps=self.eps)
+                q_nope, q_pe = ops.split_(
+                    (xn @ p["wq"]).reshape((b, t, h, n + r)), (n, r))
+                c, k_pe = ops.split_(xn @ p["wkva"], (self.kv_rank, r))
+                kv = ops.rms_norm_(c, p["gkv"], eps=self.eps) @ p["wkvb"]
+                k_nope, v = ops.split_(kv.reshape((b, t, h, n + dv)), (n, dv))
+            with profiler.span("tinynn.mla.rope"):
+                cos, sin = self._rope(t, inputs.device)
+                q_pe = ops.rope_(q_pe, cos[:, None, :], sin[:, None, :],
+                                 interleaved=True)
+                k_pe = ops.rope_(k_pe, cos, sin, interleaved=True)
+                q = ops.concat_([q_nope, q_pe], axis=-1)
+                k = ops.concat_([k_nope, ops.broadcast_to_(
+                    k_pe.reshape((b, t, 1, r)), (b, t, h, r))], axis=-1)
+            with profiler.span("tinynn.mla.attend"):
+                ctx = ops.flash_attention_(
+                    q.transpose(heads), k.transpose(heads),
+                    v.transpose(heads), causal=True,
+                    scale=1.0 / np.sqrt(n + r))
+            with profiler.span("tinynn.mla.out"):
+                return inputs + ctx.transpose(heads).reshape(
+                    (b, t, h * dv)) @ p["wo"]
+
+
+class SwiGLU(Layer):
+    """The dense half of a pre-RMSNorm decoder layer, no biases:
+    x + down(silu(gate z) * (up z)) with z = rmsnorm(x), gate and up
+    [dim, width], down [width, dim] (DeepSeek-V3's leading dense layers;
+    ``TokenChoiceMoE``'s shared expert is the same MLP on its normalised
+    rows)."""
+
+    def __init__(self, dim, width, eps=1e-6, seed=None):
+        super().__init__("SwiGLU")
+        self.dim, self.width, self.eps = dim, width, eps
+        self.shapes = {"g": [1, dim], "gate": [dim, width],
+                       "up": [dim, width], "down": [width, dim]}
+        self.params = _draw(self.shapes, seed)
+
+    def init_params(self, input_shape):
+        return tuple(input_shape)
+
+    def forward(self, inputs):
+        p = self.params
+        x = inputs.reshape((-1, self.dim))
+        y = _swiglu(ops.rms_norm_(x, p["g"], eps=self.eps), p["gate"],
+                    p["up"], p["down"])
+        return inputs + y.reshape(inputs.shape)
+
+
 class TokenChoiceMoE(Layer):
     """The expert half of a pre-RMSNorm decoder layer, no biases:
     x + moe(rmsnorm(x)), with ``num_experts`` SwiGLU experts of width
@@ -532,13 +652,22 @@ class TokenChoiceMoE(Layer):
     goes to the experts S of its ``top_k`` largest s, with weights
     w_j = s_j / sum over S of s (the weights renormalised over S).
 
+    ``scoring="sigmoid"`` (DeepSeek-V3's ``noaux_tc`` router with one
+    group): s = sigmoid(x W_r), S the ``top_k`` largest s + b, where b
+    (``score_bias``, DeepSeek-V3's ``e_score_correction_bias``: not a leaf,
+    zero at first; ``set_score_bias`` sets it) takes part in the selection
+    only, and w_j = ``routed_scaling`` * s_j / (sum over S of s + 1e-20).
+    ``shared_width`` adds a shared expert, a SwiGLU MLP of that width
+    (leaves "shared_gate", "shared_up", "shared_down") on every token.
+
     The layer holds the experts ``experts_held`` (global ids; the leaves
     "e<id>_gate" [dim, width], "e<id>_up" [dim, width] and "e<id>_down"
     [width, dim]), as one rank of expert parallelism does: it routes over
     all the experts and adds only its own experts' part,
-    sum over S and held of w_j * down_j(silu(gate_j x) * up_j x). On one
-    device the exchange of an expert-parallel layer has nothing to do.
-    The router takes its gradient through the held experts' w_j, the
+    sum over S and held of w_j * down_j(silu(gate_j x) * up_j x), and the
+    shared expert's output where it has one (every rank computes it alike).
+    On one device the exchange of an expert-parallel layer has nothing to
+    do. The router takes its gradient through the held experts' w_j, the
     whole top-k denominator included.
 
     The dispatch sorts the (token, expert) pairs of the held experts by
@@ -548,12 +677,14 @@ class TokenChoiceMoE(Layer):
     contiguous rows (``ops.grouped_swiglu_``), and the weighted rows are
     added back to their tokens. While ``utils/profiler`` records, a call
     is the span ``tinynn.moe`` with the children ``.route``, ``.dispatch``,
-    ``.experts`` and ``.combine``, and adds to the counters
+    ``.experts``, ``.combine`` and, with a shared expert, ``.shared``, and
+    adds to the counters
     ``moe.routed_pairs`` (the pairs computed), ``moe.max_expert_tokens``
     (the busiest held expert's tokens) and ``moe.syncs`` (read-backs)."""
 
     def __init__(self, dim, width, num_experts, top_k, experts_held=None,
-                 eps=1e-6, seed=None):
+                 eps=1e-6, seed=None, scoring="softmax", routed_scaling=1.0,
+                 shared_width=None):
         super().__init__("TokenChoiceMoE")
         held = sorted(range(num_experts) if experts_held is None
                       else {int(e) for e in experts_held})
@@ -562,26 +693,57 @@ class TokenChoiceMoE(Layer):
                              % (experts_held, num_experts))
         if not 1 <= top_k <= num_experts:
             raise ValueError("top_k %d of %d experts" % (top_k, num_experts))
+        if scoring not in ("softmax", "sigmoid"):
+            raise ValueError("scoring must be 'softmax' or 'sigmoid', got %r"
+                             % (scoring,))
         self.dim, self.width = dim, width
         self.num_experts, self.top_k = num_experts, top_k
         self.experts_held, self.eps = held, eps
+        self.scoring, self.routed_scaling = scoring, float(routed_scaling)
+        self.shared_width = shared_width
         self._local = {}
+        self.set_score_bias(torch.zeros(num_experts))
         self.shapes = {"g": [1, dim], "wr": [dim, num_experts]}
         for e in held:
             self.shapes.update({"e%d_gate" % e: [dim, width],
                                 "e%d_up" % e: [dim, width],
                                 "e%d_down" % e: [width, dim]})
+        if shared_width:
+            self.shapes.update({"shared_gate": [dim, shared_width],
+                                "shared_up": [dim, shared_width],
+                                "shared_down": [shared_width, dim]})
         self.params = _draw(self.shapes, seed)
 
     def init_params(self, input_shape):
         return tuple(input_shape)
 
+    def set_score_bias(self, bias):
+        """Sets the sigmoid router's selection bias b [num_experts]."""
+        bias = torch.as_tensor(bias, dtype=torch.float32)
+        if bias.shape != (self.num_experts,):
+            raise ValueError("score bias of shape %s, not (%d,)"
+                             % (tuple(bias.shape), self.num_experts))
+        self.score_bias = bias
+        self._bias = {}
+
+    def _bias_on(self, device):
+        """``score_bias`` on ``device``, copied once."""
+        key = str(device)
+        if key not in self._bias:
+            self._bias[key] = self.score_bias.to(device)
+        return self._bias[key]
+
     def forward(self, inputs):
         shape = inputs.shape
+        p = self.params
         with profiler.span("tinynn.moe"):
             x = inputs.reshape((-1, self.dim))
-            y = self.experts_part(ops.rms_norm_(x, self.params["g"],
-                                                eps=self.eps))
+            xn = ops.rms_norm_(x, p["g"], eps=self.eps)
+            y = self.experts_part(xn)
+            if self.shared_width:
+                with profiler.span("tinynn.moe.shared"):
+                    y = y + _swiglu(xn, p["shared_gate"], p["shared_up"],
+                                    p["shared_down"])
         return inputs + y.reshape(shape)
 
     def _local_ids(self, device):
@@ -614,10 +776,17 @@ class TokenChoiceMoE(Layer):
         p, k = self.params, self.top_k
         n = xn.shape[0]
         with profiler.span("tinynn.moe.route"):
-            probs = ops.softmax_(xn @ p["wr"], axis=-1)
-            top = ops.top_k_(probs, k)
-            weights = ops.take_along_axis_(probs, top)
-            weights = weights / weights.sum(axis=-1, keepdims=True)
+            if self.scoring == "softmax":
+                probs = ops.softmax_(xn @ p["wr"], axis=-1)
+                top = ops.top_k_(probs, k)
+                weights = ops.take_along_axis_(probs, top)
+                weights = weights / weights.sum(axis=-1, keepdims=True)
+            else:
+                probs = ops.sigmoid_(xn @ p["wr"])
+                top = ops.top_k_(probs.data + self._bias_on(probs.device), k)
+                weights = ops.take_along_axis_(probs, top)
+                weights = weights / (weights.sum(axis=-1, keepdims=True)
+                                     + 1e-20) * self.routed_scaling
         with profiler.span("tinynn.moe.dispatch"):
             pairs, counts = self._dispatch(top)
             tokens = torch.div(pairs, k, rounding_mode="floor")

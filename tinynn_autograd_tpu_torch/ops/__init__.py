@@ -10,6 +10,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     _dropout_seed,
     add_,
     astype_,
+    broadcast_to_,
     build_binary_ops_tensor,
     build_unary_ops_tensor,
     clip_,
@@ -43,6 +44,7 @@ from tinynn_autograd_tpu_torch.ops.primitives import (
     sigmoid_,
     silu_,
     softmax_,
+    split_,
     sub_,
     sum_,
     take_along_axis_,

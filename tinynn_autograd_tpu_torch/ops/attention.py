@@ -16,8 +16,10 @@ only O and the per-row logsumexp; the backward is the recompute scheme
 run as two kernels, dq over query tiles and dk/dv over key tiles, so each
 output is written once (``csrc/attention.cu``).
 
-Layout: Q/K/V/O are [B, H, T, d]; lse is [B, H, Tq, 1] in f32. K/V may carry
-fewer heads (grouped-query attention, Hkv | H: query head h reads kv head
+Layout: Q/K/V/O are [B, H, T, d]; lse is [B, H, Tq, 1] in f32. Q and K share
+one head dim d_qk, and V (so O, dO and dV) may have its own, d_v: multi-head
+latent attention's 192-wide queries and keys with 128-wide values. K/V may
+carry fewer heads (grouped-query attention, Hkv | H: query head h reads kv head
 h // (H/Hkv)), Tq may differ from Tk (cross attention, non-causal only),
 ``window`` bands causal attention to the keys in (p - window, p], and
 ``dropout_rate`` drops attention probabilities (on the P.V product only;
@@ -39,7 +41,8 @@ import torch
 from tinynn_autograd_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the kernels' limit on d
+MAX_HEAD_DIM = 128  # the kernels' limit on d where d_qk == d_v
+SPLIT_HEAD_DIMS = (192, 128)  # the kernels' limits on (d_qk, d_v) otherwise
 _GOLDEN = 2654435761
 _M32 = 0xFFFFFFFF
 
@@ -161,7 +164,7 @@ def _repeat_kv(x, group):
 def attention_forward_reference(q, k, v, causal, scale, window=None,
                                 dropout_rate=0.0, seed=None,
                                 product=torch.matmul):
-    """(o [B,H,Tq,d], lse [B,H,Tq,1] f32; float64 for float64 inputs) with
+    """(o [B,H,Tq,d_v], lse [B,H,Tq,1] f32; float64 for float64 inputs) with
     materialised scores: the kernels' arithmetic in plain PyTorch (the JAX
     package's ``_fwd_xla``). ``product(a, b)`` forms S = Q K^T and P_d V
     (a [..., m, k] @ b [..., k, n]); ``tf32.matmul_3xtf32`` there models the
@@ -187,8 +190,9 @@ def attention_backward_reference(q, k, v, do, lse, delta, causal, scale,
                                  window=None, dropout_rate=0.0, seed=None,
                                  product=torch.matmul):
     """(dq, dk, dv) of the recompute scheme with materialised scores (the
-    JAX package's ``_bwd_xla``); ``delta`` [B,H,Tq] is rowsum(dO * O). Under
-    GQA dk/dv sum over each kv head's group of query heads. In f32, or in
+    JAX package's ``_bwd_xla``); ``delta`` [B,H,Tq] is rowsum(dO * O). dq
+    and dk have q's and k's head dim, dv v's. Under GQA dk/dv sum over each
+    kv head's group of query heads. In f32, or in
     float64 for float64 inputs. ``product(a, b)`` forms each of the five
     matrix products (a [..., m, k] @ b [..., k, n]); ``tf32.matmul_3xtf32``
     there models the kernels' tensor-core arithmetic."""
@@ -215,7 +219,7 @@ def attention_backward_reference(q, k, v, do, lse, delta, causal, scale,
     dv = product(pd.transpose(-1, -2), dof)
     if group > 1:
         dk = dk.reshape(b, hkv, group, tk, d).sum(dim=2)
-        dv = dv.reshape(b, hkv, group, tk, d).sum(dim=2)
+        dv = dv.reshape(b, hkv, group, tk, v.shape[-1]).sum(dim=2)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -233,7 +237,7 @@ def _bind(lib, ctypes):
         n_strided = 3 if name == "forward" else 4
         design = [] if name == "forward" else [I]  # dq_design's, dkv_design's
         fn = getattr(lib, "tinynn_attention_" + name)
-        fn.argtypes = [P] * n_ptrs + [I] * 6 + [L] * (3 * n_strided) \
+        fn.argtypes = [P] * n_ptrs + [I] * 7 + [L] * (3 * n_strided) \
             + opts + design + [P]
         fn.restype = ctypes.c_int
 
@@ -251,15 +255,29 @@ def _operands(what, q, k, v, *rest):
         raise ValueError("%s takes float32 tensors (the kernels' f32 "
                          "contract), got %s" % (what, sorted({str(t.dtype)
                                                          for t in tensors})))
-    d = q.shape[-1]
-    if d > MAX_HEAD_DIM:
+    d, dv = q.shape[-1], v.shape[-1]
+    if d == dv and d > MAX_HEAD_DIM:
         raise ValueError("%s: head dim %d exceeds %d, the kernels' limit"
                          % (what, d, MAX_HEAD_DIM))
+    if d != dv and not split_dims(d, dv):
+        raise ValueError(
+            "%s: head dims %d (q, k) and %d (v): the kernels take one head "
+            "dim up to %d for q, k and v, or q's and k's in (%d, %d] with "
+            "v's up to %d" % ((what, d, dv, MAX_HEAD_DIM, MAX_HEAD_DIM)
+                              + SPLIT_HEAD_DIMS))
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     if max(b * h, tq, tk) >= 2 ** 31 or (max(tq, tk) + 63) // 64 > 65535:
         raise ValueError("%s: shape exceeds the kernels' grid" % what)
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in tensors)
+
+
+def split_dims(d, dv):
+    """Whether q's and k's head dim ``d`` and v's ``dv`` are the split dims
+    the kernels' <192, 128> templates take: ``d`` in (128, 192], ``dv`` up to
+    128."""
+    return MAX_HEAD_DIM < d <= SPLIT_HEAD_DIMS[0] and \
+        1 <= dv <= SPLIT_HEAD_DIMS[1]
 
 
 def _strides(*tensors):
@@ -284,27 +302,31 @@ def _launch(name, counter, args):
 
 def cuda_attention_forward(q, k, v, causal, scale, window=None,
                            dropout_rate=0.0, seed=None):
-    """(o, lse) through the forward kernel. q [B,H,Tq,d], k/v [B,Hkv,Tk,d]
-    float32 CUDA tensors (any strides with a unit-stride head dim, e.g. the
-    transposed views of split heads); window/causal/dropout as in mha_fwd.
-    ``cuda_attention_forward.launches`` counts the launches."""
+    """(o, lse) through the forward kernel. q [B,H,Tq,d_qk], k
+    [B,Hkv,Tk,d_qk] and v [B,Hkv,Tk,d_v] float32 CUDA tensors (any strides
+    with a unit-stride head dim, e.g. the transposed views of split heads);
+    o is [B,H,Tq,d_v]; window/causal/dropout as in mha_fwd.
+    ``cuda_attention_forward.launches`` counts the launches,
+    ``.split_launches`` those at d_qk != d_v."""
     q, k, v = _operands("cuda_attention_forward", q, k, v)
     b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    o = torch.empty((b, h, tq, d), dtype=torch.float32, device=q.device)
+    hkv, tk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    o = torch.empty((b, h, tq, dv), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, tq, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch("forward", cuda_attention_forward,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), b, h, hkv, tq, tk, d]
+             lse.data_ptr(), b, h, hkv, tq, tk, d, dv]
             + _strides(q, k, v)
             + _options(causal, scale, window, dropout_rate, seed) + [stream])
+    cuda_attention_forward.split_launches += dv != d
     return o, lse
 
 
 cuda_attention_forward.launches = 0
+cuda_attention_forward.split_launches = 0
 
 
 def _backward_operands(what, q, k, v, do, lse, delta):
@@ -314,83 +336,92 @@ def _backward_operands(what, q, k, v, do, lse, delta):
             delta.reshape(b, h, tq).contiguous())
 
 
-def dq_design(d):
-    """The dq kernel's design at head dim ``d``: ``"wgmma"`` (the
-    warp-specialised kernel on Hopper's warpgroup products) for d in
-    65-128, ``"mma"`` (the ``mma.sync`` templates of d <= 32 and d <= 64)
-    below. The wrapper hands the answer to the C entry point, which
-    launches by it, and counts by it."""
-    return "wgmma" if d > 64 else "mma"
+def dq_design(d, dv=None):
+    """The dq kernel's design at head dim ``d`` (v's ``dv``, d's by
+    default): ``"wgmma"`` (the warp-specialised kernel on Hopper's
+    warpgroup products) for d in 65-128, ``"mma"`` (the ``mma.sync``
+    templates of d <= 32 and d <= 64, and of the split dims) otherwise. The
+    wrapper hands the answer to the C entry point, which launches by it,
+    and counts by it."""
+    return "wgmma" if 64 < d <= MAX_HEAD_DIM and dv in (None, d) else "mma"
 
 
 def cuda_attention_backward_dq(q, k, v, do, lse, delta, causal, scale,
                                window=None, dropout_rate=0.0, seed=None):
-    """dq [B,H,Tq,d] through the dq kernel; ``delta`` is rowsum(dO * O)
-    [B,H,Tq]; ``dq_design(d)`` picks the kernel.
+    """dq [B,H,Tq,d_qk] through the dq kernel (do [B,H,Tq,d_v]); ``delta``
+    is rowsum(dO * O) [B,H,Tq]; ``dq_design(d_qk, d_v)`` picks the kernel.
     ``cuda_attention_backward_dq.launches`` counts the launches,
-    ``.wgmma_launches`` those of the wgmma design."""
+    ``.wgmma_launches`` those of the wgmma design, ``.split_launches`` those
+    at d_qk != d_v."""
     q, k, v, do, lse, delta = _backward_operands(
         "cuda_attention_backward_dq", q, k, v, do, lse, delta)
     b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, dv = k.shape[1], k.shape[2], v.shape[-1]
     dq = torch.empty((b, h, tq, d), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    wgmma = dq_design(d) == "wgmma"
+    wgmma = dq_design(d, dv) == "wgmma"
     _launch("backward_dq", cuda_attention_backward_dq,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             b, h, hkv, tq, tk, d]
+             b, h, hkv, tq, tk, d, dv]
             + _strides(q, k, v, do)
             + _options(causal, scale, window, dropout_rate, seed)
             + [int(wgmma), stream])
     cuda_attention_backward_dq.wgmma_launches += wgmma
+    cuda_attention_backward_dq.split_launches += dv != d
     return dq
 
 
 cuda_attention_backward_dq.launches = 0
 cuda_attention_backward_dq.wgmma_launches = 0
+cuda_attention_backward_dq.split_launches = 0
 
 
-def dkv_design(d):
-    """The dk/dv kernel's design at head dim ``d``: ``"wgmma"`` (the
-    warp-specialised kernel on Hopper's warpgroup products) for d in
-    65-128, ``"mma"`` (the ``mma.sync`` templates of d <= 32 and d <= 64)
-    below. The wrapper hands the answer to the C entry point, which
-    launches by it, and counts by it."""
-    return "wgmma" if d > 64 else "mma"
+def dkv_design(d, dv=None):
+    """The dk/dv kernel's design at head dim ``d`` (v's ``dv``, d's by
+    default): ``"wgmma"`` (the warp-specialised kernel on Hopper's
+    warpgroup products) for d in 65-128, ``"mma"`` (the ``mma.sync``
+    templates of d <= 32 and d <= 64, and of the split dims) otherwise. The
+    wrapper hands the answer to the C entry point, which launches by it,
+    and counts by it."""
+    return "wgmma" if 64 < d <= MAX_HEAD_DIM and dv in (None, d) else "mma"
 
 
 def cuda_attention_backward_dkv(q, k, v, do, lse, delta, causal, scale,
                                 window=None, dropout_rate=0.0, seed=None):
-    """(dk, dv) [B,Hkv,Tk,d] through the dk/dv kernel, each kv head summed
-    over its group of query heads inside the kernel; ``dkv_design(d)``
-    picks the kernel. ``cuda_attention_backward_dkv.launches`` counts the
-    launches, ``.wgmma_launches`` those of the wgmma design."""
+    """(dk [B,Hkv,Tk,d_qk], dv [B,Hkv,Tk,d_v]) through the dk/dv kernel,
+    each kv head summed over its group of query heads inside the kernel;
+    ``dkv_design(d_qk, d_v)`` picks the kernel.
+    ``cuda_attention_backward_dkv.launches`` counts the launches,
+    ``.wgmma_launches`` those of the wgmma design, ``.split_launches`` those
+    at d_qk != d_v."""
     q, k, v, do, lse, delta = _backward_operands(
         "cuda_attention_backward_dkv", q, k, v, do, lse, delta)
     b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, d_v = k.shape[1], k.shape[2], v.shape[-1]
     dk = torch.empty((b, hkv, tk, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, hkv, tk, d_v), dtype=torch.float32, device=q.device)
     if dk.numel() == 0 or tq == 0:
         return dk.zero_(), dv.zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    wgmma = dkv_design(d) == "wgmma"
+    wgmma = dkv_design(d, d_v) == "wgmma"
     _launch("backward_dkv", cuda_attention_backward_dkv,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, h, hkv, tq, tk, d]
+             b, h, hkv, tq, tk, d, d_v]
             + _strides(q, k, v, do)
             + _options(causal, scale, window, dropout_rate, seed)
             + [int(wgmma), stream])
     cuda_attention_backward_dkv.wgmma_launches += wgmma
+    cuda_attention_backward_dkv.split_launches += d_v != d
     return dk, dv
 
 
 cuda_attention_backward_dkv.launches = 0
 cuda_attention_backward_dkv.wgmma_launches = 0
+cuda_attention_backward_dkv.split_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -399,9 +430,11 @@ cuda_attention_backward_dkv.wgmma_launches = 0
 
 def _check(q, k, v, causal, window, dropout_rate):
     """Validates the call; returns the normalised window."""
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError("attention needs q [B,H,Tq,d] and k, v [B,Hkv,Tk,d]"
-                         " of one shape, got %s, %s, %s"
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError("attention needs q [B,H,Tq,d_qk], k [B,Hkv,Tk,d_qk] "
+                         "and v [B,Hkv,Tk,d_v] (k's batch, heads and keys), "
+                         "got %s, %s, %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     b, h, t, d = q.shape
     window = _norm_window(window, causal, t)
@@ -430,9 +463,11 @@ def _use_kernels(impl, q):
 
 def mha_fwd(q, k, v, causal=False, scale=None, impl=None, dropout_rate=0.0,
             dropout_seed=None, window=None):
-    """softmax(Q K^T * scale [+ causal/window mask]) V. Q: [B, H, Tq, d];
-    K/V: [B, Hkv, Tk, d]. Returns (o [B,H,Tq,d], lse [B,H,Tq,1] f32), lse
-    being the row logsumexp of the scaled scores that mha_bwd consumes.
+    """softmax(Q K^T * scale [+ causal/window mask]) V. Q: [B, H, Tq, d_qk];
+    K: [B, Hkv, Tk, d_qk]; V: [B, Hkv, Tk, d_v] (d_v == d_qk <= 128 on the
+    kernels, or d_qk in (128, 192] with d_v <= 128; any pair on the plain
+    version). Returns (o [B,H,Tq,d_v], lse [B,H,Tq,1] f32), lse being the
+    row logsumexp of the scaled scores that mha_bwd consumes.
     ``dropout_seed`` is a uint32; None counts as 0 (under GQA the JAX
     package then gives every group seed 0, while here group gi still adds
     gi * 2654435761, as it does for any given seed)."""
@@ -448,9 +483,9 @@ def mha_fwd(q, k, v, causal=False, scale=None, impl=None, dropout_rate=0.0,
 
 def mha_bwd(q, k, v, o, lse, do, causal=False, scale=None, impl=None,
             dropout_rate=0.0, dropout_seed=None, window=None):
-    """The VJP of mha_fwd (recompute scheme): (dq [B,H,Tq,d], dk, dv
-    [B,Hkv,Tk,d]). Pass the forward's dropout rate, seed and window: the
-    masks are recomputed, never stored."""
+    """The VJP of mha_fwd (recompute scheme): (dq [B,H,Tq,d_qk], dk
+    [B,Hkv,Tk,d_qk], dv [B,Hkv,Tk,d_v]). Pass the forward's dropout rate,
+    seed and window: the masks are recomputed, never stored."""
     window = _check(q, k, v, causal, window, dropout_rate)
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])

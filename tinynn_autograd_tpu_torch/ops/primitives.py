@@ -657,23 +657,34 @@ def rope_tables(t, head_dim, theta, yarn=None):
             (torch.sin(angle) * scale).float())
 
 
-def rope_(ts, cos, sin):
+def rope_(ts, cos, sin, interleaved=False):
     """Rotary position embedding over the LAST axis, half-split (GPT-NeoX /
     llama, ``rotate_half``) convention: lane i pairs with lane i + d/2, and
       y1 = x1*cos - x2*sin ;  y2 = x2*cos + x1*sin
     with ``cos``/``sin`` (``rope_tables``) broadcast against the halves,
-    e.g. [T, 1, d/2] for x [B, T, H, d]. The tables are constants. Hand
-    VJP, the transposed map:
+    e.g. [T, 1, d/2] for x [B, T, H, d]. The tables are constants.
+
+    ``interleaved``: DeepSeek-V3's pairing (its ``apply_rotary_pos_emb``
+    first reorders each vector ``view(d/2, 2).transpose.reshape`` and then
+    applies ``rotate_half``): x1 = x[..., 0::2] and x2 = x[..., 1::2], lane
+    2i paired with lane 2i + 1, and the output [y1, y2] in that reordered
+    layout. Hand VJP, the transposed map (re-interleaved for ``interleaved``):
       g1' = g1*cos + g2*sin ;  g2' = g2*cos - g1*sin
     """
     x = ts.data
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
+    if interleaved:
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+    else:
+        x1, x2 = x[..., :half], x[..., half:]
     values = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
     def grad_fn(grad):
         g1, g2 = grad[..., :half], grad[..., half:]
-        return torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin], dim=-1)
+        d1, d2 = g1 * cos + g2 * sin, g2 * cos - g1 * sin
+        if interleaved:
+            return torch.stack([d1, d2], dim=-1).reshape(x.shape)
+        return torch.cat([d1, d2], dim=-1)
 
     return build_unary_ops_tensor(ts, grad_fn, values)
 
@@ -798,8 +809,12 @@ def grouped_swiglu_(ts_x, counts, experts):
 def flash_attention_(ts_q, ts_k, ts_v, causal=False, scale=None, impl=None,
                      dropout_rate=0.0, dropout_rng=None, window=None):
     """Fused multi-head attention as ONE tape primitive:
-    out = softmax(Q K^T * scale [+ causal/window mask]) V, Q: [B, H, Tq, d],
-    K/V: [B, Hkv, Tk, d] (Hkv | H: grouped-query attention).
+    out = softmax(Q K^T * scale [+ causal/window mask]) V, Q: [B, H, Tq, d_qk],
+    K: [B, Hkv, Tk, d_qk], V: [B, Hkv, Tk, d_v] (Hkv | H: grouped-query
+    attention); out [B, H, Tq, d_v], and the VJP gives dv at d_v. The
+    kernels take d_qk == d_v <= 128, or d_qk in (128, 192] with d_v <= 128
+    (multi-head latent attention's split dims); the plain versions any pair.
+    ``scale`` defaults to 1/sqrt(d_qk).
 
     The forward and the hand-written VJPs run as the CUDA kernels of
     ``ops/attention.py`` on a GPU (the plain versions on the CPU, or on the
@@ -879,6 +894,39 @@ def dropout_(ts, rate, rng=None):
         return torch.where(mask, grad * scale, 0.0)
 
     return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def broadcast_to_(ts, shape):
+    """x broadcast to ``shape`` (a view, as ``torch.broadcast_to``); the VJP
+    sums the gradient back over the broadcast axes (``unbroadcast``)."""
+    values = torch.broadcast_to(ts.data, shape)
+
+    def grad_fn(grad):
+        return unbroadcast(grad, ts.shape)
+
+    return build_unary_ops_tensor(ts, grad_fn, values)
+
+
+def split_(ts, sizes, axis=-1):
+    """x cut along ``axis`` into pieces of ``sizes`` (views, as
+    ``torch.split``); each piece's VJP puts its gradient in its place in
+    zeros of x's shape (the tape sums the pieces')."""
+    x = ts.data
+    ax = axis % x.ndim
+    if sum(sizes) != x.shape[ax]:
+        raise ValueError("split_: sizes %s do not cover axis %d of %s"
+                         % (list(sizes), axis, tuple(x.shape)))
+    out, start = [], 0
+    for size in sizes:
+        def grad_fn(grad, start=start, size=size):
+            full = torch.zeros(x.shape, dtype=grad.dtype, device=grad.device)
+            full.narrow(ax, start, size).copy_(grad)
+            return full
+
+        out.append(build_unary_ops_tensor(ts, grad_fn,
+                                          x.narrow(ax, start, size)))
+        start += size
+    return out
 
 
 def concat_(tensors, axis=0):
