@@ -41,17 +41,19 @@ output bit-identical (``torch.equal``), and each kernel's time in turns
 
 ``--mode dkv`` and ``--mode dq``: the dk/dv or the dq kernel alone at
 Mellum 2's two layer kinds (``chip_smoke.ATTN_BWD_TIMED``: 32:4 GQA of
-head dim 128 over 4 x 8,192 tokens, banded to 1,024 keys and full), in
-turns (this, parent, parent, this, this, parent), beside its bound and the
-largest difference of its outputs from the parent's. lse and delta come
-from this tree's forward.
+head dim 128 over 4 x 8,192 tokens, banded to 1,024 keys and full), and
+dk/dv also at Moonlight's split head dims (``chip_smoke.ATTN_SPLIT_TIMED``:
+16 heads of 192/128 over 2 x 8,192 causal tokens), in turns (this,
+parent, parent, this, this, parent), beside its bound and the largest
+difference of its outputs from the parent's. lse and delta come from this
+tree's forward.
 
-The attention modes take a parent whose dq or dk/dv entry point has no
-design argument (a tree before ``dq_design`` or ``dkv_design``; read from
-its source): the parent's kernel is then the one that parent launches at
-the head dim. Nor need the parent's entry points take v's head dim apart
-(``int dv``, a tree before the split head dims): its calls then leave it
-out.
+The parent's kernel is the one that parent launches: its entry points get
+the design its own ``dq_design`` and ``dkv_design`` choose (read from its
+``ops/attention.py``), and a parent whose dq or dk/dv entry point has no
+design argument (a tree before them; read from its source) gets none. Nor
+need the parent's entry points take v's head dim apart (``int dv``, a tree
+before the split head dims): its calls then leave it out.
 
 Commit a9c3485 has the CUDA-core forward (64 x 64 score tiles of 256
 threads) and the tensor-core pair of this tree; ec60c57 has CUDA-core
@@ -203,6 +205,20 @@ def entries_without(root, argument, names):
         'extern "C" int %s(' % name)[1].split(")")[0]]
 
 
+def parent_designs(root):
+    """The parent's design functions (``dq_design``, ``dkv_design``) by
+    entry point, from its ``ops/attention.py``; None where it has none."""
+    import importlib.util
+
+    path = Path(root) / "tinynn_autograd_tpu_torch" / "ops" / "attention.py"
+    spec = importlib.util.spec_from_file_location("parent_attention", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return {name: getattr(module, fn, None) for name, fn in (
+        ("tinynn_attention_backward_dq", "dq_design"),
+        ("tinynn_attention_backward_dkv", "dkv_design"))}
+
+
 def bind_parent_attention(lib, ctypes, root):
     """The C interface of a parent's ``csrc/attention.cu``: this tree's,
     less the design argument of the entry points that take none (a tree
@@ -212,6 +228,8 @@ def bind_parent_attention(lib, ctypes, root):
     undesigned = entries_without(root, "int wgmma",
                                  list(ENTRY_POINTERS)[1:])
     one_dim = entries_without(root, "int dv,", list(ENTRY_POINTERS))
+    designs = {name: fn for name, fn in parent_designs(root).items()
+               if name not in undesigned and fn is not None}
     for name in ENTRY_POINTERS:
         fn = getattr(lib, name)
         types = list(fn.argtypes)
@@ -220,28 +238,36 @@ def bind_parent_attention(lib, ctypes, root):
         if name in one_dim:
             del types[ENTRY_POINTERS[name] + 6]
         fn.argtypes = types
-    return ParentAttention(lib, undesigned, one_dim)
+    return ParentAttention(lib, undesigned, one_dim, designs)
 
 
 class ParentAttention:
     """Such a parent's library behind this tree's wrappers: their calls of
-    the entry points in ``undesigned`` without the design argument (the
-    kernel is the one that parent launches at that head dim), and of those
-    in ``one_dim`` without v's head dim (the wrappers' calls there have
-    d_v == d_qk)."""
+    the entry points in ``designs`` with the design the parent's own design
+    function picks, of those in ``undesigned`` without the design argument
+    (the kernel is the one that parent launches at that head dim), and of
+    those in ``one_dim`` without v's head dim (the wrappers' calls there
+    have d_v == d_qk)."""
 
-    def __init__(self, lib, undesigned, one_dim):
+    def __init__(self, lib, undesigned, one_dim, designs):
         self.lib = lib
         self.undesigned = undesigned
         self.one_dim = one_dim
+        self.designs = designs
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if name not in self.undesigned and name not in self.one_dim:
+        if name not in self.undesigned and name not in self.one_dim \
+                and name not in self.designs:
             return fn
 
         def call(*args):
             args = list(args)
+            d, dv = args[ENTRY_POINTERS[name] + 5:ENTRY_POINTERS[name] + 7]
+            if name in self.designs:
+                design = self.designs[name]
+                args[-2] = int((design(d) if d == dv else design(d, dv))
+                               == "wgmma")
             if name in self.undesigned:
                 del args[-2]
             if name in self.one_dim:
@@ -372,15 +398,18 @@ def bench_pair(libs, device):
 
 
 def bench_backward_kernel(libs, device, kernel):
-    """``kernel`` ("dq" or "dkv") alone at Mellum 2's shapes, this tree's
-    and the parent's in turns."""
+    """``kernel`` ("dq" or "dkv") alone at Mellum 2's shapes, and dk/dv at
+    Moonlight's, this tree's and the parent's in turns."""
     fn, outs = {"dq": (attention.cuda_attention_backward_dq, ("dq",)),
                 "dkv": (attention.cuda_attention_backward_dkv,
                         ("dk", "dv"))}[kernel]
-    print("== the %s kernel alone at Mellum 2's shapes (32:4 GQA of head "
-          "dim 128 over 4 x 8,192 tokens), device us a launch: this tree's "
-          "and the parent's in turns" % ("/".join(outs)))
-    for name in smoke.ATTN_BWD_TIMED:
+    shapes = smoke.ATTN_BWD_TIMED + (
+        smoke.ATTN_SPLIT_TIMED if kernel == "dkv" else ())
+    print("== the %s kernel alone at %s, device us a launch: this tree's "
+          "and the parent's in turns"
+          % ("/".join(outs), ", ".join("%s %s" % (name, smoke.ATTN_SHAPES[
+              name]) for name in shapes)))
+    for name in shapes:
         q, k, v, do, kw = smoke.attn_inputs(device, name)
         o, lse = attention.cuda_attention_forward(q, k, v, **kw)
         bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))

@@ -176,9 +176,10 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    backward by autograd.grad), the pair plus the delta reduction beside
    SDPA's backward, and the bounds (at 3xTF32 on the tensor cores, and at
    f32 FMA beside them). Every dq and dk/dv launch at a head dim of
-   65-128, and none below, counts in its wrapper's ``wgmma_launches`` (the
-   wgmma kernels), and every launch at split head dims, and none other,
-   in its wrapper's ``split_launches``; the dq and the dk/dv kernel are
+   65-128, and every dk/dv launch at split head dims, and none other,
+   counts in its wrapper's ``wgmma_launches`` (the wgmma kernels), and
+   every launch at split head dims, and none other, in its wrapper's
+   ``split_launches``; the dq and the dk/dv kernel are
    each timed alone at Mellum 2's two shapes beside their bounds (6 d and
    8 d FLOPs a visible pair at 3xTF32), and the three kernels at
    Moonlight's (2 (d_qk + d_v), 2 (2 d_qk + d_v) and 4 (d_qk + d_v)). The
@@ -215,7 +216,9 @@ checkout's; bench_k2_plans.py times K2 under other launch plans.)
    512, a dense layer, 2 held experts of 64 behind a sigmoid top-6 of 64,
    a shared expert): each attention kernel once a layer a step, every
    launch at the split dims (each ``split_launches`` equal to its
-   wrapper's launches, no wgmma launch); finite losses.
+   wrapper's launches), every dk/dv launch on the split wgmma kernel
+   (dk/dv's ``wgmma_launches`` equal to its split launches) and no dq
+   launch on wgmma; finite losses.
 10. recurrent kernels vs plain: K5, K5b, K5c and K5d against their plain
    versions at config 8's shape (zero initial states) and a ragged one
    (B=3, T=7, H=100, random h0/c0), both directions; forwards at rtol
@@ -443,8 +446,8 @@ T_PARITY_STEPS = 5
 # k and v, or a pair (d_qk, d_v): multi-head latent attention's split dims,
 # at Moonlight's step (16 heads of 192/128, causal, over 2 x 8,192 tokens),
 # and small shapes that take GQA, a window narrower than a tile over a
-# ragged T with dropout, and cross attention at split dims inside the
-# <192, 128> templates' (160/96)
+# ragged T with dropout, and cross attention at split dims inside
+# 192/128 (160/96, zero-padded)
 ATTN_SHAPES = {"config6b": (4, 8, 8, 2048, 2048, 64, True, None, 0.0),
                "k4b_t512": (4, 8, 8, 512, 512, 64, True, None, 0.0),
                "k4c_noncausal": (4, 8, 8, 2048, 2048, 64, False, None, 0.0),
@@ -1837,12 +1840,13 @@ def check_attention_shape(device, name):
         runs.append((dq, dk, dv))
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("%s: two backward runs differ" % name)
-    # head dims 65-128 take the wgmma dq and dk/dv kernels, and only they;
-    # split dims the <192, 128> templates, counted apart
+    # head dims 65-128 take the wgmma dq and dk/dv kernels; split dims dq's
+    # <192, 128> template and dk/dv's split wgmma kernel, counted apart
     dqk, dv = q.shape[-1], v.shape[-1]
-    for what, fn, before, split_before in zip(("dq", "dk/dv"), wrappers,
-                                              wgmma, split):
-        on_wgmma = attention.dq_design(dqk, dv) == "wgmma"
+    designs = (attention.dq_design, attention.dkv_design)
+    for what, fn, design, before, split_before in zip(
+            ("dq", "dk/dv"), wrappers, designs, wgmma, split):
+        on_wgmma = design(dqk, dv) == "wgmma"
         if fn.wgmma_launches - before != (2 if on_wgmma else 0):
             raise AssertionError("%s: %d of the 2 %s launches counted on "
                                  "the wgmma kernel at head dims %d/%d"
@@ -3377,8 +3381,9 @@ def run_moonlight_slice(device):
     """``Model(build_mla_moe_lm(**MOONLIGHT_SLICE), ..., device="cuda")
     .train_step`` from seed 0, 3 steps: each attention kernel once a layer
     a step, every launch at the split head dims (each wrapper's
-    ``split_launches`` equal to its launches, none on the wgmma kernels);
-    finite losses. Returns the launch counts."""
+    ``split_launches`` equal to its launches), every dk/dv launch on the
+    split wgmma kernel and no dq launch on wgmma; finite losses. Returns the
+    launch counts."""
     from tinynn_autograd_tpu_torch.models import build_mla_moe_lm
     from tinynn_autograd_tpu_torch.nn.losses import (
         SparseSoftmaxCrossEntropyLoss,
@@ -3419,10 +3424,11 @@ def run_moonlight_slice(device):
              counts["attention_backward_dkv"], split, wgmma))
     got = (counts["attention_forward"], counts["attention_backward_dq"],
            counts["attention_backward_dkv"])
-    if got != (calls,) * 3 or split != [calls] * 3 or wgmma != [0, 0]:
+    if got != (calls,) * 3 or split != [calls] * 3 or wgmma != [0, calls]:
         raise AssertionError("Moonlight slice: attention launches (forward, "
-                             "dq, dk/dv) %s, at split dims %s, on wgmma %s; "
-                             "expected %d each at split dims"
+                             "dq, dk/dv) %s, at split dims %s, on wgmma "
+                             "(dq, dk/dv) %s; expected %d each at split dims,"
+                             " the dk/dv ones on wgmma"
                              % (got, split, wgmma, calls))
     if not np.all(np.isfinite(losses)):
         raise AssertionError("Moonlight slice: non-finite loss")

@@ -280,6 +280,15 @@ def test_backward_design_by_head_dim(kernel, d, design):
     assert getattr(attention, DESIGNS[kernel])(d) == design
 
 
+@pytest.mark.parametrize("d,dv", [(192, 128), (160, 96), (129, 1),
+                                  (192, 64)])
+def test_backward_design_at_split_head_dims(d, dv):
+    # multi-head latent attention's split dims: dk/dv on its split wgmma
+    # kernel, dq on its <192, 128> template
+    assert attention.dkv_design(d, dv) == "wgmma"
+    assert attention.dq_design(d, dv) == "mma"
+
+
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
 def test_wgmma_counter_stays_on_cpu_refusal(kernel):
     fn = getattr(attention, WRAPPERS[kernel])

@@ -1012,11 +1012,12 @@ def test_cuda_wgmma_launches_counted_by_head_dim(kernel, d):
     assert all(torch.isfinite(x).all() for x in got)
 
 
-# the split head dims of multi-head latent attention (the <192, 128>
-# templates): (B, H, Hkv, Tq, Tk, (d_qk, d_v), causal, window, dropout):
-# Moonlight's 192/128 causal over a ragged T, GQA with a window of 40 and
-# dropout, cross attention with Tq above and below Tk, and dims inside the
-# templates' (160/96, 136/64: zero-padded); q, k, v and dO as the strided
+# the split head dims of multi-head latent attention (the forward's and
+# dq's <192, 128> templates, dk/dv's split wgmma kernel): (B, H, Hkv, Tq,
+# Tk, (d_qk, d_v), causal, window, dropout): Moonlight's 192/128 causal over
+# a ragged T, GQA with a window of 40 and dropout, cross attention with Tq
+# above and below Tk, and dims inside 192/128 (160/96, 136/64:
+# zero-padded); q, k, v and dO as the strided
 # views of split heads. The tolerances are ATTN_TOL's and the gradients'
 # above: the sums run over at most 192 dims and 300 keys.
 SPLIT_SHAPES = {
@@ -1028,8 +1029,8 @@ SPLIT_SHAPES = {
 }
 
 
-def _split_inputs(dev, name):
-    b, h, hkv, tq, tk, (d, dv), causal, window, rate = SPLIT_SHAPES[name]
+def _split_inputs(dev, name, shapes=SPLIT_SHAPES):
+    b, h, hkv, tq, tk, (d, dv), causal, window, rate = shapes[name]
     rng = np.random.RandomState(tq)
 
     def heads(n, t, width):
@@ -1076,7 +1077,49 @@ def test_cuda_attention_at_split_head_dims(name):
     assert torch.equal(o, attention.cuda_attention_forward(q, k, v, **kw)[0])
     assert [(fn.launches - n, fn.split_launches - s) for fn, (n, s)
             in zip(fns, before)] == [(2, 2), (2, 2), (2, 2)]
-    assert [fn.wgmma_launches for fn in fns[1:]] == wgmma
+    # dq on its template, dk/dv on the split wgmma kernel
+    assert [fn.wgmma_launches for fn in fns[1:]] == [wgmma[0], wgmma[1] + 2]
+
+
+# the dk/dv kernel at the split dims (wgmma, `dkv_design(d_qk, d_v)`):
+# Moonlight's 16 heads of 192/128 over a short ragged T, d_qk 129, 160 and
+# 192 (zero-padded; 129 ends rows mid-float4) against d_v 1, 64, 96 and 128
+# under GQA 2 over a ragged T, GQA 4 with a window of 40 and dropout, cross
+# attention with Tq above and below Tk (with dropout); q, k, v and dO as the
+# strided views of split heads, read in place
+SPLIT_DKV_SHAPES = dict(
+    {"d%d_%d_gqa2" % (d, dv): (1, 4, 2, 200, 200, (d, dv), True, None, 0.0)
+     for d in (129, 160, 192) for dv in (1, 64, 96, 128)},
+    moonlight_t1100=(2, 16, 16, 1100, 1100, (192, 128), True, None, 0.0),
+    gqa4_window40_dropout=(1, 8, 2, 300, 300, (192, 128), True, 40, 0.1),
+    cross_100_260=(1, 2, 2, 100, 260, (192, 96), False, None, 0.0),
+    cross_260_100_dropout=(1, 2, 1, 260, 100, (160, 128), False, None, 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPLIT_DKV_SHAPES))
+def test_cuda_dkv_wgmma_at_split_head_dims_matches_reference(name):
+    from tinynn_autograd_tpu_torch.ops import attention
+
+    dev = _cuda()
+    fn = attention.cuda_attention_backward_dkv
+    q, k, v, do, kw = _split_inputs(dev, name, shapes=SPLIT_DKV_SHAPES)
+    assert q.stride(-1) == 1 and not q.is_contiguous()
+    o, lse = attention.attention_forward_reference(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
+    counts = (fn.launches, fn.wgmma_launches, fn.split_launches)
+    runs = [fn(*bwd, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches, fn.split_launches) == tuple(
+        n + 2 for n in counts)
+    _, *want = attention.attention_backward_reference(*bwd, **kw)
+    for what, a, b in zip(("dk", "dv"), runs[0], want):
+        assert a.shape == b.shape, what
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b, rtol=1e-4,
+            atol=1e-4 * float(np.abs(b).max()), err_msg=what)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
@@ -1098,18 +1141,26 @@ def test_cuda_attention_refuses_other_head_dims(dims):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
-def test_cuda_wgmma_float64_hold(kernel):
+@pytest.mark.parametrize("kernel,shape", [("dkv", "d128"), ("dq", "d128"),
+                                          ("dkv", "split")],
+                         ids=["dkv", "dq", "dkv-split"])
+def test_cuda_wgmma_float64_hold(kernel, shape):
     # the wgmma kernels' 3xTF32 products: dq, dk and dv within
     # ATTN_F64_FACTOR times the f32 plain version's float64 error at T
-    # 2,048, d 128, GQA 4, which the plain version with TF32 allowed must
-    # miss
+    # 2,048, GQA 4, d 128 or (dk/dv) the split dims 192/128, which the
+    # plain version with TF32 allowed must miss
     from tinynn_autograd_tpu_torch.ops import attention
 
     dev = _cuda()
-    _, _, run, outs = _backward_kernel(kernel)
-    shapes = {"d128": (1, 8, 2, 2048, 2048, 128, True, None, 0.0)}
-    q, k, v, do, kw = _attn_inputs(dev, "d128", shapes=shapes)
+    fn, design, run, outs = _backward_kernel(kernel)
+    if shape == "split":
+        shapes = {"split": (1, 8, 2, 2048, 2048, (192, 128), True, None,
+                            0.0)}
+        q, k, v, do, kw = _split_inputs(dev, "split", shapes=shapes)
+    else:
+        shapes = {"d128": (1, 8, 2, 2048, 2048, 128, True, None, 0.0)}
+        q, k, v, do, kw = _attn_inputs(dev, "d128", shapes=shapes)
+    assert design(q.shape[-1], v.shape[-1]) == "wgmma"
     o, lse = attention.attention_forward_reference(q, k, v, **kw)
     bwd = (q, k, v, do, lse, (do * o).sum(dim=-1))
     got = run(*bwd, **kw)

@@ -120,7 +120,7 @@ def test_split_dims_and_designs():
         assert attention.dq_design(d) == attention.dkv_design(d) == design
         assert attention.dq_design(d, d) == design
     assert attention.dq_design(192, 128) == "mma"
-    assert attention.dkv_design(192, 128) == "mma"
+    assert attention.dkv_design(192, 128) == "wgmma"
     with pytest.raises(ValueError, match="k's batch, heads and keys"):
         attention.mha_fwd(torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4, 8),
                           torch.zeros(1, 2, 5, 4))

@@ -34,9 +34,11 @@
 //   `attention_backward_dkv_kernel_wgmma`, designs of their own for Hopper
 //   (below the templates; `dq_design` and `dkv_design` in ops/attention.py
 //   choose); or the split dims of multi-head latent attention, d_qk in
-//   (128, 192] with d_v <= 128, on the three templates instantiated at
-//   <192, 128>: S and dP run over their own widths (192 and 128), P V, dV
-//   and dO over 128, dQ and dK over 192, so v is never padded to 192.
+//   (128, 192] with d_v <= 128, on the forward and dq templates
+//   instantiated at <192, 128> and on
+//   `attention_backward_dkv_kernel_wgmma_split`: S and dP run over their
+//   own widths (192 and 128), P V, dV and dO over 128, dQ and dK over 192,
+//   so v is never padded to 192.
 //
 // All three kernels multiply on the tensor cores, `mma.sync` m16n8k8 TF32
 // with f32 accumulators, in 3xTF32: each f32 operand is split into a TF32
@@ -722,10 +724,8 @@ attention_backward_dq_kernel(const float* __restrict__ q,
 // the dropped and rescaled p. Four products a tile read the looped Q and dO
 // tiles as B operands, so the block splits each landed tile once into high
 // and low planes (`split_tile`) for its four warps: two blocks an SM at
-// d=64, faster on the H100 than splitting in registers at three. D is the
-// head dim of q, k and dk, DV that of v, dO and dv (DV = D but at split
-// dims).
-template <int D, int DV>
+// d=64, faster on the H100 than splitting in registers at three.
+template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 attention_backward_dkv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -736,18 +736,17 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
                               float* __restrict__ dk, float* __restrict__ dv,
                               Shape s, Strides sq, Strides sk, Strides sv,
                               Strides sdo, Options opt, int vec) {
-  constexpr int P = pitch<D>(), PV = pitch<DV>();
+  constexpr int P = pitch<D>();
   constexpr int KD = D / 8;
-  constexpr int KDV = DV / 8;
   constexpr int NQ = BN / 8;  // 8-query steps over a query tile
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [BM][P]
-  float* vs = ks + BM * P;                        // [BM][PV]
-  float* qs = vs + BM * PV;                       // [2][BN][P], then hi
-  float* dos = qs + 2 * BN * P;                   // [2][BN][PV], then hi
-  float* ql = dos + 2 * BN * PV;                  // [BN][P] lo
-  float* dol = ql + BN * P;                       // [BN][PV] lo
-  float* ls = dol + BN * PV;                      // [2][BN]
+  float* vs = ks + BM * P;                        // [BM][P]
+  float* qs = vs + BM * P;                        // [2][BN][P], then hi
+  float* dos = qs + 2 * BN * P;                   // [2][BN][P], then hi
+  float* ql = dos + 2 * BN * P;                   // [BN][P] lo
+  float* dol = ql + BN * P;                       // [BN][P] lo
+  float* ls = dol + BN * P;                       // [2][BN]
   float* es = ls + 2 * BN;                        // [2][BN]
 
   const int bkv = blockIdx.x;
@@ -775,8 +774,8 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     const int h = kvh * group + gi;
     load_rows<BN, D>(qs + stage * BN * P, q + b * sq.b + h * sq.h, sq.t, q0,
                      s.tq, s.d, vec & kVecQ);
-    load_rows<BN, DV>(dos + stage * BN * PV, dout + b * sdo.b + h * sdo.h,
-                      sdo.t, q0, s.tq, s.dv, vec & kVecDO);
+    load_rows<BN, D>(dos + stage * BN * P, dout + b * sdo.b + h * sdo.h,
+                     sdo.t, q0, s.tq, s.d, vec & kVecDO);
     const long long head_row = (static_cast<long long>(b) * s.h + h) * s.tq;
     const int i = threadIdx.x % BN;
     const bool ok = q0 + i < s.tq;
@@ -790,26 +789,22 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
 
   load_rows<BM, D>(ks, k + b * sk.b + kvh * sk.h, sk.t, k0, s.tk, s.d,
                    vec & kVecK);
-  load_rows<BM, DV>(vs, v + b * sv.b + kvh * sv.h, sv.t, k0, s.tk, s.dv,
-                    vec & kVecV);
+  load_rows<BM, D>(vs, v + b * sv.b + kvh * sv.h, sv.t, k0, s.tk, s.d,
+                   vec & kVecV);
   if (steps > 0) load_step(0, 0);
   cp_async_commit();
 
   const int ka = k0 + r0 + g, kb = ka + 8;
-  float adk[KD][4], adv[KDV][4];
+  float adk[KD][4], adv[KD][4];
 #pragma unroll
   for (int c = 0; c < KD; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[c][e] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < KDV; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adv[c][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
 
   for (int u = 0; u < steps; ++u) {
     const int stage = u & 1;
     float* qt = qs + stage * BN * P;
-    float* dot = dos + stage * BN * PV;
+    float* dot = dos + stage * BN * P;
     const float* lt = ls + stage * BN;
     const float* et = es + stage * BN;
     cp_async_wait_all();
@@ -817,15 +812,14 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
     if (u + 1 < steps) load_step(u + 1, stage ^ 1);
     cp_async_commit();
     split_tile<D>(qt, ql);
-    split_tile<DV>(dot, dol);
+    split_tile<D>(dot, dol);
     __syncthreads();  // the planes are split
     const int gi = u / per_head, q0 = (i_lo + u % per_head) * BN;
     const int vis = band(q0, q0 + BN - 1, k0 + r0, k0 + r0 + 15, s, opt);
     if (vis == 0) continue;  // none of these queries sees the warp's keys
     const unsigned seed = opt.seed + static_cast<unsigned>(gi) * GOLDEN;
 
-    // S^T and dP^T, their small terms summed apart (S^T over D, dP^T over
-    // DV: one loop over the wider)
+    // S^T and dP^T, their small terms summed apart
     float st[NQ][4], dpt[NQ][4], sts[NQ][4], dpts[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
@@ -833,17 +827,15 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = sts[n][e] =
           dpts[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < (KD > KDV ? KD : KDV); ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
       FragA ka_, va_;
-      if (kk < KD) load_a<P>(ka_, ks, r0, kk * 8, g, t);
-      if (kk < KDV) load_a<PV>(va_, vs, r0, kk * 8, g, t);
+      load_a<P>(ka_, ks, r0, kk * 8, g, t);
+      load_a<P>(va_, vs, r0, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int o = (n * 8 + g) * P + kk * 8 + t;
-        const int ov = (n * 8 + g) * PV + kk * 8 + t;
-        if (kk < KD) mma3s(st[n], sts[n], ka_, frag_b(qt, ql, o, o + 4));
-        if (kk < KDV)
-          mma3s(dpt[n], dpts[n], va_, frag_b(dot, dol, ov, ov + 4));
+        mma3s(st[n], sts[n], ka_, frag_b(qt, ql, o, o + 4));
+        mma3s(dpt[n], dpts[n], va_, frag_b(dot, dol, o, o + 4));
       }
     }
 
@@ -883,35 +875,35 @@ attention_backward_dkv_kernel(const float* __restrict__ q,
       acc_to_a(as[n], dpt[n]);
     }
 #pragma unroll
-    for (int c = 0; c < (KD > KDV ? KD : KDV); ++c) {
+    for (int c = 0; c < KD; ++c) {
       float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       float pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int o = (n * 8 + 2 * t) * P + c * 8 + g;
-        const int ov = (n * 8 + 2 * t) * PV + c * 8 + g;
-        if (c < KDV) mma3(pv, ap[n], frag_b(dot, dol, ov, ov + PV));
-        if (c < KD) mma3(pk, as[n], frag_b(qt, ql, o, o + P));
+        mma3(pv, ap[n], frag_b(dot, dol, o, o + P));
+        mma3(pk, as[n], frag_b(qt, ql, o, o + P));
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (c < KDV) adv[c][e] += pv[e];
-        if (c < KD) adk[c][e] += pk[e];
+        adv[c][e] += pv[e];
+        adk[c][e] += pk[e];
       }
     }
   }
   cp_async_wait_all();
 
 #pragma unroll
-  for (int c = 0; c < (KD > KDV ? KD : KDV); ++c)
+  for (int c = 0; c < KD; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ki = e < 2 ? ka : kb;
       const int col = c * 8 + 2 * t + (e & 1);
-      const long long row = static_cast<long long>(bkv) * s.tk + ki;
-      if (c < KD && ki < s.tk && col < s.d) dk[row * s.d + col] = adk[c][e];
-      if (c < KDV && ki < s.tk && col < s.dv)
-        dv[row * s.dv + col] = adv[c][e];
+      if (ki < s.tk && col < s.d) {
+        const long long row = static_cast<long long>(bkv) * s.tk + ki;
+        dk[row * s.d + col] = adk[c][e];
+        dv[row * s.d + col] = adv[c][e];
+      }
     }
 }
 
@@ -1453,6 +1445,602 @@ attention_backward_dkv_kernel_wgmma(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// dk, dv at the split head dims of multi-head latent attention on wgmma:
+// two consumer warpgroups and a producer warpgroup under mbarriers
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU's `_dkv_kernel` (tinynn_autograd_tpu/ops/attention.py
+// :690) at d_qk in (128, 192] with d_v <= 128, zero-padded to 192 and 128
+// (Moonlight's 192/128). Its bound at Moonlight's step (2 x 16 heads, 8,192
+// causal tokens): 1,375 GFLOP in four products, 8.336 ms at 3xTF32.
+// The kernel above does not scale to these dims. At 32-query steps its
+// layout needs 254,208 bytes of shared memory (the [query][d] planes
+// 81,920, the [d][query] planes 81,920, K and V in fragment order 49,152 +
+// 32,768, P 8,192), above the 232,448 a block can use; and its consumer 1
+// would hold dK at 64 x 192, 96 accumulator registers a thread and 96 more
+// for a step's share. So dK is computed transposed, dK^T += Q^T dS, with
+// A = Q^T read from Q's [query][d] planes, which drops Q's [d][query] ones:
+// - consumer 0, as above: S^T = K Q^T (m64n32k8, 24 steps over d_qk), P,
+//   P_d, and dV += P_d^T dO (m64n64k8 on each half of d_v, dO's [d][query]
+//   planes);
+// - consumer 1: dP^T = V dO^T (m64n32k8, 16 steps over d_v), dS (P handed
+//   over by consumer 0), written split into K-major [key][query] planes,
+//   then dK^T += Q^T dS on three 64-row tiles of d_qk (m64n64k8, 4 steps
+//   over the queries). Q^T's A fragments are two 8-byte loads a plane from
+//   Q's split [query][d] planes: row 16w + g (+ 8) of a tile is column
+//   16w + 2g (+ 1) of its 64. Each tile's share (32 registers) is summed
+//   apart and added once to dK^T's accumulator (96).
+// The work splits evenly: each consumer runs 655,360 MACs a step (x3).
+// Q's planes serve S^T and dK^T, so their empty barrier counts both
+// consumers' warps; the producer writes a step's dO planes before its Q
+// planes, since consumer 1 starts a step with dP^T while Q's planes still
+// serve its dK^T of the step before. Shared memory: Q's planes (48 KB),
+// dO's [query][d] and [d][query] planes (64 KB), K and V in fragment order
+// (80 KB), P (8 KB), dS's planes (16 KB), lse, delta and eight mbarriers:
+// 221,504 bytes. Registers: ptxas fits every role in the launch's 168 a
+// thread (it does not widen a region for `setmaxnreg`), with no spill
+// because dV's share is taken a half of d_v at a time (32 registers, not
+// 64) and Q^T's low part is held once, not in a ring of two: its wgmma is
+// committed apart, so it is done before the next step's load. The d = 128
+// kernel keeps its own code: a producer shared by the two kernels measured
+// 10% slower. PERF.md gives the designs reckoned and measured.
+namespace dkvs {
+constexpr int DQK = 192;           // q's and k's head dims 129-192, padded
+constexpr int DV = 128;            // v's up to 128, padded
+constexpr int BK = 64;             // keys a block: each consumer's 64 rows
+constexpr int BQ = 32;             // queries a step
+constexpr int RING = 2;            // K's or V's fragments in flight
+constexpr int QPLANE = BQ * DQK;   // floats in one of a step's Q planes
+constexpr int OPLANE = BQ * DV;    // in one of its dO planes
+constexpr int SPLANE = BK * BQ;    // in one of its dS planes
+constexpr int NTHREADS = 384;      // two consumer warpgroups, one producer
+// registers a thread at launch and after `setmaxnreg`, as the kernel above
+constexpr int ENTRY_REGS = 168, CONSUMER_REGS = 176, PRODUCER_REGS = 152;
+static_assert(2 * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - PRODUCER_REGS,
+              "the consumers take only what the producer gives up");
+// float offsets in shared memory: Q's [query][d] planes (hi, lo), dO's
+// [query][d] planes, dO's [d][query] planes, K and V in fragment order, P,
+// dS's [key][query] planes, lse, delta
+constexpr int QNAT = 0, ONAT = 2 * QPLANE, OTRN = ONAT + 2 * OPLANE,
+              KS = OTRN + 2 * OPLANE, VS = KS + BK * DQK, PS = VS + BK * DV,
+              SS = PS + BK * BQ, LS = SS + 2 * SPLANE, ES = LS + BQ,
+              BARS = ES + BQ;
+// barriers: Q's planes (with lse) full and empty (the empty one counts
+// both consumers' 8 warps), dO's [query][d] planes (with delta), dO's
+// [d][query] planes, P's hand-over; the others count 4 warps
+enum {
+  kQFull = 0, kQEmpty = 1, kOFull = 2, kOEmpty = 3, kTrnFull = 4,
+  kTrnEmpty = 5, kPFull = 6, kPEmpty = 7, kBars = 8
+};
+constexpr size_t SMEM = sizeof(float) * BARS + kBars * sizeof(uint64_t);
+static_assert(SMEM <= 232448, "fits an H100 block's shared memory");
+// bytes between 8-row groups of core matrices: Q's and dO's [query][d]
+// planes, dO's [d][query] planes and dS's [key][query] planes
+constexpr unsigned QNAT_STRIDE = (DQK / 4) * 128, ONAT_STRIDE = (DV / 4) * 128,
+                   STEP_STRIDE = (BQ / 4) * 128;
+
+// The producer's share of a step's rows of Q or dO (N float4 columns, a
+// head dim of 16 N): row `row` (`ok`: it exists) of the head slice at `xh`,
+// columns 4 it + cc, zero past `width`.
+template <int N>
+__device__ __forceinline__ void load_step_rows(float4 (&x)[N],
+                                               const float* xh, long long st,
+                                               int row, bool ok, int width,
+                                               int cc, bool aligned) {
+  const float* r = xh + (ok ? row * st : 0);
+#pragma unroll
+  for (int it = 0; it < N; ++it)
+    x[it] = row4(r, 4 * it + cc, width, ok, aligned);
+}
+// Those rows split into the [query][d] planes at `hi` and hi + plane: row
+// 2 si + odd of the core matrix (8-query group j, float4 column c) at word
+// (j * 4N + c) * 32 + (2 si + odd) * 4.
+template <int N>
+__device__ __forceinline__ void store_step_nat(const float4 (&x)[N],
+                                               float* hi, int plane, int j,
+                                               int si, int odd, int cc) {
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int at = (j * 4 * N + 4 * it + cc) * 32 + (2 * si + odd) * 4;
+    uint4 h, l;
+    split4(x[it], h, l);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(hi + plane + at) = l;
+  }
+}
+
+// sc = x y^T over STEPS steps of 8 in 3xTF32 for a consumer's 64 rows of x
+// (K or V in fragment order) against a step's 32 rows of y (Q or dO, split
+// [query][d] planes at y_hi and y_hi + plane), the small terms summed apart
+// in `sm`; x's fragments read (one 16-byte load) and split a step ahead, in
+// a ring of RING
+template <int STEPS>
+__device__ __forceinline__ void scores(float (&sc)[16], float (&sm)[16],
+                                       const float* x, uint64_t y_hi,
+                                       uint64_t plane, int lt) {
+  constexpr uint64_t kStep = 256 >> 4;  // 8 of K: two cores
+  FragA f[RING];
+  load_frag(f[0], x, 0, lt);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    fence_operand(sc[e]);
+    fence_operand(sm[e]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    const int cur = kk % RING, next = (kk + 1) % RING;
+    const uint64_t hi = y_hi + kk * kStep;
+    wgmma_fence();
+    wgmma_tf32(sm, f[cur].lo, hi, kk > 0);
+    wgmma_tf32(sm, f[cur].hi, hi + plane, 1);
+    wgmma_tf32(sc, f[cur].hi, hi, kk > 0);
+    wgmma_commit();
+    if (kk + 1 < STEPS) {
+      wgmma_wait<RING - 1>();  // step kk + 1 - RING is done with f[next]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(f[next].hi[e]);
+        fence_operand(f[next].lo[e]);
+      }
+      load_frag(f[next], x, kk + 1, lt);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    fence_operand(sc[e]);
+    fence_operand(sm[e]);
+  }
+#pragma unroll
+  for (int c = 0; c < RING; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(f[c].hi[e]);
+      fence_operand(f[c].lo[e]);
+    }
+}
+
+// Thread (w, g, t)'s A fragment of Q^T at query step kk for rows
+// [64 m, 64 m + 64) of d_qk, from Q's split [query][d] planes at `hi`: row
+// 16w + g (+ 8) of the tile is column 64m + 16w + 2g (+ 1) of Q, so each of
+// a0/a1 and a2/a3 is one 8-byte load a plane.
+__device__ __forceinline__ void load_qt(unsigned (&ah)[4], unsigned (&al)[4],
+                                        const float* hi, int m, int kk, int w,
+                                        int g, int t) {
+  const int dd = 64 * m + 16 * w + 2 * g;
+  const int at = (kk * (DQK / 4) + dd / 4) * 32 + t * 4 + dd % 4;
+  const float2 h0 = *reinterpret_cast<const float2*>(hi + at);
+  const float2 h1 = *reinterpret_cast<const float2*>(hi + at + 16);
+  const float2 l0 = *reinterpret_cast<const float2*>(hi + QPLANE + at);
+  const float2 l1 = *reinterpret_cast<const float2*>(hi + QPLANE + at + 16);
+  ah[0] = __float_as_uint(h0.x);
+  ah[1] = __float_as_uint(h0.y);
+  ah[2] = __float_as_uint(h1.x);
+  ah[3] = __float_as_uint(h1.y);
+  al[0] = __float_as_uint(l0.x);
+  al[1] = __float_as_uint(l0.y);
+  al[2] = __float_as_uint(l1.x);
+  al[3] = __float_as_uint(l1.y);
+}
+
+// Consumer 1's 128 threads only (named barrier 1).
+__device__ __forceinline__ void sync_consumer1() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+}  // namespace dkvs
+
+__global__ void __launch_bounds__(dkvs::NTHREADS, 1)
+attention_backward_dkv_kernel_wgmma_split(const float* __restrict__ q,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          float* __restrict__ dk,
+                                          float* __restrict__ dv, Shape s,
+                                          Strides sq, Strides sk, Strides sv,
+                                          Strides sdo, Options opt, int vec) {
+  using namespace dkvs;
+  extern __shared__ __align__(128) float smem[];
+  float* const ks = smem + KS;
+  float* const vs = smem + VS;
+  float* const ps = smem + PS;
+  float* const ls = smem + LS;
+  float* const es = smem + ES;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + BARS);
+
+  const int bkv = blockIdx.x;
+  const int b = bkv / s.hkv, kvh = bkv % s.hkv;
+  const int group = s.h / s.hkv;
+  const int k0 = blockIdx.y * BK;
+
+  // the query tiles that see this key tile, for each of the group's heads
+  const int nq = (s.tq + BQ - 1) / BQ;
+  int i_lo = 0, i_hi = nq - 1;
+  if (opt.causal) {
+    i_lo = k0 / BQ;
+    if (opt.window) i_hi = min(i_hi, (k0 + BK - 1 + opt.window - 1) / BQ);
+  }
+  const int per_head = max(0, i_hi - i_lo + 1);
+  const int steps = group * per_head;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kBars; ++i) mbar_init(bars + i, i == kQEmpty ? 8 : 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // K's and V's rows, raw f32, by all threads, in the order of the
+  // consumers' A fragments (`frag_at`)
+  {
+    const float* kh = k + b * sk.b + kvh * sk.h;
+    const float* vh = v + b * sv.b + kvh * sv.h;
+    for (int idx = threadIdx.x; idx < BK * (DQK / 4); idx += NTHREADS) {
+      const int r = idx / (DQK / 4), c = idx % (DQK / 4);
+      const bool ok = k0 + r < s.tk;
+      const float4 x =
+          row4(kh + (ok ? (k0 + r) * sk.t : 0), c, s.d, ok, vec & kVecK);
+      const int at = frag_at(r, 4 * c);
+      ks[at] = x.x; ks[at + 4] = x.y; ks[at + 8] = x.z; ks[at + 12] = x.w;
+    }
+    for (int idx = threadIdx.x; idx < BK * (DV / 4); idx += NTHREADS) {
+      const int r = idx / (DV / 4), c = idx % (DV / 4);
+      const bool ok = k0 + r < s.tk;
+      const float4 x =
+          row4(vh + (ok ? (k0 + r) * sv.t : 0), c, s.dv, ok, vec & kVecV);
+      const int at = frag_at(r, 4 * c);
+      vs[at] = x.x; vs[at + 4] = x.y; vs[at + 8] = x.z; vs[at + 12] = x.w;
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producer: dO, Q, delta and lse of each step into the planes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int p = threadIdx.x - 256, pw = p / 32, lane = p % 32;
+    // lane = 4a + si: the quad a holds rows 8 pw + 2si + odd of float4
+    // columns 4 it + cc; each quarter warp's 16-byte stores fill whole bank
+    // rows
+    const int si = lane & 3, a = lane >> 2;
+    const int odd = (a & 1) ^ ((a >> 1) & 1), cc = 2 * (a >> 2) + (a & 1);
+    float4 xq[DQK / 16], xo[DV / 16];
+    float lv = 0.0f;
+    // step u's rows of Q (or dO: `x`, its view, its width and alignment)
+    auto load = [&](auto& x, const float* src, const Strides& st, int width,
+                    bool aligned, int u) {
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const int row = q0 + 8 * pw + 2 * si + odd;
+      load_step_rows(x, src + b * st.b + (kvh * group + gi) * st.h, st.t,
+                     row, row < s.tq, width, cc, aligned);
+    };
+    // step u's lse (producer threads 0-31) or delta (32-63)
+    auto load_stats = [&](int u) {
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const long long head_row =
+          (static_cast<long long>(b) * s.h + kvh * group + gi) * s.tq;
+      const int i = p % BQ;
+      lv = 0.0f;
+      if (p < 2 * BQ && q0 + i < s.tq)
+        lv = p < BQ ? lse[head_row + q0 + i] : delta[head_row + q0 + i];
+    };
+    if (steps > 0) {
+      load(xo, dout, sdo, s.dv, vec & kVecDO, 0);
+      load(xq, q, sq, s.d, vec & kVecQ, 0);
+      load_stats(0);
+    }
+    // step u's planes go where step u - 1's were, once emptied
+    auto emptied = [&](int bar, int u) {
+      if (u > 0) mbar_wait(bars + bar, (u - 1) & 1);
+    };
+    for (int u = 0; u < steps; ++u) {
+      emptied(kOEmpty, u);  // dO for dP^T, with delta
+      store_step_nat(xo, smem + ONAT, OPLANE, pw, si, odd, cc);
+      if (p >= BQ && p < 2 * BQ) es[p - BQ] = lv;
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kOFull);
+      emptied(kQEmpty, u);  // Q for S^T and dK^T, with lse
+      store_step_nat(xq, smem + QNAT, QPLANE, pw, si, odd, cc);
+      if (p < BQ) ls[p] = lv;
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kQFull);
+      if (u + 1 < steps) {
+        load(xq, q, sq, s.d, vec & kVecQ, u + 1);
+        load_stats(u + 1);
+      }
+      // dO's [d][query] planes (column dd of slot 4 odd + i of 8-query
+      // group pw at word ((dd / 8) * 8 + 2 pw + odd) * 32 + (dd % 8) * 4 +
+      // i, after `quad_transpose`), then its rows of step u + 1
+#pragma unroll
+      for (int it = 0; it < DV / 16; ++it) quad_transpose(xo[it]);
+      emptied(kTrnEmpty, u);  // dO for dV
+#pragma unroll
+      for (int it = 0; it < DV / 16; ++it) {
+        const int dd = 4 * (4 * it + cc) + si;
+        const int at =
+            ((dd >> 3) * (BQ / 4) + 2 * pw + odd) * 32 + (dd & 7) * 4;
+        uint4 h, l;
+        split4(xo[it], h, l);
+        *reinterpret_cast<uint4*>(smem + OTRN + at) = h;
+        *reinterpret_cast<uint4*>(smem + OTRN + OPLANE + at) = l;
+      }
+      tinynn::fence_async_shared();
+      warp_arrive(bars + kTrnFull);
+      if (u + 1 < steps) load(xo, dout, sdo, s.dv, vec & kVecDO, u + 1);
+    }
+  } else if (threadIdx.x < 128) {
+    // ---- consumer 0: S^T, P (handed to consumer 1), P_d and dV += P_d^T dO
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int lt = threadIdx.x, w = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 16 * w;
+    const unsigned hh = bkv;
+    const uint64_t q_d = tinynn::kmajor_desc(smem + QNAT, QNAT_STRIDE);
+    const uint64_t z_hi = tinynn::kmajor_desc(smem + OTRN, STEP_STRIDE);
+    constexpr uint64_t kQPlane = QPLANE * 4 >> 4;  // descriptor units
+    constexpr uint64_t kOPlane = OPLANE * 4 >> 4;
+    constexpr uint64_t kStep = 256 >> 4;           // 8 of K: two cores
+    constexpr uint64_t kHalf = 8 * STEP_STRIDE >> 4;  // 64 of d_v
+
+    float acc[64];  // dV: acc[4n + e]
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+    // acc += the step's share of P_d^T dO (m64n64k8 on each half of d_v, 32
+    // registers of share at a time): P_d from the score accumulator, dO's
+    // [d][query] planes; each share summed apart and added once
+    auto outputs = [&](const float (&o)[16]) {
+      FragA f[BQ / 8];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+        f[j].set(o[4 * j], o[4 * j + 2], o[4 * j + 1], o[4 * j + 3]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float part[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fence_operand(part[e]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const uint64_t hi = z_hi + half * kHalf + j * kStep;
+          wgmma_tf32(part, f[j].lo, hi, j > 0);
+          wgmma_tf32(part, f[j].hi, hi + kOPlane, 1);
+          wgmma_tf32(part, f[j].hi, hi, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          fence_operand(part[e]);
+          acc[32 * half + e] += part[e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(f[j].hi[e]);
+          fence_operand(f[j].lo[e]);
+        }
+    };
+
+    int handed = 0;  // P's hand-overs so far
+    for (int u = 0; u < steps; ++u) {
+      const unsigned parity = u & 1;
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const int vis = band(q0, q0 + BQ - 1, k0, k0 + BK - 1, s, opt);
+      const unsigned seed = opt.seed + static_cast<unsigned>(gi) * GOLDEN;
+      // element i = 4j + e of the score accumulator: key k0 + r0 + g +
+      // 8 (e / 2), query q0 + 8j + 2t + (e & 1)
+      float o[16];
+      mbar_wait(bars + kQFull, parity);
+      if (vis) {
+        float sm[16];
+        scores<DQK / 8>(o, sm, ks, q_d, kQPlane, lt);
+        // P in place of S^T (masked pairs 0), handed to consumer 1; then
+        // P_d (a tile the masks leave whole takes a loop without a branch
+        // an element, so that its exponentials interleave)
+        if (vis == 2) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            o[i] = expf((o[i] + sm[i]) * opt.scale -
+                        ls[8 * (i >> 2) + 2 * t + (i & 1)]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+            const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+            float pv = 0.0f;
+            if (visible(q0 + col, ki, s, opt))
+              pv = expf((o[i] + sm[i]) * opt.scale - ls[col]);
+            o[i] = pv;
+          }
+        }
+        if (handed > 0) mbar_wait(bars + kPEmpty, (handed - 1) & 1);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) ps[i * 128 + lt] = o[i];
+        warp_arrive(bars + kPFull);
+        if (opt.dropout) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+            const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            if (o[i] != 0.0f)
+              o[i] = keep(hh, qi, ki, s, seed, opt.thresh) ? o[i] * opt.inv
+                                                           : 0.0f;
+          }
+        }
+      }
+      warp_arrive(bars + kQEmpty);
+      mbar_wait(bars + kTrnFull, parity);
+      if (vis) {
+        outputs(o);
+        ++handed;
+      }
+      warp_arrive(bars + kTrnEmpty);
+    }
+
+    // acc[4n + e]: key k0 + r0 + g + 8 (e / 2), column 8n + 2t + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (ki < s.tk && col < s.dv)
+        dv[(static_cast<long long>(bkv) * s.tk + ki) * s.dv + col] = acc[i];
+    }
+  } else {
+    // ---- consumer 1: dP^T, dS (with P from consumer 0) into dS's planes,
+    // and dK^T += Q^T dS
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int lt = threadIdx.x - 128, w = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 16 * w;
+    const unsigned hh = bkv;
+    const uint64_t o_d = tinynn::kmajor_desc(smem + ONAT, ONAT_STRIDE);
+    const uint64_t ds_d = tinynn::kmajor_desc(smem + SS, STEP_STRIDE);
+    constexpr uint64_t kOPlane = OPLANE * 4 >> 4;  // descriptor units
+    constexpr uint64_t kSPlane = SPLANE * 4 >> 4;
+    constexpr uint64_t kStep = 256 >> 4;           // 8 of K: two cores
+    const float* const qnat = smem + QNAT;
+    float* const ss = smem + SS;
+
+    float acc[96];  // dK^T: tile m's acc[32m + 4n + e]
+#pragma unroll
+    for (int e = 0; e < 96; ++e) acc[e] = 0.0f;
+
+    // acc += the step's share of Q^T dS, tile by tile of 64 rows of d_qk
+    // (m64n64k8, 4 steps over the queries): Q^T's fragments from Q's planes
+    // a step ahead, dS's [key][query] planes; each tile's share summed apart
+    // and added once
+    auto dk_tiles = [&]() {
+#pragma unroll
+      for (int m = 0; m < DQK / 64; ++m) {
+        float part[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fence_operand(part[e]);
+        // Q^T's fragments: the high parts in a ring of two, the low part
+        // alone, its wgmma committed apart so that it is done first
+        unsigned fh[2][4], fl[4];
+        load_qt(fh[0], fl, qnat, m, 0, w, g, t);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 8; ++kk) {
+          const int cur = kk & 1;
+          const uint64_t hi = ds_d + kk * kStep;
+          wgmma_fence();
+          wgmma_tf32(part, fl, hi, kk > 0);
+          wgmma_commit();
+          wgmma_tf32(part, fh[cur], hi + kSPlane, 1);
+          wgmma_tf32(part, fh[cur], hi, 1);
+          wgmma_commit();
+          if (kk + 1 < BQ / 8) {
+            wgmma_wait<1>();  // fl's wgmma and step kk - 1's are done
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              fence_operand(fh[cur ^ 1][e]);
+              fence_operand(fl[e]);
+            }
+            load_qt(fh[cur ^ 1], fl, qnat, m, kk + 1, w, g, t);
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          fence_operand(part[e]);
+          acc[32 * m + e] += part[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(fh[0][e]);
+          fence_operand(fh[1][e]);
+          fence_operand(fl[e]);
+        }
+      }
+    };
+
+    int handed = 0;  // P's hand-overs so far
+    for (int u = 0; u < steps; ++u) {
+      const unsigned parity = u & 1;
+      const int gi = u / per_head, q0 = (i_lo + u % per_head) * BQ;
+      const int vis = band(q0, q0 + BQ - 1, k0, k0 + BK - 1, s, opt);
+      const unsigned seed = opt.seed + static_cast<unsigned>(gi) * GOLDEN;
+      // element i = 4j + e of the score accumulator: key k0 + r0 + g +
+      // 8 (e / 2), query q0 + 8j + 2t + (e & 1)
+      float o[16];
+      mbar_wait(bars + kOFull, parity);
+      if (vis) {
+        float sm[16];
+        scores<DV / 8>(o, sm, vs, o_d, kOPlane, lt);
+        // dS in place of dP^T
+        mbar_wait(bars + kPFull, handed & 1);
+        if (vis == 2 && !opt.dropout) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            o[i] = ps[i * 128 + lt] *
+                   (o[i] + sm[i] - es[8 * (i >> 2) + 2 * t + (i & 1)]) *
+                   opt.scale;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int ki = k0 + r0 + g + 8 * ((i & 2) >> 1);
+            const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+            const int qi = q0 + col;
+            float ds = 0.0f;
+            if (vis == 2 || visible(qi, ki, s, opt)) {
+              const float pv = ps[i * 128 + lt];
+              float d = o[i] + sm[i];
+              if (opt.dropout)
+                d = keep(hh, qi, ki, s, seed, opt.thresh) ? d * opt.inv
+                                                          : 0.0f;
+              ds = pv * (d - es[col]) * opt.scale;
+            }
+            o[i] = ds;
+          }
+        }
+        warp_arrive(bars + kPEmpty);
+      }
+      warp_arrive(bars + kOEmpty);
+      if (vis) {
+        // dS split into its [key][query] planes: key 16w + g (+ 8), queries
+        // 8j + 2t and + 1 at word ((key / 8) * 8 + q / 4) * 32 + (key % 8) *
+        // 4 + q % 4, once the warpgroup's last dK^T no longer reads them
+        sync_consumer1();
+#pragma unroll
+        for (int i = 0; i < 16; i += 2) {
+          const int key = r0 + g + 8 * ((i & 2) >> 1);
+          const int qq = 8 * (i >> 2) + 2 * t;
+          const int at = ((key >> 3) * (BQ / 4) + (qq >> 2)) * 32 +
+                         (key & 7) * 4 + (qq & 3);
+          uint2 h, l;
+          split_tf32(o[i], h.x, l.x);
+          split_tf32(o[i + 1], h.y, l.y);
+          *reinterpret_cast<uint2*>(ss + at) = h;
+          *reinterpret_cast<uint2*>(ss + SPLANE + at) = l;
+        }
+        tinynn::fence_async_shared();
+        sync_consumer1();
+      }
+      mbar_wait(bars + kQFull, parity);
+      if (vis) {
+        dk_tiles();
+        ++handed;
+      }
+      warp_arrive(bars + kQEmpty);
+    }
+
+    // acc[32m + 4n + e]: column 64m + 16w + 2g + e / 2 of dk, key k0 + 8n +
+    // 2t + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 96; ++i) {
+      const int col = 64 * (i >> 5) + 16 * w + 2 * g + ((i & 2) >> 1);
+      const int ki = k0 + 8 * ((i & 31) >> 2) + 2 * t + (i & 1);
+      if (ki < s.tk && col < s.d)
+        dk[(static_cast<long long>(bkv) * s.tk + ki) * s.d + col] = acc[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dq at head dims 65-128 on wgmma: two consumer warpgroups and two
 // producer warpgroups under mbarriers
 // ---------------------------------------------------------------------------
@@ -1850,19 +2438,17 @@ constexpr size_t forward_smem() {
 // The backward blocks: two resident [BM][P] operands and two stages of two
 // looped [BN][P] ones; in dk/dv also the looped operands' low planes and
 // two stages of lse and delta. 69,632 and 87,552 bytes at d=64: three dq
-// blocks an SM, two dk/dv blocks; 167,936 and 210,432 at 192/128.
+// blocks an SM, two dk/dv blocks; dq 167,936 at 192/128.
 template <int D, int DV>
 constexpr size_t dq_smem() {
   return sizeof(float) * (BM + 2 * BN) * (pitch<D>() + pitch<DV>());
 }
-template <int D, int DV>
+template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         ((BM + 3 * BN) * (pitch<D>() + pitch<DV>()) + 4 * BN);
+  return sizeof(float) * ((2 * BM + 6 * BN) * pitch<D>() + 4 * BN);
 }
 static_assert(forward_smem<192, 128>() <= 232448 &&
-                  dq_smem<192, 128>() <= 232448 &&
-                  dkv_smem<192, 128>() <= 232448,
+                  dq_smem<192, 128>() <= 232448,
               "the split kernels fit an H100 block's shared memory");
 
 bool aligned16(const void* p) {
@@ -1929,7 +2515,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-template <int D, int DV = D>
+template <int D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* delta, float* dk, float* dv,
@@ -1937,12 +2523,11 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const Strides& sv, const Strides& sdo,
                        const Options& opt, cudaStream_t stream) {
   static bool done = false;
-  const size_t bytes = dkv_smem<D, DV>();
-  cudaError_t err =
-      allow_smem(attention_backward_dkv_kernel<D, DV>, bytes, &done);
+  const size_t bytes = dkv_smem<D>();
+  cudaError_t err = allow_smem(attention_backward_dkv_kernel<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.hkv, (s.tk + BM - 1) / BM);
-  attention_backward_dkv_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(
+  attention_backward_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, s, sq, sk, sv, sdo, opt,
       vec_flags(q, k, v, dout, sq, sk, sv, sdo));
   return cudaGetLastError();
@@ -1985,8 +2570,27 @@ cudaError_t launch_dkv_wgmma(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The head dims of the split instantiation <192, 128>: q and k wider than
-// 128 and at most 192, v at most 128 (each zero-padded in shared memory).
+cudaError_t launch_dkv_wgmma_split(const float* q, const float* k,
+                                   const float* v, const float* dout,
+                                   const float* lse, const float* delta,
+                                   float* dk, float* dv, const Shape& s,
+                                   const Strides& sq, const Strides& sk,
+                                   const Strides& sv, const Strides& sdo,
+                                   const Options& opt, cudaStream_t stream) {
+  static bool done = false;
+  cudaError_t err = allow_smem(attention_backward_dkv_kernel_wgmma_split,
+                               dkvs::SMEM, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s.b * s.hkv, (s.tk + dkvs::BK - 1) / dkvs::BK);
+  attention_backward_dkv_kernel_wgmma_split<<<grid, dkvs::NTHREADS,
+                                              dkvs::SMEM, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, s, sq, sk, sv, sdo, opt,
+      vec_flags(q, k, v, dout, sq, sk, sv, sdo));
+  return cudaGetLastError();
+}
+
+// The split head dims: q and k wider than 128 and at most 192, v at most
+// 128 (each zero-padded in shared memory to 192 and 128).
 bool split_dims(int d, int dv) {
   return d > 128 && d <= 192 && dv >= 1 && dv <= 128;
 }
@@ -1999,13 +2603,14 @@ bool split_dims(int d, int dv) {
 // dim; o [b, h, tq, dv], dq [b, h, tq, d], dk [b, hkv, tk, d], dv
 // [b, hkv, tk, dv], lse and delta [b, h, tq] are contiguous. window 0 means
 // none; dropout 0 means none. The head dims: d == dv <= 128, or the split
-// dims d in (128, 192] with dv <= 128 (the <192, 128> templates); any other
-// pair is cudaErrorInvalidValue. Returns the CUDA error of the launch (0
+// dims d in (128, 192] with dv <= 128 (the forward's and dq's <192, 128>
+// templates, the split dk/dv wgmma kernel); any other pair is
+// cudaErrorInvalidValue. Returns the CUDA error of the launch (0
 // when it was accepted). The dq and dk/dv entries take their design from
 // the caller (`dq_design` and `dkv_design` in ops/attention.py): wgmma 1
-// launches the wgmma kernel (d == dv up to 128, zero-padded), 0 the
-// template of d <= 32, d <= 64 or the split dims (another d is
-// cudaErrorInvalidValue).
+// launches the wgmma kernel (dq: d == dv up to 128, zero-padded; dk/dv:
+// d == dv up to 128, or the split dims), 0 the template of d <= 32, d <= 64
+// or, in dq, the split dims (another pair is cudaErrorInvalidValue).
 
 extern "C" int tinynn_attention_forward(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
@@ -2105,9 +2710,9 @@ extern "C" int tinynn_attention_backward_dkv(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dv != d)
-    err = !wgmma && split_dims(d, dv)
-              ? launch_dkv<192, 128>(qf, kf, vf, df, lf, ef, kg, vg, s, sq,
-                                     sk, sv, sdo, opt, st)
+    err = wgmma && split_dims(d, dv)
+              ? launch_dkv_wgmma_split(qf, kf, vf, df, lf, ef, kg, vg, s, sq,
+                                       sk, sv, sdo, opt, st)
               : cudaErrorInvalidValue;
   else if (d > 128)
     err = cudaErrorInvalidValue;

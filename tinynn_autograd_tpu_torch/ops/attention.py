@@ -274,8 +274,8 @@ def _operands(what, q, k, v, *rest):
 
 def split_dims(d, dv):
     """Whether q's and k's head dim ``d`` and v's ``dv`` are the split dims
-    the kernels' <192, 128> templates take: ``d`` in (128, 192], ``dv`` up to
-    128."""
+    the kernels take (the forward's and dq's <192, 128> templates, dk/dv's
+    split wgmma kernel): ``d`` in (128, 192], ``dv`` up to 128."""
     return MAX_HEAD_DIM < d <= SPLIT_HEAD_DIMS[0] and \
         1 <= dv <= SPLIT_HEAD_DIMS[1]
 
@@ -381,12 +381,14 @@ cuda_attention_backward_dq.split_launches = 0
 
 def dkv_design(d, dv=None):
     """The dk/dv kernel's design at head dim ``d`` (v's ``dv``, d's by
-    default): ``"wgmma"`` (the warp-specialised kernel on Hopper's
-    warpgroup products) for d in 65-128, ``"mma"`` (the ``mma.sync``
-    templates of d <= 32 and d <= 64, and of the split dims) otherwise. The
+    default): ``"wgmma"`` (the warp-specialised kernels on Hopper's
+    warpgroup products) for d in 65-128 and at the split dims, ``"mma"``
+    (the ``mma.sync`` templates of d <= 32 and d <= 64) otherwise. The
     wrapper hands the answer to the C entry point, which launches by it,
     and counts by it."""
-    return "wgmma" if 64 < d <= MAX_HEAD_DIM and dv in (None, d) else "mma"
+    if dv not in (None, d):
+        return "wgmma" if split_dims(d, dv) else "mma"
+    return "wgmma" if 64 < d <= MAX_HEAD_DIM else "mma"
 
 
 def cuda_attention_backward_dkv(q, k, v, do, lse, delta, causal, scale,
